@@ -1,0 +1,170 @@
+"""The group-by-aggregate engine — the paper's Fig. 2, five steps, in torch.
+
+    (b) mark last-of-group (entities t)           -> segscan.segment_ends
+    (c) rolling segmented prefix scan (entities n) -> segscan.segmented_scan
+    (d) finalize + rolling carry (entities n')    -> combiner.finalize + Carry
+    (e) round-robin compaction                    -> prefix sum of valid bits
+                                                     + one scatter
+
+Outputs are padded to the input length with a ``valid`` mask and a
+``num_groups`` count.  Inputs must be sorted by group id.  Every function
+works along the last axis; leading axes are a batch (windows, panes).
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core import segscan
+from repro_torch.core.combiners import Combiner, get_combiner, tree_map
+
+#: sentinel group id for padding slots (sorts after every real group id)
+PAD_GROUP = torch.iinfo(torch.int32).max
+
+
+class GroupAggResult(NamedTuple):
+    groups: torch.Tensor      # [..., N] int32 — compacted group ids (PAD tail)
+    values: torch.Tensor      # [..., N] — aggregate per group (zero tail)
+    valid: torch.Tensor       # [..., N] bool
+    num_groups: torch.Tensor  # [...] int32
+
+
+def _resolve(op) -> Combiner:
+    return op if isinstance(op, Combiner) else get_combiner(op)
+
+
+def _prefix_mask(n: int, n_valid, device) -> torch.Tensor:
+    """[..., n] mask of the first ``n_valid`` lanes (scalar or per row)."""
+    nv = torch.as_tensor(n_valid, device=device)
+    return torch.arange(n, device=device) < nv.unsqueeze(-1)
+
+
+def _scatter_drop(fill_shape, fill, dtype, idx, src, n: int) -> torch.Tensor:
+    """Scatter ``src`` to ``idx`` along the last axis into a buffer of
+    ``n + 1`` slots filled with ``fill``; slot ``n`` collects dropped lanes."""
+    buf = torch.full(fill_shape[:-1] + (n + 1,), fill, dtype=dtype,
+                     device=src.device)
+    return buf.scatter_(-1, idx, src.to(dtype))[..., :n]
+
+
+def _compact_layout(groups: torch.Tensor, emit: torch.Tensor):
+    """Step (e): the compaction permutation (prefix sum of ``emit``), the
+    compacted group column, and the valid mask/count."""
+    n = groups.shape[-1]
+    perm = segscan.exclusive_prefix_sum(emit)
+    scatter_idx = torch.where(emit, perm, n).to(torch.int64)
+    out_groups = _scatter_drop(groups.shape, PAD_GROUP, torch.int32,
+                               scatter_idx, groups, n)
+    num = emit.to(torch.int32).sum(-1, dtype=torch.int32)
+    out_valid = _prefix_mask(n, num, groups.device)
+    return scatter_idx, out_groups, num, out_valid
+
+
+def multi_engine_step(groups: torch.Tensor, keys: torch.Tensor, ops, *,
+                      carries=None, open_tail: bool = False, n_valid=None):
+    """One fused engine pass evaluating several combiners over one stream.
+
+    The segment structure (start/end marks, the compaction permutation, the
+    valid count) is computed once; each combiner adds its own lift, scan,
+    finalize and value scatter.
+
+    Args:
+      groups: [..., N] int group ids, sorted ascending along the last axis.
+      keys:   [..., N] values to aggregate.
+      ops:    tuple of combiner names / :class:`Combiner` objects.
+      carries: optional tuple of rolling :class:`segscan.Carry` states
+        aligned with ``ops`` (``None`` entries initialise).
+      open_tail: if True, the final real group is not emitted.
+      n_valid: optional prefix length (scalar or one per row) — only the
+        first ``n_valid`` tuples are real.
+
+    Returns ``((out_groups, values, out_valid, num), new_carries)``.
+    """
+    combiners = tuple(_resolve(op) for op in ops)
+    names = [c.name for c in combiners]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate combiner names in ops: {names}")
+
+    n = groups.shape[-1]
+    groups = groups.to(torch.int32)
+    in_valid = None
+    if n_valid is not None:
+        in_valid = _prefix_mask(n, n_valid, groups.device)
+        groups = torch.where(in_valid, groups, PAD_GROUP)
+
+    ends = segscan.segment_ends(groups)
+    starts = segscan.segment_starts(groups)
+
+    fresh = carries is None
+    if fresh:
+        carries = (None,) * len(combiners)
+    carries = tuple(
+        segscan.init_carry(c, keys.dtype, keys.device) if cr is None else cr
+        for c, cr in zip(combiners, carries))
+
+    scanneds = []
+    for combiner, carry in zip(combiners, carries):
+        scanned = segscan.segmented_scan(starts, combiner.lift(keys),
+                                         combiner)
+        if not fresh:  # a fresh carry is empty: merging it is a no-op
+            scanned = segscan.merge_carry(carry, groups, scanned, combiner)
+        scanneds.append(scanned)
+
+    emit = ends
+    if in_valid is not None:
+        emit = emit & (groups != PAD_GROUP)
+    if open_tail:
+        rev = torch.flip(emit, dims=(-1,)).to(torch.int32)
+        last_real = (torch.flip(torch.cumsum(rev, dim=-1), dims=(-1,)) == 1) \
+            & emit
+        emit = emit & ~last_real
+
+    scatter_idx, out_groups, num, out_valid = _compact_layout(groups, emit)
+
+    values = {}
+    new_carries = []
+    for combiner, carry, scanned in zip(combiners, carries, scanneds):
+        vals = combiner.finalize(scanned)
+        values[combiner.name] = _scatter_drop(vals.shape, 0, vals.dtype,
+                                              scatter_idx, vals, n)
+        new_carry = segscan.update_carry(carry, groups, scanned, emit,
+                                         combiner)
+        if in_valid is not None:
+            # an all-padding batch must not clobber the carry group id
+            n_real = in_valid.to(torch.int32).sum(-1)
+            any_real = n_real > 0
+            tail_idx = torch.clamp(n_real - 1, min=0).unsqueeze(-1).long()
+            tail_state = tree_map(
+                lambda s: torch.gather(s, -1, tail_idx).squeeze(-1), scanned)
+            tail_group = torch.gather(groups, -1, tail_idx).squeeze(-1)
+            new_carry = segscan.Carry(
+                group=torch.where(any_real, tail_group,
+                                  carry.group).to(torch.int32),
+                state=tree_map(lambda t, c: torch.where(any_real, t, c),
+                               tail_state, carry.state),
+                nonempty=carry.nonempty | any_real,
+                emitted=(carry.emitted + num).to(torch.int32),
+            )
+        new_carries.append(new_carry)
+
+    return (out_groups, values, out_valid, num), tuple(new_carries)
+
+
+def engine_step(groups: torch.Tensor, keys: torch.Tensor, op, *,
+                carry: segscan.Carry | None = None, open_tail: bool = False,
+                n_valid=None) -> tuple[GroupAggResult, segscan.Carry]:
+    """Single-op case of :func:`multi_engine_step`."""
+    combiner = _resolve(op)
+    carries = None if carry is None else (carry,)
+    (g, values, valid, num), (new_carry,) = multi_engine_step(
+        groups, keys, (combiner,), carries=carries, open_tail=open_tail,
+        n_valid=n_valid)
+    return GroupAggResult(g, values[combiner.name], valid, num), new_carry
+
+
+def _group_by_aggregate(groups: torch.Tensor, keys: torch.Tensor, op="sum",
+                        *, n_valid=None) -> GroupAggResult:
+    """Single-shot ``SELECT g, f(k) FROM t GROUP BY g ORDER BY g``."""
+    result, _ = engine_step(groups, keys, op, n_valid=n_valid)
+    return result

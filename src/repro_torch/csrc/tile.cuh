@@ -1,0 +1,465 @@
+// Shared device functions of the engine kernels: the in-tile primitives of
+// the JAX package's kernels/common.py, rethought for one thread block.
+//
+//   * combiner states as plain structs, one trait per op (Comb<OP, K>);
+//   * a block segmented inclusive scan that keeps operand order (the
+//     distinct-count state (dc, first, last) is not commutative): each
+//     thread scans L consecutive lanes in registers, warps scan the thread
+//     totals with shuffles, warp 0 scans the warp totals, and every lane
+//     folds in its prefix;
+//   * a block exclusive prefix sum (the compaction ranks: where the TPU
+//     kernels route lanes through a reverse butterfly because Mosaic has no
+//     scatter, a Hopper block scatters each lane to its rank);
+//   * a bitonic sort and a merge of presorted power-of-two runs of
+//     (int32 group, key) pairs in shared memory, lexicographic;
+//   * the multi-op window tail (_multi_tails_in_tile) with the lower-median
+//     pick (_median_in_tile) read off each run's end lane.
+//
+// Group ids lie strictly between INT32_MIN (the shift fill) and INT32_MAX
+// (PAD_GROUP, the padding sentinel).  Integer sums add as uint32 and
+// reinterpret, so they wrap as the JAX package's int32 sums do (signed
+// overflow is undefined in C++).
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace rt {
+
+constexpr int PAD_GROUP = 0x7fffffff;
+constexpr int SHIFT_FILL = (-0x7fffffff - 1);
+constexpr unsigned FULL_MASK = 0xffffffffu;
+// rows longer than this do not fit one block's shared memory as (g, k)
+// pairs of 8 bytes (16384 * 8 = 128 KiB of the 227 KiB a block may use)
+constexpr int MAX_ROW = 16384;
+constexpr int MAX_OPS = 12;
+
+enum OpCode {
+  OP_SUM = 0, OP_MIN, OP_MAX, OP_COUNT, OP_MEAN, OP_DC, OP_FIRST, OP_LAST,
+  OP_VARIANCE, OP_ARGMIN, OP_ARGMAX, OP_MEDIAN
+};
+
+enum KeyType { KEY_INT32 = 0, KEY_FLOAT32 = 1 };
+
+__device__ __forceinline__ int add_wrap(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ float add_wrap(float a, float b) { return a + b; }
+__device__ __forceinline__ int sub_wrap(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_up(T v, int d) {
+  static_assert(sizeof(T) % 4 == 0, "states are whole 32-bit words");
+  union U { T t; int w[sizeof(T) / 4]; };
+  U in, out;
+  in.t = v;
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T) / 4); ++i)
+    out.w[i] = __shfl_up_sync(FULL_MASK, in.w[i], d);
+  return out.t;
+}
+
+// ---------------------------------------------------------------- combiners
+// lift(key, lane) -> S; op(a, b) with a the earlier range; fin(S) -> Out.
+
+template <typename K> struct MeanS { K sum; int cnt; };
+template <typename K> struct DcS { int dc; K first; K last; };
+struct VarS { float n, mean, m2; };
+template <typename K> struct ArgS { K k; int idx; };
+
+template <int OP, typename K> struct Comb;
+
+template <typename K> struct Comb<OP_SUM, K> {
+  using Key = K; using S = K; using Out = K;
+  static __device__ S lift(K k, int) { return k; }
+  static __device__ S op(S a, S b) { return add_wrap(a, b); }
+  static __device__ Out fin(S s) { return s; }
+};
+template <typename K> struct Comb<OP_MIN, K> {
+  using Key = K; using S = K; using Out = K;
+  static __device__ S lift(K k, int) { return k; }
+  static __device__ S op(S a, S b) { return b < a ? b : a; }
+  static __device__ Out fin(S s) { return s; }
+};
+template <typename K> struct Comb<OP_MAX, K> {
+  using Key = K; using S = K; using Out = K;
+  static __device__ S lift(K k, int) { return k; }
+  static __device__ S op(S a, S b) { return a < b ? b : a; }
+  static __device__ Out fin(S s) { return s; }
+};
+template <typename K> struct Comb<OP_COUNT, K> {
+  using Key = K; using S = int; using Out = int;
+  static __device__ S lift(K, int) { return 1; }
+  static __device__ S op(S a, S b) { return add_wrap(a, b); }
+  static __device__ Out fin(S s) { return s; }
+};
+template <typename K> struct Comb<OP_MEAN, K> {
+  using Key = K; using S = MeanS<K>; using Out = float;
+  static __device__ S lift(K k, int) { return S{k, 1}; }
+  static __device__ S op(S a, S b) {
+    return S{add_wrap(a.sum, b.sum), add_wrap(a.cnt, b.cnt)};
+  }
+  // float32(total) / float32(max(cnt, 1)): one IEEE divide, as in JAX
+  static __device__ Out fin(S s) {
+    return static_cast<float>(s.sum) / static_cast<float>(s.cnt > 1 ? s.cnt : 1);
+  }
+};
+template <typename K> struct Comb<OP_DC, K> {
+  using Key = K; using S = DcS<K>; using Out = int;
+  static __device__ S lift(K k, int) { return S{1, k, k}; }
+  static __device__ S op(S a, S b) {
+    return S{sub_wrap(add_wrap(a.dc, b.dc), a.last == b.first ? 1 : 0),
+             a.first, b.last};
+  }
+  static __device__ Out fin(S s) { return s.dc; }
+};
+template <typename K> struct Comb<OP_FIRST, K> {
+  using Key = K; using S = K; using Out = K;
+  static __device__ S lift(K k, int) { return k; }
+  static __device__ S op(S a, S) { return a; }
+  static __device__ Out fin(S s) { return s; }
+};
+template <typename K> struct Comb<OP_LAST, K> {
+  using Key = K; using S = K; using Out = K;
+  static __device__ S lift(K k, int) { return k; }
+  static __device__ S op(S, S b) { return b; }
+  static __device__ Out fin(S s) { return s; }
+};
+template <typename K> struct Comb<OP_VARIANCE, K> {
+  using Key = K; using S = VarS; using Out = float;
+  static __device__ S lift(K k, int) { return S{1.0f, static_cast<float>(k), 0.0f}; }
+  static __device__ S op(S a, S b) {
+    float n = a.n + b.n;
+    float d = b.mean - a.mean;
+    float safe_n = n > 1.0f ? n : 1.0f;
+    float mean = a.mean + d * b.n / safe_n;
+    float m2 = a.m2 + b.m2 + d * d * a.n * b.n / safe_n;
+    return S{n, mean, m2};
+  }
+  static __device__ Out fin(S s) { return s.m2 / (s.n > 1.0f ? s.n : 1.0f); }
+};
+template <typename K> struct Comb<OP_ARGMIN, K> {
+  using Key = K; using S = ArgS<K>; using Out = int;
+  static __device__ S lift(K k, int lane) { return S{k, lane}; }
+  static __device__ S op(S a, S b) { return b.k < a.k ? b : a; }
+  static __device__ Out fin(S s) { return s.idx; }
+};
+template <typename K> struct Comb<OP_ARGMAX, K> {
+  using Key = K; using S = ArgS<K>; using Out = int;
+  static __device__ S lift(K k, int lane) { return S{k, lane}; }
+  static __device__ S op(S a, S b) { return b.k > a.k ? b : a; }
+  static __device__ Out fin(S s) { return s.idx; }
+};
+
+// ------------------------------------------------------------------- scans
+
+// Shared scratch of one block scan: warp totals (states up to 16 bytes),
+// their flags, and the warp sums of the rank scan.
+struct ScanSmem {
+  alignas(16) unsigned char states[32 * 16];
+  int flags[32];
+  int sums[32];
+  int misc[4];
+};
+
+// Segmented inclusive scan of the block's lanes; thread t holds lanes
+// t*L .. t*L+L-1 in s[] with their segment-start flags in f[].  With
+// has_carry, `carry` (the state of a run that began before lane 0) folds
+// into the lanes ahead of the first set flag.
+template <class C, int L>
+__device__ void block_seg_scan(typename C::S (&s)[L], const bool (&f)[L],
+                               bool has_carry, typename C::S carry,
+                               ScanSmem& sm) {
+  using S = typename C::S;
+  static_assert(sizeof(S) <= 16, "state too wide for the scan scratch");
+  S* wstate = reinterpret_cast<S*>(sm.states);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+
+  bool tf = f[0];
+#pragma unroll
+  for (int j = 1; j < L; ++j) {
+    if (!f[j]) s[j] = C::op(s[j - 1], s[j]);
+    tf = tf || f[j];
+  }
+  S ta = s[L - 1];
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    S oa = shfl_up(ta, d);
+    int of = __shfl_up_sync(FULL_MASK, tf ? 1 : 0, d);
+    if (lane >= d) {
+      if (!tf) ta = C::op(oa, ta);
+      tf = tf || of;
+    }
+  }
+  const S ea = shfl_up(ta, 1);  // exclusive prefix inside the warp
+  const bool ef = __shfl_up_sync(FULL_MASK, tf ? 1 : 0, 1) != 0;
+  if (lane == 31) {
+    wstate[warp] = ta;
+    sm.flags[warp] = tf ? 1 : 0;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    // lanes past nwarps hold stale values; a Hillis-Steele step only pulls
+    // from the left, so they never reach a live lane
+    S wa = wstate[lane < nwarps ? lane : 0];
+    bool wf = lane < nwarps ? sm.flags[lane] != 0 : true;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      S oa = shfl_up(wa, d);
+      int of = __shfl_up_sync(FULL_MASK, wf ? 1 : 0, d);
+      if (lane >= d) {
+        if (!wf) wa = C::op(oa, wa);
+        wf = wf || of;
+      }
+    }
+    if (lane < nwarps) {
+      wstate[lane] = wa;
+      sm.flags[lane] = wf ? 1 : 0;
+    }
+  }
+  __syncthreads();
+  // this thread's prefix: carry, then the earlier warps, then the earlier
+  // threads of this warp — a later flag restarts the running state
+  bool has = has_carry;
+  S pre = carry;
+  if (warp > 0) {
+    const S w = wstate[warp - 1];
+    pre = (has && sm.flags[warp - 1] == 0) ? C::op(pre, w) : w;
+    has = true;
+  }
+  if (lane > 0) {
+    pre = (has && !ef) ? C::op(pre, ea) : ea;
+    has = true;
+  }
+  bool live = has;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    live = live && !f[j];
+    if (live) s[j] = C::op(pre, s[j]);
+  }
+  __syncthreads();  // the scratch is reused by the next scan
+}
+
+// Exclusive prefix sum of v[] over the block's lanes into r[]; returns the
+// block total.
+template <int L>
+__device__ int block_excl_sum(const int (&v)[L], int (&r)[L], ScanSmem& sm) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int t = 0;
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    r[j] = t;
+    t += v[j];
+  }
+  int inc = t;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    int o = __shfl_up_sync(FULL_MASK, inc, d);
+    if (lane >= d) inc += o;
+  }
+  if (lane == 31) sm.sums[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < nwarps ? sm.sums[lane] : 0;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      int o = __shfl_up_sync(FULL_MASK, w, d);
+      if (lane >= d) w += o;
+    }
+    sm.sums[lane] = w;
+  }
+  __syncthreads();
+  const int base = (warp > 0 ? sm.sums[warp - 1] : 0) + inc - t;
+#pragma unroll
+  for (int j = 0; j < L; ++j) r[j] += base;
+  const int total = sm.sums[nwarps - 1];
+  __syncthreads();
+  return total;
+}
+
+// --------------------------------------------------------- sort and merge
+
+template <typename K>
+__device__ __forceinline__ bool lex_less(int ga, K ka, int gb, K kb) {
+  return ga < gb || (ga == gb && ka < kb);
+}
+
+template <typename K>
+__device__ __forceinline__ void swap_pair(int* g, K* k, int i, int q) {
+  const int tg = g[i]; g[i] = g[q]; g[q] = tg;
+  const K tk = k[i]; k[i] = k[q]; k[q] = tk;
+}
+
+// Bitonic sort of T (a power of two) pairs in shared memory; the network of
+// bitonic_sort_tile: stage (kk, j) pairs lane i (bit j clear) with i + j,
+// ascending iff bit kk of i is clear, strict compares.
+template <typename K>
+__device__ void block_bitonic_sort(int* g, K* k, int T) {
+  for (int kk = 2; kk <= T; kk <<= 1) {
+    for (int j = kk >> 1; j > 0; j >>= 1) {
+      for (int p = threadIdx.x; p < T / 2; p += blockDim.x) {
+        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+        const int q = i + j;
+        const bool up = (i & kk) == 0;
+        const bool sw = up ? lex_less(g[q], k[q], g[i], k[i])
+                           : lex_less(g[i], k[i], g[q], k[q]);
+        if (sw) swap_pair(g, k, i, q);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// Merge of T/run presorted ascending runs (core/sorter.merge_presorted):
+// per round, reverse every odd run, then ascending clean sweeps.
+template <typename K>
+__device__ void block_merge_presorted(int* g, K* k, int T, int run) {
+  for (int len = run; len < T; len <<= 1) {
+    const int half = len / 2;
+    const int nswap = (T / (2 * len)) * half;
+    for (int p = threadIdx.x; p < nswap; p += blockDim.x) {
+      const int b = p / half, q = p % half;
+      swap_pair(g, k, b * 2 * len + len + q, b * 2 * len + 2 * len - 1 - q);
+    }
+    __syncthreads();
+    for (int j = len; j > 0; j >>= 1) {
+      for (int p = threadIdx.x; p < T / 2; p += blockDim.x) {
+        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
+        const int q = i + j;
+        if (lex_less(g[q], k[q], g[i], k[i])) swap_pair(g, k, i, q);
+      }
+      __syncthreads();
+    }
+  }
+}
+
+// ------------------------------------------------------------ window tails
+
+struct OpList {
+  int n;
+  int code[MAX_OPS];
+  void* out[MAX_OPS];
+};
+
+// Lanes per thread for a row of T lanes: threads = max(32, T / L) <= 1024.
+__host__ __device__ constexpr int lanes_per_thread(int T) {
+  return T <= 128 ? 1 : (T <= 4096 ? 4 : 16);
+}
+__host__ __device__ constexpr int threads_for(int T) {
+  return T / lanes_per_thread(T) < 32 ? 32 : T / lanes_per_thread(T);
+}
+
+// One op's tail over a sorted row held in shared memory: scan, finalize at
+// the emitting lanes, scatter to the ranks, zero-fill the rest.
+template <class C, int L>
+__device__ void op_tail(const typename C::Key* sk, int T, const bool (&st)[L],
+                        const int (&em)[L], const int (&rk)[L], int cnt,
+                        typename C::Out* out, ScanSmem& sm) {
+  typename C::S s[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int i = threadIdx.x * L + j;
+    s[j] = C::lift(sk[i < T ? i : 0], i);
+  }
+  block_seg_scan<C, L>(s, st, false, s[0], sm);
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    if (em[j]) out[rk[j]] = C::fin(s[j]);
+  for (int r = cnt + threadIdx.x; r < T; r += blockDim.x)
+    out[r] = typename C::Out(0);
+}
+
+// Lower median per run: the count scan gives each run's cardinality at its
+// end lane e, and the median sits at e - card + 1 + (card - 1) / 2.
+template <typename K, int L>
+__device__ void median_tail(const K* sk, int T, const bool (&st)[L],
+                            const int (&em)[L], const int (&rk)[L], int cnt,
+                            K* out, ScanSmem& sm) {
+  using C = Comb<OP_COUNT, K>;
+  int s[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) s[j] = 1;
+  block_seg_scan<C, L>(s, st, false, 0, sm);
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    if (em[j]) {
+      const int e = threadIdx.x * L + j;
+      out[rk[j]] = sk[e - s[j] + 1 + (s[j] - 1) / 2];
+    }
+  }
+  for (int r = cnt + threadIdx.x; r < T; r += blockDim.x) out[r] = K(0);
+}
+
+template <class C, int L>
+__device__ __forceinline__ void op_tail_at(const typename C::Key* sk, int T,
+                                           const bool (&st)[L],
+                                           const int (&em)[L],
+                                           const int (&rk)[L], int cnt,
+                                           void* out, long long base,
+                                           ScanSmem& sm) {
+  op_tail<C, L>(sk, T, st, em, rk, cnt,
+                static_cast<typename C::Out*>(out) + base, sm);
+}
+
+// All requested tails over one closed, (group, key)-sorted row: the
+// segment marks and the compaction ranks are computed once and every op
+// shares them (_multi_tails_in_tile).  Writes og/ov rows at `row` and
+// oc[row].
+template <typename K, int L>
+__device__ void multi_tails(const int* sg, const K* sk, int T,
+                            const OpList& ops, long long row, int* og,
+                            int* oc, ScanSmem& sm) {
+  bool st[L];
+  int em[L], rk[L], gi[L];
+#pragma unroll
+  for (int j = 0; j < L; ++j) {
+    const int i = threadIdx.x * L + j;
+    if (i < T) {
+      gi[j] = sg[i];
+      const int gp = i > 0 ? sg[i - 1] : SHIFT_FILL;
+      const int gn = i < T - 1 ? sg[i + 1] : SHIFT_FILL;
+      st[j] = gi[j] != gp;
+      em[j] = (gi[j] != gn && gi[j] != PAD_GROUP) ? 1 : 0;
+    } else {
+      gi[j] = PAD_GROUP;
+      st[j] = true;
+      em[j] = 0;
+    }
+  }
+  const int cnt = block_excl_sum<L>(em, rk, sm);
+  const long long base = row * T;
+#pragma unroll
+  for (int j = 0; j < L; ++j)
+    if (em[j]) og[base + rk[j]] = gi[j];
+  for (int r = cnt + threadIdx.x; r < T; r += blockDim.x) og[base + r] = PAD_GROUP;
+
+  for (int o = 0; o < ops.n; ++o) {
+    void* out = ops.out[o];
+    switch (ops.code[o]) {
+      case OP_SUM: op_tail_at<Comb<OP_SUM, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_MIN: op_tail_at<Comb<OP_MIN, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_MAX: op_tail_at<Comb<OP_MAX, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_COUNT: op_tail_at<Comb<OP_COUNT, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_MEAN: op_tail_at<Comb<OP_MEAN, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_DC: op_tail_at<Comb<OP_DC, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_FIRST: op_tail_at<Comb<OP_FIRST, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_LAST: op_tail_at<Comb<OP_LAST, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_VARIANCE: op_tail_at<Comb<OP_VARIANCE, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_ARGMIN: op_tail_at<Comb<OP_ARGMIN, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_ARGMAX: op_tail_at<Comb<OP_ARGMAX, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
+      case OP_MEDIAN:
+        median_tail<K, L>(sk, T, st, em, rk, cnt, static_cast<K*>(out) + base, sm);
+        break;
+      default: break;
+    }
+  }
+  if (threadIdx.x == 0) oc[row] = cnt;
+}
+
+}  // namespace rt
