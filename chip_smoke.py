@@ -20,16 +20,30 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
          Window(ws=4096, wa=1024);
      (e) grouped median without a window on ``cuda`` (plus the (a) ops),
          at the largest stream the swag kernel takes in one row;
+     (f) per-group windows on ``cuda-panestore``, partial-fused regime, at
+         the repo's per-group configuration (``benchmarks/swag_bench.py``):
+         Window(ws=1024, wa=128, ws_per_group=1024, capacity=292), 32
+         uniform groups, 2^20 tuples, ops sum/count/min/max/mean;
+     (g) the same window over 64 groups (the 292 slots hold about half of
+         their windows, so the oldest panes are evicted), 2^16 tuples, ops
+         (f) + median + dc: the merge-replay regime;
    each result is checked against the ``reference`` backend on the card
-   over the full stream: groups, valid and counts equal, values equal on
-   the valid lanes (int32 keys); each run is then timed over 7 calls
-   (median, fastest and slowest);
+   (groups, valid and counts equal, values equal on the valid lanes, int32
+   keys): (a)-(e) over the full stream, (f) and (g) over their first 2^16
+   tuples, whose evaluations are the leading ones of the full run (the
+   reference places tuples one at a time in plain torch); the per-group
+   runs print the evictions and retirements of that prefix, and (f) fails
+   without a retirement, (g) without an eviction; each run is then timed
+   over 7 calls (median, fastest and slowest);
 4. each kernel against its plain torch version on the same card tensors at
    the shapes the main path gives it (int32 keys: exact, padded tails
-   included; the swag kernel at both its row widths), timed with CUDA
-   events beside the plain version, a library call where one computes the
-   same function, and the least time the card could take (H100 SXM data
-   sheet: 3.35 TB/s, 67 TFLOP/s float32 outside the tensor cores);
+   included; the swag kernel at both its row widths; the per-group
+   placement scan, with its eviction and retirement counts, on the first
+   2^16 tuples, its plain version being one torch loop step a tuple),
+   timed with CUDA events beside the plain
+   version, a library call where one computes the same function, and the
+   least time the card could take (H100 SXM data sheet: 3.35 TB/s, 67
+   TFLOP/s float32 outside the tensor cores);
 5. prints a ``phases`` line, a ``kernels`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -49,17 +63,30 @@ N = 1 << 24
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 OPS = ("min", "max", "sum", "count", "dc")
+#: tuples of runs (f) and (g) held against the reference: past (f)'s first
+#: retirement (about 37k) and (g)'s first eviction (about 33k)
+PREFIX = 1 << 16
+PARTIAL = ("sum", "count", "min", "max", "mean")
+#: the per-group window of runs (f) and (g) (benchmarks/swag_bench.py)
+PERGROUP = dict(ws=1024, wa=128, ws_per_group=1024, capacity=292)
 REPLACES = {
     "groupagg": "src/repro/kernels/groupagg/kernel.py:109",
     "swag": "src/repro/kernels/swag/kernel.py:453",
     "sort_panes": "src/repro/kernels/swag/kernel.py:138",
     "swag_panes": "src/repro/kernels/swag/kernel.py:176",
+    "pergroup_replay": "src/repro/kernels/swag/kernel.py:245",
+    "pergroup_fused": "src/repro/kernels/swag/kernel.py:365",
+    # no TPU kernel: the XLA lax.scan of _push_decide
+    "pergroup_scan": "src/repro/core/panestore.py:238",
 }
 SOURCES = {
     "groupagg": "src/repro_torch/csrc/groupagg.cu",
     "swag": "src/repro_torch/csrc/swag.cu",
     "sort_panes": "src/repro_torch/csrc/swag.cu",
     "swag_panes": "src/repro_torch/csrc/swag.cu",
+    "pergroup_scan": "src/repro_torch/csrc/pergroup.cu",
+    "pergroup_fused": "src/repro_torch/csrc/pergroup.cu",
+    "pergroup_replay": "src/repro_torch/csrc/pergroup.cu",
 }
 
 
@@ -70,10 +97,11 @@ def card_identity() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def timed_all(torch, fn, reps: int):
-    """(result, sorted ms of each call): one warm-up call, then ``reps``
-    calls, each between CUDA events."""
-    fn()
+def timed_all(torch, fn, reps: int, warmup: bool = True):
+    """(result, sorted ms of each call): one warm-up call (unless
+    ``warmup`` is False), then ``reps`` calls, each between CUDA events."""
+    if warmup:
+        fn()
     times = []
     out = None
     for _ in range(reps):
@@ -87,10 +115,16 @@ def timed_all(torch, fn, reps: int):
     return out, sorted(times)
 
 
-def timed(torch, fn, reps: int = 1):
+def timed(torch, fn, reps: int = 1, warmup: bool = True):
     """(result, median ms of ``reps`` calls after a warm-up call)."""
-    out, times = timed_all(torch, fn, reps)
+    out, times = timed_all(torch, fn, reps, warmup)
     return out, times[len(times) // 2]
+
+
+def plain_once(torch, fn):
+    """(result, ms) of one call of a plain per-tuple or per-chunk loop (a
+    warm-up call would double the slowest part of the script)."""
+    return timed(torch, fn, 1, warmup=False)
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -110,6 +144,13 @@ def flat(out):
     if len(out) == 3 and isinstance(out[1], dict):
         return [out[0], *out[1].values(), out[2]]
     return list(out)
+
+
+def leading(res, n_evals: int):
+    """The first ``n_evals`` evaluations of a windowed result."""
+    return type(res)(res.groups[:n_evals],
+                     {k: v[:n_evals] for k, v in res.values.items()},
+                     res.valid[:n_evals], res.num_groups[:n_evals])
 
 
 def check_against_reference(torch, got, want, tag: str) -> None:
@@ -140,6 +181,95 @@ def network_exchanges(rows: int, width: int, run: int = 1) -> float:
     return rows * (width / 2) * sweeps
 
 
+def pergroup_kernels(torch, sk, data, dev) -> list:
+    """The per-group kernels at the shapes runs (f) and (g) give them, each
+    against its plain version (the scan on the first PREFIX tuples)."""
+    from repro_torch.core import panestore as ps
+    from repro_torch.core.swag import frame_panes, write_plan
+    from repro_torch.query import Window
+
+    spec = Window(**PERGROUP).store_spec()
+    c, wa = spec.capacity, spec.wa
+    rows = []
+
+    def scan_row(tag, g, k):
+        ring = k is not None
+        st = ps.init_store(spec, torch.int32, device=dev)
+        n = g.shape[0]
+        trace, ms = timed(torch, lambda: sk.pergroup_scan(spec, st, g, k), 3)
+        pk = None if k is None else k[:PREFIX]
+        got = sk.pergroup_scan(spec, st, g[:PREFIX], pk)
+        want, plain_ms = plain_once(torch, lambda: sk.pergroup_scan_plain(
+            spec, st, g[:PREFIX], pk))
+        fields = lambda t: [t.slots, t.lanes, t.seqs, t.events, *(
+            x for x in (*t.states, *t.final) if x is not None)]
+        err = max_abs_err(torch, fields(got), fields(want))
+        evictions, retirements = got.events.tolist()
+        ne = n // wa
+        nbytes = (4 * n * (2 if ring else 1) + 12 * n + 16 * ne * c + 4 * ne
+                  + 32 * c + (8 * ne * c * wa if ring else 0))
+        # per tuple: compare and select over the C slots (newest, free,
+        # oldest, retire)
+        b, by = bound_ms(nbytes, 4.0 * n * c)
+        rows.append({"name": "pergroup_scan", "ms": ms, "plain_ms": plain_ms,
+                     "plain_tuples": PREFIX, "evictions": evictions,
+                     "retirements": retirements, "library_ms": None,
+                     "max_abs_err": err, "bound_ms": b, "bound_by": by,
+                     "shape": [ne, wa, c], "ring": ring, "runs": [tag]})
+        return trace
+
+    g32, k32 = data["pergroup32"]
+    trace = scan_row("f", g32, None)
+    plan = write_plan(spec, trace)
+    ne = plan[0].shape[0]
+    ck = frame_panes(k32, wa, ne).contiguous()
+    out, ms = timed(torch, lambda: sk.pergroup_fused(ck, *plan[:8], PARTIAL),
+                    3)
+    want, plain_ms = plain_once(torch, lambda: sk.pergroup_fused_plain(
+        ck, *plan[:8], PARTIAL))
+    err = max_abs_err(torch, list(out.values()), list(want.values()))
+    del out, want
+    # per chunk: the live lanes of every slot into per-slot partials, which
+    # combine into their group's row in O(C)
+    b, by = bound_ms(16 * ne * wa + 20 * ne * c + 4 * len(PARTIAL) * ne * c,
+                     ne * 4.0 * c * wa)
+    rows.append({"name": "pergroup_fused", "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": None, "max_abs_err": err, "bound_ms": b,
+                 "bound_by": by, "shape": [ne, wa, c], "runs": ["f"]})
+    del trace, plan, ck
+
+    g64, k64 = data["pergroup64"]
+    trace = scan_row("g", g64, k64)
+    runs = ps.gather_runs(spec, trace.states)
+    length = runs.run_keys.shape[-1]
+    rk = runs.run_keys.reshape(-1, length)
+    rv = runs.run_valid.reshape(-1, length).to(torch.int32)
+    del runs, trace
+    ops = PARTIAL + ("median", "distinct_count")
+    out, ms = timed(torch, lambda: sk.pergroup_replay(rk, rv, ops,
+                                                      run=wa), 3)
+    want, plain_ms = timed(torch, lambda: sk.pergroup_replay_plain(
+        rk, rv, ops, run=wa))
+    err = max_abs_err(torch, list(out.values()), list(want.values()))
+    del out, want
+    r = rk.shape[0]
+    live_rows = int((rv != 0).any(-1).sum().item())
+    live_lanes = int((rv != 0).sum().item())
+    # every lane's validity, the key of every live lane (a dead lane's key
+    # need not be read), one output a row and op; the sort of every row
+    # with a live lane, the tails over its lanes
+    b, by = bound_ms(4.0 * r * length + 4.0 * live_lanes
+                     + 4.0 * r * len(ops),
+                     network_exchanges(live_rows, length) * 4
+                     + 2.0 * r * length)
+    rows.append({"name": "pergroup_replay", "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": None, "max_abs_err": err, "bound_ms": b,
+                 "bound_by": by, "shape": [r, length],
+                 "live_rows": live_rows, "live_lanes": live_lanes,
+                 "runs": ["g"]})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -157,6 +287,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(src))
 
+    from repro_torch.core import panestore as ps
     from repro_torch.interop import from_numpy, make_stream
     from repro_torch.kernels import _build
     from repro_torch.kernels.groupagg import kernel as gk
@@ -174,7 +305,10 @@ def main() -> int:
           f"(nvcc {_build.build_seconds:.1f} s)", flush=True)
 
     wrappers = {"groupagg": gk.groupagg, "swag": sk.swag,
-                "sort_panes": sk.sort_panes, "swag_panes": sk.swag_panes}
+                "sort_panes": sk.sort_panes, "swag_panes": sk.swag_panes,
+                "pergroup_scan": sk.pergroup_scan,
+                "pergroup_fused": sk.pergroup_fused,
+                "pergroup_replay": sk.pergroup_replay}
     run_launches = {}
 
     t0 = time.perf_counter()
@@ -184,6 +318,8 @@ def main() -> int:
         "stream": from_numpy(*make_stream(SEED, N, 64, 1000), dev),
         "median": from_numpy(*make_stream(SEED, sk.MAX_ROW, 64, 1000,
                                           sorted_by="group_key"), dev),
+        "pergroup32": from_numpy(*make_stream(SEED, 1 << 20, 32, 1000), dev),
+        "pergroup64": from_numpy(*make_stream(SEED, 1 << 16, 64, 1000), dev),
     }
     print(f"data: {time.perf_counter() - t0:.1f} s", flush=True)
 
@@ -199,7 +335,17 @@ def main() -> int:
                                   window=Window(ws=4096, wa=1024)),
          "stream", ("sort_panes", "swag_panes")),
         ("e", "cuda", Query(ops=OPS + ("median",)), "median", ("swag",)),
+        ("f", "cuda-panestore", Query(ops=PARTIAL,
+                                      window=Window(**PERGROUP)),
+         "pergroup32", ("pergroup_scan", "pergroup_fused")),
+        ("g", "cuda-panestore", Query(ops=PARTIAL + ("median", "dc"),
+                                      window=Window(**PERGROUP)),
+         "pergroup64", ("pergroup_scan", "pergroup_replay")),
     ]
+    #: the store event each per-group run exists to exercise: (f)'s 32
+    #: groups fit the 292 slots (9 panes each at most), so it retires and
+    #: never evicts; (g)'s 64 groups do not fit, so it evicts
+    must_see = {"f": "retirements", "g": "evictions"}
     phases = []
     for tag, backend, q, which, expect in runs:
         g, k = data[which]
@@ -218,9 +364,26 @@ def main() -> int:
                 raise AssertionError(f"run ({tag}) did not launch {name}")
         run_launches[tag] = counts
         t1 = time.perf_counter()
-        want, _ = execute(q, g_in, k, backend="reference")
+        events = None
+        if q.window is not None and q.window.per_group:
+            # evaluation e depends on nothing after tuple (e + 1) * WA
+            checked = min(PREFIX, k.shape[0])
+            want, _ = execute(q, g_in[:checked], k[:checked],
+                              backend="reference")
+            res = leading(res, checked // q.window.wa)
+        else:
+            want, _ = execute(q, g_in, k, backend="reference")
+            checked = k.shape[0]
         check_against_reference(torch, res, want, f"run ({tag})")
         check_s = time.perf_counter() - t1
+        if tag in must_see:
+            spec = q.window.store_spec()
+            ev = sk.pergroup_scan(spec, ps.init_store(spec, device=dev),
+                                  g_in[:checked]).events.tolist()
+            events = {"evictions": ev[0], "retirements": ev[1]}
+            if events[must_see[tag]] == 0:
+                raise AssertionError(f"run ({tag}): no {must_see[tag]} in "
+                                     f"the {checked} tuples checked")
         del want, res
         # [1]: the last timed result is dropped here, not held into the
         # next run's peak memory
@@ -236,13 +399,16 @@ def main() -> int:
                "ms_max": times[-1], "calls": len(times),
                "tuples_per_s": n / (ms / 1e3), "peak_bytes": peak,
                "launches": counts, "reference_check_s": check_s,
-               "equal_to_reference": True}
+               "reference_checked_tuples": checked,
+               "store_events_checked": events, "equal_to_reference": True}
         phases.append(row)
         print(f"run ({tag}) {backend}: {n} tuples in {ms:.3f} ms (median "
               f"of {len(times)}, {times[0]:.3f}-{times[-1]:.3f}) = "
               f"{row['tuples_per_s']:.4g} tuples/s, peak {peak / 2**30:.2f} "
-              f"GiB, launches {counts}, equal to reference "
-              f"({check_s:.1f} s) [{identity}]", flush=True)
+              f"GiB, launches {counts}, equal to reference over "
+              f"{checked} tuples ({check_s:.1f} s)"
+              + ("" if events is None else f" with {events}")
+              + f" [{identity}]", flush=True)
 
     kernels = []
 
@@ -341,6 +507,8 @@ def main() -> int:
                     "library_ms": None, "max_abs_err": err, "bound_ms": b,
                     "bound_by": by, "shape": [nw, 4096],
                     "runs": ["b", "d"]})
+
+    kernels += pergroup_kernels(torch, sk, data, dev)
 
     for row in kernels:
         if row["max_abs_err"] != 0.0:

@@ -1,5 +1,5 @@
 """Sliding-window aggregation (SWAG) over count windows — the paper's Fig. 4
-pipeline, global-window half.
+pipeline: global windows, and per-group windows on the pane store.
 
     window buffer (WS, WA)  ->  small sorter  ->  group-by-aggregate engine
 
@@ -18,9 +18,15 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import engine as _engine
+from repro_torch.core import panestore as _panestore
 from repro_torch.core import segscan, sorter
-from repro_torch.core.combiners import (Combiner, get_combiner,
+from repro_torch.core.combiners import (Combiner, _acc_dtype, get_combiner,
+                                        is_integer, out_dtype,
                                         partial_combiner)
+
+PAD_GROUP = _engine.PAD_GROUP
+INT32_MIN = torch.iinfo(torch.int32).min
+INT32_MAX = torch.iinfo(torch.int32).max
 
 #: ops whose engine state is a single array combined by an associative,
 #: commutative op with identity finalize — eligible for shared partials
@@ -265,3 +271,295 @@ def swag_multi(groups, keys, *, ws: int, wa: int, ops: tuple,
         g, k = sorter.sort_pairs(g, k, full_width=True)
     return window_tails(g, k, tuple(zip(ops, names)),
                         interpolate=interpolate)
+
+
+# ----------------------------------------------------------------------
+# per-group windows on the shared pane store (repro_torch.core.panestore)
+# ----------------------------------------------------------------------
+
+def per_group_chunk_scan(spec, state, groups, keys, emit):
+    """Thread a pane store over the WA-sized chunks of the stream (the
+    trailing remainder stays unpushed) and apply ``emit`` to the stores
+    after every chunk, stacked along a leading ``[NE]`` axis.  Returns
+    ``(final_state, emit(stacked states))``."""
+    trace = _panestore.scan(spec, state, groups, keys)
+    return trace.final, emit(trace.states)
+
+
+def _group_ranks(groups: torch.Tensor):
+    """Within-group arrival rank of every tuple, plus the stable group-sort
+    permutation and the group-sorted ids."""
+    n = groups.shape[-1]
+    order = torch.sort(groups, stable=True).indices
+    sg = groups[order]
+    pos = torch.arange(n, dtype=torch.int32, device=groups.device)
+    starts = torch.ones((n,), dtype=torch.bool, device=groups.device)
+    starts[1:] = sg[1:] != sg[:-1]
+    seg_start = torch.cummax(torch.where(starts, pos, 0), 0).values
+    ranks = torch.empty_like(pos)
+    ranks[order] = pos - seg_start
+    return ranks, order.to(torch.int32), sg
+
+
+def _pergroup_dir_scan(spec, groups: torch.Tensor, ranks: torch.Tensor):
+    """Directory-only push scan over every full chunk, carrying each slot's
+    ``abase`` (the arrival rank of its first tuple; unlike the store-local
+    ``base`` it never resets, so windows derived from it map onto positions
+    of the group-sorted stream across eviction epochs).  Returns ``(carry,
+    (owner, abase, count) snapshots [NE, C])`` with ``carry = (owner,
+    count, base, abase, stamp, clock)``."""
+    trace = _panestore.scan(spec, _panestore.init_store(
+        spec, device=groups.device), groups, ranks=ranks)
+    f = trace.final
+    carry = (f.owner, f.count, f.base, trace.final_abase, f.stamp, f.clock)
+    return carry, (trace.states.owner, trace.abase, trace.states.count)
+
+
+def _owner_segments(own_s: torch.Tensor):
+    """The per-evaluation group directory of ``[NE, C]`` owner snapshots
+    (the JAX package's ``_snapshot_directory``), with what per-group
+    reductions need in place of its ``[NE, C, C]`` same-owner masks:
+    ``(perm, seg, ugroups, num)`` — the owner-sorted slot permutation, each
+    sorted position's group row (``C`` for free slots), the unique live ids
+    (ascending, PAD tail) and their count."""
+    ne, c = own_s.shape
+    so, perm = torch.sort(own_s, dim=1, stable=True)
+    occupied = so != PAD_GROUP
+    lane = torch.arange(c, device=own_s.device)
+    prev = torch.cat([torch.full((ne, 1), PAD_GROUP, dtype=torch.int32,
+                                 device=own_s.device), so[:, :-1]], 1)
+    firsts = occupied & ((so != prev) | (lane == 0))
+    f32 = firsts.to(torch.int32)
+    num = f32.sum(1, dtype=torch.int32)
+    row = torch.cumsum(f32, 1, dtype=torch.int32) - 1
+    seg = torch.where(occupied, row, c).to(torch.int64)
+    rank = torch.where(firsts, row, c).to(torch.int64)
+    ugroups = _engine._scatter_drop(so.shape, PAD_GROUP, torch.int32, rank,
+                                    so, c)
+    return perm, seg, ugroups, num
+
+
+def _segment_reduce(perm, seg, vals, reduce: str, fill):
+    """Reduce ``vals [NE, C]`` over the slots of each group row: returns
+    ``(per_row [NE, C], per_slot [NE, C])`` — the value of row r, and the
+    value of each slot's owner (``fill`` for free slots and past ``num``)."""
+    ne, c = vals.shape
+    out = torch.full((ne, c + 1), fill, dtype=vals.dtype, device=vals.device)
+    out.scatter_reduce_(1, seg, torch.gather(vals, 1, perm), reduce)
+    at_sorted = torch.where(seg < c, torch.gather(out, 1, seg), fill)
+    per_slot = torch.empty_like(vals).scatter_(1, perm, at_sorted)
+    return out[:, :c], per_slot
+
+
+def _pergroup_eval_windows(spec, own_s, ab_s, cnt_s):
+    """Per-(evaluation, group-row) window bounds in arrival-rank units:
+    ``m`` is the group's arrival count and ``lo = max(m - ws_g, amin)``,
+    ``amin`` the rank of the oldest retained pane (eviction raises the
+    lower bound).  Returns ``(ugroups, num, valid, lo, m)``."""
+    c = own_s.shape[1]
+    perm, seg, ugroups, num = _owner_segments(own_s)
+    m, _ = _segment_reduce(perm, seg, ab_s + cnt_s, "amax", INT32_MIN)
+    amin, _ = _segment_reduce(perm, seg, ab_s, "amin", INT32_MAX)
+    valid = torch.arange(c, device=own_s.device)[None, :] < num[:, None]
+    lo = torch.maximum(m - spec.ws_of(ugroups), amin)
+    return ugroups, num, valid, torch.where(valid, lo, 0), \
+        torch.where(valid, m, 0)
+
+
+def _sparse_table(x: torch.Tensor, combine, sentinel) -> torch.Tensor:
+    """Range-query levels: ``t[l][i] = combine over x[i : i + 2**l]``
+    (sentinel-padded past the end)."""
+    n = x.shape[-1]
+    t = [x]
+    step = 1
+    while step < n:
+        cur = t[-1]
+        shifted = torch.cat([cur[step:], torch.full(
+            (step,), sentinel, dtype=cur.dtype, device=cur.device)])[:n]
+        t.append(combine(cur, shifted))
+        step *= 2
+    return torch.stack(t)
+
+
+def _sparse_query(table: torch.Tensor, a, length, combine):
+    """``combine`` over ``x[a : a + length]`` (``length >= 1``) as two
+    overlapping power-of-two blocks; floor(log2) from the float64
+    exponent (exact)."""
+    n = table.shape[-1]
+    length = torch.clamp(length, min=1)
+    lev = torch.frexp(length.to(torch.float64)).exponent - 1
+    blk = torch.bitwise_left_shift(torch.ones_like(length), lev)
+    a1 = torch.clamp(a, 0, n - 1).long()
+    a2 = torch.clamp(a + length - blk, 0, n - 1).long()
+    lev = lev.long()
+    return combine(table[lev, a1], table[lev, a2])
+
+
+def _pergroup_partial_values(spec, names, sk, sg, ugroups, lo, m, valid):
+    """Each (evaluation, group) window is the slice ``[off_g + lo, off_g +
+    m)`` of the group-sorted stream: sums from one prefix sum (integer
+    wrap cancels in the difference), min/max from one sparse table, count
+    from the bounds."""
+    dt = sk.dtype
+    n = sk.shape[-1]
+    off = torch.searchsorted(sg, ugroups.contiguous()).to(torch.int32)
+    a = torch.clamp(off + lo, 0, n)
+    b = torch.clamp(off + m, 0, n)
+    cnt = torch.where(valid, m - lo, 0)
+    rsum = None
+    if any(nm in ("sum", "mean") for nm in names):
+        acc = _acc_dtype(dt)
+        wide = torch.int64 if is_integer(acc) else acc
+        ps = torch.cat([torch.zeros((1,), dtype=wide, device=sk.device),
+                        torch.cumsum(sk.to(wide), 0)])
+        rsum = torch.where(valid, (ps[b.long()] - ps[a.long()]).to(acc), 0)
+    out = {}
+    for nm in names:
+        if nm == "count":
+            out[nm] = cnt
+        elif nm == "sum":
+            out[nm] = rsum
+        elif nm == "mean":
+            out[nm] = (rsum.to(torch.float32)
+                       / torch.clamp(cnt, min=1).to(torch.float32))
+        elif nm in ("min", "max"):
+            fn, fill = ((torch.minimum, _panestore._key_sentinel(dt))
+                        if nm == "min" else
+                        (torch.maximum, torch.iinfo(dt).min
+                         if is_integer(dt) else float("-inf")))
+            v = _sparse_query(_sparse_table(sk, fn, fill), a, b - a, fn)
+            out[nm] = torch.where(cnt > 0, v, 0).to(dt)
+        else:
+            raise ValueError(f"{nm} is not a partial-path op")
+    return out
+
+
+def _reconstruct_store(spec, carry, sg, sk):
+    """Rebuild the ``[C, WA]`` ring buffers the directory-only scan never
+    materialised: lane ``l`` of an occupied slot holds the key at position
+    ``off(owner) + abase + l`` of the group-sorted stream with seq ``base +
+    l``, and closed panes re-apply the stable sort at close.  Freed slots
+    keep zeros.  The result continues the stream exactly."""
+    owner, count, base, abase, stamp, clock = carry
+    wa = spec.wa
+    n = sg.shape[-1]
+    occ = owner != PAD_GROUP
+    off = torch.searchsorted(sg, owner).to(torch.int32)
+    lanes = torch.arange(wa, dtype=torch.int32, device=sg.device)[None, :]
+    fill = occ[:, None] & (lanes < count[:, None])
+    pos = torch.clamp(off[:, None] + abase[:, None] + lanes, 0,
+                      max(n - 1, 0)).long()
+    keys = torch.where(fill, sk[pos], 0).to(sk.dtype)
+    seqs = torch.where(fill, base[:, None] + lanes, 0)
+    order = torch.sort(keys, dim=-1, stable=True).indices
+    closed = (count == wa)[:, None]
+    keys = torch.where(closed, torch.gather(keys, -1, order), keys)
+    seqs = torch.where(closed, torch.gather(seqs, -1, order), seqs)
+    return _panestore.PaneStoreState(owner, keys, seqs, count, base, stamp,
+                                     clock)
+
+
+def write_plan(spec, trace):
+    """The fused kernel's inputs from a directory scan: per-tuple write
+    coordinates, per-chunk directory snapshots with per-slot staleness
+    bounds (store-seq units), the close-sort mask and the per-evaluation
+    group directory.  Returns ``(slots, lanes, seqs [NE, WA]; own_s, cnt_s,
+    lo_s, sortmask [NE, C]; ugroups [NE, C], num [NE])``."""
+    own_s, cnt_s = trace.states.owner, trace.states.count
+    written = torch.zeros(own_s.shape, dtype=torch.bool,
+                          device=own_s.device)
+    written.scatter_(1, trace.slots.long(), True)
+    sortmask = (cnt_s == spec.wa) & written
+    occ = own_s != PAD_GROUP
+    span = torch.where(occ, trace.states.base + cnt_s, INT32_MIN)
+    perm, seg, ugroups, num = _owner_segments(own_s)
+    _, m = _segment_reduce(perm, seg, span, "amax", INT32_MIN)
+    lo_s = torch.where(occ, m - spec.ws_of(own_s), 0)
+    return (trace.slots, trace.lanes, trace.seqs, own_s, cnt_s, lo_s,
+            sortmask, ugroups, num)
+
+
+def pergroup_write_plan(spec, groups: torch.Tensor):
+    """:func:`write_plan` of the plain placement scan from an empty store."""
+    trace = _panestore.scan(spec, _panestore.init_store(
+        spec, device=groups.device), groups.to(torch.int32))
+    return write_plan(spec, trace)
+
+
+def _empty_pergroup(spec, names, key_dtype, device, interpolate=False):
+    """The result of a stream shorter than one pane: no evaluation."""
+    c = spec.capacity
+
+    def dtype(nm):
+        if nm == "median" and interpolate:
+            return torch.float32
+        return out_dtype(nm, key_dtype)
+
+    return (torch.full((0, c), PAD_GROUP, dtype=torch.int32, device=device),
+            {nm: torch.zeros((0, c), dtype=dtype(nm), device=device)
+             for nm in names},
+            torch.zeros((0, c), dtype=torch.bool, device=device),
+            torch.zeros((0,), dtype=torch.int32, device=device))
+
+
+def swag_per_group(groups, keys, *, spec, ops, interpolate: bool = False,
+                   state=None, counters=None):
+    """Per-group-window SWAG on the shared pane store — batch entry.
+
+    The stream is cut into ``spec.wa``-sized chunks; after each chunk one
+    evaluation replays every live group's last ``WS_g`` own tuples.  Two
+    regimes, as in the JAX package:
+
+    * partial path (every op in PANE_PARTIAL_OPS, float sum/mean excepted,
+      fresh store): a directory-only scan derives each window's bounds in
+      arrival-rank units and all NE x C windows come from the group-sorted
+      stream (prefix sums, sparse tables); the ring buffers are rebuilt
+      once at the end;
+    * merge path (anything else, or a continued stream via ``state=``):
+      the push scan records the store after every chunk, and one batched
+      merge + tails pass evaluates all NE x C replay rows.
+
+    Returns ``((groups, values, valid, num_groups), final_state)`` with a
+    leading ``[N // WA]`` axis and ``spec.capacity`` rows per evaluation.
+    """
+    if counters is not None:
+        raise NotImplementedError(
+            "swag_per_group(counters=...) is not ported yet; it comes with "
+            "ROADMAP queue 1, slice 6 (observability)")
+    names = [op.name if isinstance(op, Combiner) else op for op in ops]
+    groups = groups.to(torch.int32)
+    dev = groups.device
+    ne = groups.shape[-1] // spec.wa
+    c = spec.capacity
+    psel = _panestore.partial_path_names(names, keys.dtype)
+
+    if all(psel) and state is None and ne > 0:
+        ranks, order, sg = _group_ranks(groups)
+        sk = keys[order.long()]
+        carry, (own_s, ab_s, cnt_s) = _pergroup_dir_scan(spec, groups, ranks)
+        ugroups, num, valid, lo, m = _pergroup_eval_windows(
+            spec, own_s, ab_s, cnt_s)
+        values = _pergroup_partial_values(spec, names, sk, sg, ugroups, lo,
+                                          m, valid)
+        values = {nm: torch.where(valid, v, 0).to(v.dtype)
+                  for nm, v in values.items()}
+        final = _reconstruct_store(spec, carry, sg, sk)
+        return (ugroups, values, valid, num), final
+
+    if state is None:
+        state = _panestore.init_store(spec, keys.dtype, device=dev)
+    if ne == 0:
+        return _empty_pergroup(spec, names, state.keys.dtype, dev,
+                               interpolate), state
+    final, runs = per_group_chunk_scan(
+        spec, state, groups, keys.to(state.keys.dtype),
+        lambda st: _panestore.gather_runs(spec, st))
+    length = runs.run_keys.shape[-1]
+    mvals, _cnts = _panestore.replay_rows(
+        spec, runs.run_keys.reshape(ne * c, length),
+        runs.run_valid.reshape(ne * c, length), list(ops), names,
+        interpolate=interpolate)
+    valid = torch.arange(c, device=dev)[None, :] < runs.num_groups[:, None]
+    values = {nm: torch.where(valid, v.reshape(ne, c), 0).to(v.dtype)
+              for nm, v in mvals.items()}
+    return (runs.groups, values, valid, runs.num_groups), final

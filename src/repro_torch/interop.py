@@ -1,7 +1,9 @@
 """Data in and results out: seeded streams in numpy, tensors on a device,
-and results in the numpy layout of ``repro.query.AggResult`` — so the same
-inputs can go through both packages and their full outputs (padded tails
-included) be compared.  :func:`make_stream` needs only numpy (torch is
+results in the numpy layout of ``repro.query.AggResult``, and pane-store
+states in the field order of ``repro.core.panestore.PaneStoreState`` — so
+the same inputs can go through both packages, their full outputs (padded
+tails included) be compared, and a stream begun in one continue in the
+other.  :func:`make_stream` needs only numpy (torch is
 imported by the functions that use it), so a process that holds JAX alone
 can make the same inputs."""
 from __future__ import annotations
@@ -11,7 +13,12 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 if TYPE_CHECKING:
+    from repro_torch.core.panestore import PaneStoreState
     from repro_torch.query import AggResult
+
+#: the fields of a pane-store state, in order
+PANE_STATE_FIELDS = ("owner", "keys", "seqs", "count", "base", "stamp",
+                     "clock")
 
 
 def make_stream(seed: int, n: int, n_groups: int, key_max: int,
@@ -58,3 +65,29 @@ def result_to_numpy(res: AggResult) -> AggResult:
     return AggResult(np_(res.groups),
                      {name: np_(v) for name, v in res.values.items()},
                      np_(res.valid), np_(res.num_groups), res.stats)
+
+
+def pane_state_from_numpy(state_arrays, device="cuda") -> PaneStoreState:
+    """A pane-store state from numpy arrays — a mapping of
+    :data:`PANE_STATE_FIELDS` or a sequence in that order (a JAX
+    ``PaneStoreState`` converted with ``np.asarray`` field by field) — on
+    ``device``, ready for ``swag_per_group(state=...)``."""
+    import torch
+
+    from repro_torch.core.panestore import PaneStoreState
+
+    if hasattr(state_arrays, "keys") and callable(state_arrays.keys):
+        arrays = [state_arrays[f] for f in PANE_STATE_FIELDS]
+    else:
+        arrays = list(state_arrays)
+    if len(arrays) != len(PANE_STATE_FIELDS):
+        raise ValueError(f"a pane-store state has {len(PANE_STATE_FIELDS)} "
+                         f"arrays {PANE_STATE_FIELDS}, got {len(arrays)}")
+    return PaneStoreState(*(torch.from_numpy(np.array(a)).to(device)
+                            for a in arrays))
+
+
+def pane_state_to_numpy(state: PaneStoreState) -> dict:
+    """A pane-store state as ``{field: numpy array}``."""
+    return {f: getattr(state, f).detach().cpu().numpy()
+            for f in PANE_STATE_FIELDS}

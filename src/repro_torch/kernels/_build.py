@@ -37,6 +37,17 @@ _SIGNATURES = {
                      ctypes.POINTER(_I), ctypes.POINTER(_P), _I, _P, _P, _P],
     # g, k, key_type, nrows, T, og, ok, stream
     "rt_sort_rows": [_P, _P, _I, _I, _I, _P, _P, _P],
+    # g, k, key_type, ne, wa, c, pg, npg, default_ws, dir, clock, ring_k,
+    # ring_s, plan, snaps, clock_s, rk_s, rs_s, events, stream
+    "rt_pergroup_scan": [_P, _P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P],
+    # ck, slots, lanes, seqs, own, cnt, lo, sortmask, ug, key_type, ne, wa,
+    # c, codes, outs, nops, ring_k, ring_s, tag, stream
+    "rt_pergroup_fused": [_P] * 9 + [_I, _I, _I, _I, ctypes.POINTER(_I),
+                                     ctypes.POINTER(_P), _I, _P, _P, _P, _P],
+    # rk, rv, key_type, nrows, L, codes, outs, nops, stream
+    "rt_pergroup_replay": [_P, _P, _I, _I, _I, ctypes.POINTER(_I),
+                           ctypes.POINTER(_P), _I, _P],
 }
 
 _lock = threading.Lock()

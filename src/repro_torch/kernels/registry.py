@@ -8,7 +8,12 @@ package's registry).
                       counterpart of ``pallas``
   * ``cuda-panes``  — WA-panes sorted once, windows merged from presorted
                       panes; the counterpart of ``pallas-panes``
-  * ``auto``        — ``cuda-panes`` when the window shape allows, else
+  * ``cuda-panestore`` — per-group windows (``Window(ws_per_group=...)``):
+                      the placement scan kernel, then the fused push +
+                      partials kernel or the replay kernel; the counterpart
+                      of ``pallas-panestore``
+  * ``auto``        — ``cuda-panestore`` for per-group windows, else
+                      ``cuda-panes`` when the window shape allows, else
                       ``cuda``, for tensors on the card; ``reference`` on
                       the CPU
 
@@ -23,6 +28,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core.panestore import DIRECT_OPS, partial_path_names
 from repro_torch.core.swag import pane_compatible
 
 
@@ -40,6 +46,9 @@ def _ref_supports(q) -> str | None:
 
 def _cuda_window_common(q) -> str | None:
     """Window-clause checks shared by both window kernel backends."""
+    if q.window.per_group:
+        return ("per-group windows replay from the shared pane store — "
+                "use the cuda-panestore backend")
     if q.window.ws & (q.window.ws - 1):
         return f"cuda window kernels need power-of-two WS, got {q.window.ws}"
     if q.presorted:
@@ -81,10 +90,37 @@ def _cuda_panes_supports(q) -> str | None:
     return None
 
 
+def _cuda_panestore_supports(q) -> str | None:
+    if q.window is None or not q.window.per_group:
+        return ("the pane-store kernel serves per-group windows "
+                "(Window(ws_per_group=...)) only")
+    if q.streaming:
+        return "streaming pane-store carries are a reference-backend feature"
+    if q.interpolate:
+        return "cuda median is lower-median only (interpolate=False)"
+    bad = sorted(op for op in q.op_names if op not in DIRECT_OPS)
+    if bad:
+        return (f"the pane-store kernel computes {sorted(DIRECT_OPS)} "
+                f"directly (partial-fused for the partial-path ops, "
+                f"merge-replay otherwise); {bad} need the reference "
+                f"backend's engine-tail fallback")
+    return None
+
+
+def pergroup_kernel_path(query, key_dtype: torch.dtype | None = None) -> str:
+    """The regime ``cuda-panestore`` runs a per-group query in:
+    ``"partial-fused"`` when every op rides the per-pane partial path, else
+    ``"merge-replay"``."""
+    psel = partial_path_names(
+        list(query.op_names), torch.int32 if key_dtype is None else key_dtype)
+    return "partial-fused" if (psel and all(psel)) else "merge-replay"
+
+
 BACKENDS: dict[str, Backend] = {b.name: b for b in (
     Backend("reference", _ref_supports),
     Backend("cuda", _cuda_supports),
     Backend("cuda-panes", _cuda_panes_supports),
+    Backend("cuda-panestore", _cuda_panestore_supports),
 )}
 
 
@@ -111,11 +147,12 @@ def unsupported_error(name: str, reason: str) -> ValueError:
 
 def choose_backend(query, device: torch.device) -> str:
     """Resolve ``auto`` for one query on ``device``: the kernels on the
-    card (panes when the window shape allows), the reference on the CPU.
-    Routing by measured cost comes with the port's observability slice."""
+    card (the pane store for per-group windows, panes when the window shape
+    allows), the reference on the CPU.  Routing by measured cost comes with
+    the port's observability slice."""
     if device.type != "cuda":
         return "reference"
-    for name in ("cuda-panes", "cuda"):
+    for name in ("cuda-panestore", "cuda-panes", "cuda"):
         if BACKENDS[name].supports(query) is None:
             return name
     return "reference"

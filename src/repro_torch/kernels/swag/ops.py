@@ -4,16 +4,22 @@
 ``panes`` the WA-panes are sorted once and each window merges its P = WS/WA
 presorted panes; otherwise each window is re-sorted.  A fully (group,
 key)-sorted window is unique, so both give identical results.
+
+:func:`_swag_pergroup_kernel_exec` runs per-group windows on the pane
+store: the placement scan kernel, then either the fused push + partials
+kernel or a gather in torch and the replay kernel.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import panestore as _ps
 from repro_torch.core.combiners import out_dtype
 from repro_torch.core.engine import PAD_GROUP, _prefix_mask
 from repro_torch.core.sorter import next_pow2
-from repro_torch.core.swag import (frame_panes, frame_windows, num_windows,
-                                   resolve_panes)
+from repro_torch.core.swag import (_empty_pergroup, frame_panes,
+                                   frame_windows, num_windows, resolve_panes,
+                                   write_plan)
 from repro_torch.kernels.swag import kernel as _k
 
 
@@ -82,3 +88,54 @@ def _engine_median_kernel_exec(groups: torch.Tensor, keys: torch.Tensor,
     valid = _prefix_mask(n, num, dev)
     og = torch.where(valid, og[0, :n], PAD_GROUP)
     return og, {name: v[0, :n] for name, v in ovs.items()}, valid, num
+
+
+def _swag_pergroup_kernel_exec(groups: torch.Tensor, keys: torch.Tensor, *,
+                               spec, ops, regime: str):
+    """Per-group-window SWAG on the kernels; ``spec`` is a
+    :class:`repro_torch.core.panestore.PaneStoreSpec`, ``ops`` DIRECT_OPS
+    names, ``regime`` what
+    :func:`repro_torch.kernels.registry.pergroup_kernel_path` chose:
+
+    * partial-fused (every op on the partial path): one placement scan
+      launch gives the write plan, one fused launch writes the ring and
+      evaluates every chunk;
+    * merge-replay: the scan also keeps the ring and copies it after every
+      chunk, torch gathers each evaluation's replay rows, and one replay
+      launch runs every row's tails.
+
+    Returns ``(og [NE, C], {name: ov}, valid [NE, C], num_groups [NE])``.
+    """
+    names = _names(ops)
+    groups = groups.to(torch.int32).contiguous()
+    dev = groups.device
+    ne = groups.shape[-1] // spec.wa
+    c = spec.capacity
+    if ne == 0:
+        return _empty_pergroup(spec, names, keys.dtype, dev)
+
+    if regime == "partial-fused":
+        trace = _k.pergroup_scan(spec, _ps.init_store(spec, device=dev),
+                                 groups)
+        slots, lanes, seqs, own_s, cnt_s, lo_s, sortmask, ugroups, num = \
+            write_plan(spec, trace)
+        ovs = _k.pergroup_fused(frame_panes(keys, spec.wa, ne), slots, lanes,
+                                seqs, own_s, cnt_s, lo_s, sortmask, ugroups,
+                                names)
+    else:
+        trace = _k.pergroup_scan(
+            spec, _ps.init_store(spec, keys.dtype, device=dev), groups,
+            keys.contiguous())
+        runs = _ps.gather_runs(spec, trace.states)
+        length = runs.run_keys.shape[-1]
+        ovs = _k.pergroup_replay(
+            runs.run_keys.reshape(ne * c, length),
+            runs.run_valid.reshape(ne * c, length).to(torch.int32), names,
+            run=spec.wa)
+        ovs = {nm: v.reshape(ne, c) for nm, v in ovs.items()}
+        ugroups, num = runs.groups, runs.num_groups
+        del runs
+    valid = torch.arange(c, device=dev)[None, :] < num[:, None]
+    values = {nm: torch.where(valid, v, 0).to(v.dtype)
+              for nm, v in ovs.items()}
+    return torch.where(valid, ugroups, PAD_GROUP), values, valid, num

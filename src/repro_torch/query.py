@@ -7,18 +7,22 @@ grouped aggregation and count-window SWAG.
     >>> result, _ = execute(q, groups, keys)          # on the card
     >>> result.values["sum"].shape                    # [num_windows, 1024]
 
+Per-group windows (``Window(ws, wa, ws_per_group=..., capacity=...)``) run
+on the shared pane store: the last ``WS_g`` tuples of each group, one
+evaluation per ``wa`` tuples.
+
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; with no card, asking for ``cuda`` raises.  Backends:
-``reference`` | ``cuda`` | ``cuda-panes`` | ``auto``
+``reference`` | ``cuda`` | ``cuda-panes`` | ``cuda-panestore`` | ``auto``
 (:mod:`repro_torch.kernels.registry`).
 
 Contracts (as in the paper): non-windowed queries need the input sorted by
 group id; ``distinct_count`` and ``median`` also need keys sorted within
 groups.  Windowed queries sort internally.
 
-Streaming, per-group windows, event-time windows, execution statistics and
-sharded execution belong to later slices of the port and raise
-``NotImplementedError`` naming the ROADMAP slice that brings them.
+Streaming, event-time windows, execution statistics and sharded execution
+belong to later slices of the port and raise ``NotImplementedError`` naming
+the ROADMAP slice that brings them.
 """
 from __future__ import annotations
 
@@ -29,14 +33,16 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine as _engine
+from repro_torch.core import panestore as _panestore
 from repro_torch.core.combiners import Combiner, get_combiner
 from repro_torch.core.swag import (_median_sorted_window, _swag,
-                                   _swag_median, swag_multi)
+                                   _swag_median, swag_multi, swag_per_group)
 from repro_torch.kernels import common as _common
 from repro_torch.kernels import registry as _registry
 from repro_torch.kernels.groupagg.ops import _groupagg_kernel_exec
 from repro_torch.kernels.swag.ops import (_engine_median_kernel_exec,
-                                          _swag_kernel_exec)
+                                          _swag_kernel_exec,
+                                          _swag_pergroup_kernel_exec)
 
 #: spelling conveniences accepted anywhere an op name is
 OP_ALIASES = {
@@ -64,8 +70,16 @@ class Window:
     ``wa`` (``None`` means tumbling, ``wa = ws``; ``wa > ws`` samples).
     ``panes`` is the tri-state pane-path control of the reference backend.
 
-    The fields of ``repro.query.Window`` for per-group and event-time
-    windows are kept and raise until their slice is ported."""
+    ``ws_per_group`` selects per-group windows on the shared, evicting
+    pane store: a mapping ``{group id: ws}`` (other groups take ``ws``), a
+    tuple of such pairs, or one int for every group.  ``wa`` is then the
+    pane width (a power of two) and the evaluation stride; ``capacity``
+    bounds the store in pane slots (``None``: room for every listed group
+    plus four default ones).  When live groups need more, the globally
+    oldest pane is evicted and its group's window shrinks.
+
+    The event-time fields of ``repro.query.Window`` are kept and raise
+    until their slice is ported."""
     ws: int | None = None
     wa: int | None = None
     panes: bool | None = None
@@ -78,6 +92,8 @@ class Window:
     strategy: str | None = None
 
     def __post_init__(self):
+        if self.capacity is not None and self.capacity <= 0:
+            raise ValueError(f"capacity must be positive, got {self.capacity}")
         if self.range is not None:
             raise _later_slice("Window(range=...)", 5, "event time")
         for val, nm in ((self.slide, "slide"),
@@ -87,9 +103,6 @@ class Window:
             if val is not None:
                 raise ValueError(f"{nm} is an event-time parameter — it "
                                  f"needs Window(range=...)")
-        if self.ws_per_group is not None or self.capacity is not None:
-            raise _later_slice("Window(ws_per_group=..., capacity=...)", 4,
-                               "per-group windows")
         if self.ws is None:
             raise ValueError("Window needs ws (a tuple count) or "
                              "range (a time span)")
@@ -99,6 +112,35 @@ class Window:
         if wa <= 0:
             raise ValueError(f"wa must be positive, got {wa}")
         object.__setattr__(self, "wa", wa)
+        wpg = self.ws_per_group
+        if wpg is not None and not isinstance(wpg, int):
+            if isinstance(wpg, tuple):
+                pairs = wpg
+            else:
+                try:
+                    pairs = tuple(wpg.items())
+                except AttributeError:
+                    raise TypeError(
+                        "ws_per_group must be a mapping {group id: ws}, an "
+                        "int (uniform per-group window), or None; got "
+                        f"{wpg!r}") from None
+            wpg = tuple(sorted((int(g), int(w)) for g, w in pairs))
+            object.__setattr__(self, "ws_per_group", wpg)
+
+    @property
+    def per_group(self) -> bool:
+        return self.ws_per_group is not None
+
+    def store_spec(self) -> _panestore.PaneStoreSpec:
+        """The pane-store configuration this window clause implies."""
+        wpg = self.ws_per_group
+        pairs = wpg if isinstance(wpg, tuple) else ()
+        default = wpg if isinstance(wpg, int) else self.ws
+        cap = self.capacity
+        if cap is None:
+            cap = _panestore.default_capacity(self.wa, default, pairs)
+        return _panestore.PaneStoreSpec(wa=self.wa, capacity=cap,
+                                        default_ws=default, per_group=pairs)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,6 +212,15 @@ def plan(query: Query, *, backend: str | None = None,
     if query.streaming:
         raise _later_slice("Query(streaming=True)", 3, "streaming")
     device = _common.require_cuda(device)
+    if query.window is not None and query.window.per_group:
+        if query.presorted:
+            raise ValueError("presorted is meaningless with the pane "
+                             "store — it frames and sorts panes itself")
+        if query.window.panes is False:
+            raise ValueError("Window(panes=False) conflicts with "
+                             "ws_per_group: the pane store *is* the pane "
+                             "path")
+        query.window.store_spec()  # validate wa/capacity/ws_per_group now
     names = query.op_names
     if query.interpolate and "median" not in names:
         raise ValueError("interpolate=True applies to the median op only")
@@ -255,6 +306,16 @@ def _execute_engine(p: Plan, groups, keys, n_valid, *, tile: int):
 def _execute_window(p: Plan, groups, keys):
     q = p.query
     w = q.window
+    if w.per_group:
+        spec = w.store_spec()
+        if p.backend == "cuda-panestore":
+            og, ovs, valid, num = _swag_pergroup_kernel_exec(
+                groups, keys, spec=spec, ops=q.op_names,
+                regime=_registry.pergroup_kernel_path(q, keys.dtype))
+            return AggResult(og, ovs, valid, num)
+        (og, values, valid, num), _ = swag_per_group(
+            groups, keys, spec=spec, ops=q.ops, interpolate=q.interpolate)
+        return AggResult(og, values, valid, num)
     if p.backend in ("cuda", "cuda-panes"):
         og, ovs, valid, oc = _swag_kernel_exec(
             groups, keys, ws=w.ws, wa=w.wa, ops=q.op_names,

@@ -51,7 +51,7 @@ def port():
 
 #: the JAX backend each of the port's backends is held against
 PAIRS = {"reference": "reference", "cuda": "pallas",
-         "cuda-panes": "pallas-panes"}
+         "cuda-panes": "pallas-panes", "cuda-panestore": "pallas-panestore"}
 
 
 def execute_both(port, ops, g, k, *, backend, window=None, **kw):

@@ -120,3 +120,91 @@ def plan_backend(ops, *, backend=None, window=None, query=None):
 
 def make_window(**window):
     tq.Window(**window)
+
+
+# ------------------------------------------------------ per-group windows
+
+def _spec(spec_kw):
+    from repro_torch.core import panestore as ps
+
+    return ps.PaneStoreSpec(**spec_kw)
+
+
+def _state(state_arrays):
+    from repro_torch.interop import pane_state_from_numpy
+
+    return pane_state_from_numpy(state_arrays, "cpu")
+
+
+def pane_push_gather_replay(spec_kw, g, k, ops):
+    """``push`` from an empty store, then ``gather_runs`` and ``replay`` of
+    the result, all in numpy."""
+    from repro_torch.core import panestore as ps
+    from repro_torch.interop import pane_state_to_numpy
+
+    spec = _spec(spec_kw)
+    st = ps.push(spec, ps.init_store(spec, _t(k).dtype), _t(g), _t(k))
+    runs = ps.gather_runs(spec, st)
+    return (pane_state_to_numpy(st), _np(tuple(runs)),
+            _np(ps.replay(spec, st, list(ops))))
+
+
+def chunk_states(spec_kw, g, k):
+    """The store after every WA chunk, as the kernel path's placement scan
+    records it (its plain version)."""
+    from repro_torch.core import panestore as ps
+
+    spec = _spec(spec_kw)
+    trace = sk.pergroup_scan(spec, ps.init_store(spec, _t(k).dtype), _t(g),
+                             _t(k))
+    return _np(tuple(trace.states)), _np(tuple(trace.final))
+
+
+def write_plan(spec_kw, g):
+    from repro_torch.core.swag import pergroup_write_plan
+
+    return _np(tuple(pergroup_write_plan(_spec(spec_kw), _t(g))))
+
+
+def pergroup_fused(inputs, ops):
+    return _np(sk.pergroup_fused(*(_t(x) for x in inputs), ops))
+
+
+def pergroup_replay(rk, rv, ops, run):
+    return _np(sk.pergroup_replay(_t(rk), _t(rv), ops, run=run))
+
+
+def swag_per_group(spec_kw, g, k, ops, state_arrays=None):
+    """``swag_per_group`` (optionally continuing ``state_arrays``); the
+    result and the final state in numpy."""
+    from repro_torch.core.swag import swag_per_group as run
+    from repro_torch.interop import pane_state_to_numpy
+
+    state = None if state_arrays is None else _state(state_arrays)
+    out, final = run(_t(g), _t(k), spec=_spec(spec_kw), ops=list(ops),
+                     state=state)
+    return _np(out), pane_state_to_numpy(final)
+
+
+def pergroup_kernel_path(ops, window, float_keys=False):
+    from repro_torch.kernels import registry
+
+    return registry.pergroup_kernel_path(
+        _query(ops, window, None),
+        torch.float32 if float_keys else None)
+
+
+def backend_reason(name, ops, window=None, query=None):
+    from repro_torch.kernels import registry
+
+    return registry.get_backend(name).supports(_query(ops, window, query))
+
+
+def swag_per_group_counters():
+    """``swag_per_group(counters=...)``: raises until observability is
+    ported."""
+    from repro_torch.core.swag import swag_per_group as run
+
+    g = torch.zeros(8, dtype=torch.int32)
+    run(g, g, spec=_spec(dict(wa=4, capacity=8, default_ws=8)), ops=["sum"],
+        counters={})

@@ -5,14 +5,17 @@ with the card has no JAX), so it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Without a card every test skips; torch is imported inside the tests, so
-collecting this file elsewhere loads nothing of it.  Tolerance: integer
+Without a card every test skips; torch is imported inside the tests, and
+not at all where ``nvidia-smi`` is missing, so collecting or running this
+file elsewhere loads nothing of it into a process that holds JAX.  Tolerance: integer
 keys and the order-free ops (min, max, count, distinct_count, median,
 first, last, argmin, argmax) must match exactly; float sums, means and
 variances are reduced in another order by the kernels (thread-local runs,
 then warp and block scans), so they get rtol = atol = 1e-5.
 """
 from __future__ import annotations
+
+import shutil
 
 import numpy as np
 import pytest
@@ -27,6 +30,10 @@ ALL_WINDOW_OPS = ("sum", "min", "max", "count", "mean", "distinct_count",
 
 @pytest.fixture
 def cuda():
+    # no NVIDIA driver tool, no card: skip before importing torch, so a
+    # test process that also runs the JAX package's tests never loads it
+    if shutil.which("nvidia-smi") is None:
+        pytest.skip("needs a CUDA card (no nvidia-smi)")
     torch = pytest.importorskip("torch")
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
@@ -163,3 +170,133 @@ def test_execute_on_card_matches_reference(cuda, backend, window):
     for name in want.values:
         assert_same(torch.where(want.valid, got.values[name], 0),
                     torch.where(want.valid, want.values[name], 0), what=name)
+
+
+# ------------------------------------------------------ per-group windows
+
+PARTIAL_OPS = ("sum", "count", "min", "max", "mean")
+DIRECT_OPS = PARTIAL_OPS + ("median", "distinct_count")
+#: (wa, capacity, default ws, overrides, tuples, groups, hot groups): a
+#: squeezed store that evicts, an ample one, the repo's per-group
+#: configuration (C = 292 > 32 slots a lane, a [C, WA] ring larger than one
+#: block's shared memory), and C = 292 under churn: half the tuples from
+#: 4 hot groups, which retire panes, the rest from 600 cold ones, which
+#: evict (the scan's 10-slots-a-lane variant through both)
+PERGROUP_CASES = [(4, 5, 8, ((0, 16), (1, 4)), 200, 6, 0),
+                  (8, 40, 16, ((0, 32), (1, 8)), 320, 5, 0),
+                  (128, 292, 1024, (), 2048, 64, 0),
+                  (4, 292, 8, ((0, 16),), 2048, 600, 4)]
+CHURN = PERGROUP_CASES[3]
+
+
+def _pergroup_stream(case, dtype, device):
+    wa, cap, ws, pg, n, ngroups, hot = case
+    import torch
+
+    from repro_torch.core.panestore import PaneStoreSpec
+
+    g, k = _stream(n + cap, n, ngroups, dtype, None, device)
+    if hot:
+        pick = np.random.default_rng(n).random(n) < 0.5
+        g = torch.where(torch.from_numpy(pick).to(device), g % hot, g)
+    return PaneStoreSpec(wa=wa, capacity=cap, default_ws=ws,
+                         per_group=pg), g, k
+
+
+def _assert_trees(got, want, what, inexact=()):
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is None or b is None:
+            assert a is None and b is None, (what, i)
+        elif isinstance(a, tuple):
+            _assert_trees(a, b, f"{what}[{i}]")
+        else:
+            assert_same(a, b, what=f"{what}[{i}]")
+
+
+@pytest.mark.parametrize("ring", [False, True])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", PERGROUP_CASES)
+def test_pergroup_scan_kernel_vs_plain(cuda, case, dtype, ring):
+    import torch
+
+    from repro_torch.core import panestore as ps
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec, g, k = _pergroup_stream(case, dtype, cuda)
+    st = ps.init_store(spec, k.dtype, device=cuda)
+    keys = k if ring else None
+    got = sk.pergroup_scan(spec, st, g, keys)
+    want = sk.pergroup_scan_plain(spec, st, g, keys)
+    torch.cuda.synchronize()
+    _assert_trees(got, want, "scan")
+    if case == CHURN:
+        evictions, retirements = want.events.tolist()
+        assert evictions > 0 and retirements > 0, want.events
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", PERGROUP_CASES)
+def test_pergroup_fused_kernel_vs_plain(cuda, case, dtype):
+    import torch
+
+    from repro_torch.core.swag import frame_panes, pergroup_write_plan
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec, g, k = _pergroup_stream(case, dtype, cuda)
+    plan = pergroup_write_plan(spec, g)
+    ck = frame_panes(k, spec.wa, plan[0].shape[0]).contiguous()
+    got = sk.pergroup_fused(ck, *plan[:8], PARTIAL_OPS)
+    want = sk.pergroup_fused_plain(ck, *plan[:8], PARTIAL_OPS)
+    torch.cuda.synchronize()
+    for name in PARTIAL_OPS:
+        assert_same(got[name], want[name], inexact=name in INEXACT,
+                    what=name)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", PERGROUP_CASES)
+def test_pergroup_replay_kernel_vs_plain(cuda, case, dtype):
+    import torch
+
+    from repro_torch.core import panestore as ps
+    from repro_torch.core.swag import per_group_chunk_scan
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec, g, k = _pergroup_stream(case, dtype, cuda)
+    _, runs = per_group_chunk_scan(
+        spec, ps.init_store(spec, k.dtype, device=cuda), g, k,
+        lambda st: ps.gather_runs(spec, st))
+    length = runs.run_keys.shape[-1]
+    rk = runs.run_keys.reshape(-1, length).contiguous()
+    rv = runs.run_valid.reshape(-1, length).to(torch.int32)
+    got = sk.pergroup_replay(rk, rv, DIRECT_OPS, run=spec.wa)
+    want = sk.pergroup_replay_plain(rk, rv, DIRECT_OPS, run=spec.wa)
+    torch.cuda.synchronize()
+    for name in DIRECT_OPS:
+        assert_same(got[name], want[name], inexact=name in INEXACT,
+                    what=name)
+
+
+@pytest.mark.parametrize("ops", [PARTIAL_OPS, DIRECT_OPS])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("capacity", [None, 6])
+def test_pergroup_execute_on_card_matches_reference(cuda, ops, dtype,
+                                                    capacity):
+    import torch
+
+    from repro_torch.interop import make_stream
+    from repro_torch.query import Query, Window, execute, plan
+
+    g, k = make_stream(5, 400, 7, 60, dtype=dtype)
+    q = Query(ops=ops, window=Window(ws=16, wa=8, ws_per_group={0: 32, 1: 8},
+                                     capacity=capacity))
+    assert plan(q).backend == "cuda-panestore"
+    got, _ = execute(q, g, k)
+    want, _ = execute(q, g, k, backend="reference")
+    torch.cuda.synchronize()
+    assert_same(got.groups, want.groups, what="groups")
+    assert_same(got.valid, want.valid, what="valid")
+    assert_same(got.num_groups, want.num_groups, what="num_groups")
+    for name in ops:
+        assert_same(got.values[name], want.values[name],
+                    inexact=name in INEXACT, what=name)

@@ -1,0 +1,263 @@
+"""Per-group windows of the port (``Window(ws_per_group=...)`` on the shared
+pane store) against the JAX package on the CPU.
+
+* ``execute``: the port's ``reference`` against JAX ``reference``, and the
+  port's ``cuda-panestore`` (its kernels' plain versions) against JAX
+  ``pallas-panestore`` (Pallas interpret mode), both op sets, capacity
+  ``None`` and 6 (eviction) with int32 keys, 6 with float32 keys;
+* the store itself (``push``, ``gather_runs``, ``replay``, the stores after
+  every chunk), ``pergroup_write_plan`` and a stream continued from a
+  JAX-made state;
+* each ``*_plain`` kernel of ``pergroup_fused`` and ``pergroup_replay``
+  against its TPU kernel in interpret mode, on inputs the JAX package
+  built;
+* the probes and errors of the planner.
+
+Tolerance: element-exact (padded tails included), except float ``sum`` and
+``mean``, which the port reduces in another order: rtol = atol = 1e-5.
+The port runs in its own process (``_torch_parity.port``); the JAX side is
+jitted, one program per call.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from _torch_parity import assert_result_same, assert_same, port  # noqa: F401
+from _torch_parity import execute_both
+from repro.core import panestore as jps
+from repro.core.swag import (per_group_chunk_scan, pergroup_write_plan,
+                             swag_per_group)
+from repro.kernels.swag import kernel as jk
+from repro_torch.interop import make_stream
+
+WS_MAP = {0: 32, 1: 8}
+PARTIAL = ("sum", "count", "min", "max", "mean")
+ALL_DIRECT = PARTIAL + ("median", "distinct_count")
+#: a store small enough to evict (capacity 5 with 4-lane panes)
+SQUEEZE = dict(wa=4, capacity=5, default_ws=8, per_group=((0, 16), (1, 4)))
+AMPLE = dict(SQUEEZE, capacity=40)
+
+
+def _stream(seed, n, dtype=np.int32):
+    return make_stream(seed, n, 6, 60, dtype=dtype)
+
+
+def _jspec(spec_kw):
+    return jps.PaneStoreSpec(**spec_kw)
+
+
+def _same_tree(want, got, what, float_keys=False):
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert_same(w, g, name=f"{what}[{i}]", float_keys=float_keys)
+
+
+@pytest.mark.parametrize("capacity,dtype", [
+    (None, np.int32), (6, np.int32), (6, np.float32)])
+@pytest.mark.parametrize("ops", [PARTIAL, ALL_DIRECT],
+                         ids=["partial", "all_direct"])
+@pytest.mark.parametrize("backend", ["reference", "cuda-panestore"])
+def test_execute_matches_jax(port, backend, ops, capacity, dtype):
+    g, k = make_stream(3, 160, 5, 60, dtype=dtype)
+    window = {"ws": 16, "wa": 8, "ws_per_group": WS_MAP,
+              "capacity": capacity}
+    want, got = execute_both(port, ops, g, k, backend=backend,
+                             window=window)
+    assert got.groups.shape == (20, 32 if capacity is None else 6)
+    assert_result_same(want, got, float_keys=dtype == np.float32)
+
+
+@pytest.mark.parametrize("spec_kw", [SQUEEZE, AMPLE],
+                         ids=["squeeze", "ample"])
+def test_push_gather_replay_match_jax(port, spec_kw):
+    g, k = _stream(21, 96)
+    spec = _jspec(spec_kw)
+
+    @jax.jit
+    def jax_side(g, k):
+        st = jps.push(spec, jps.init_store(spec, k.dtype), g, k)
+        return st, jps.gather_runs(spec, st), \
+            jps.replay(spec, st, list(ALL_DIRECT))
+
+    want = jax_side(jnp.array(g), jnp.array(k))
+    st, runs, rep = port.pane_push_gather_replay(spec_kw, g, k, ALL_DIRECT)
+    for field, w in zip(jps.PaneStoreState._fields, want[0]):
+        assert_same(w, st[field], name=field)
+    _same_tree(want[1], runs, "gather_runs")
+    _same_tree((want[2][0], *want[2][2:]), (rep[0], *rep[2:]), "replay")
+    for name in ALL_DIRECT:
+        assert_same(want[2][1][name], rep[1][name], name=name)
+
+
+def test_chunk_states_match_jax(port):
+    # the stores after every chunk, as the kernel path's placement scan
+    # records them, against the JAX per-chunk push
+    g, k = _stream(22, 96)
+    spec = _jspec(SQUEEZE)
+    final, states = jax.jit(lambda g, k: per_group_chunk_scan(
+        spec, jps.init_store(spec, k.dtype), g, k, lambda st: st))(
+        jnp.array(g), jnp.array(k))
+    got_states, got_final = port.chunk_states(SQUEEZE, g, k)
+    _same_tree(states, got_states, "states")
+    _same_tree(final, got_final, "final")
+
+
+@pytest.mark.parametrize("spec_kw", [SQUEEZE, AMPLE],
+                         ids=["squeeze", "ample"])
+def test_write_plan_matches_jax(port, spec_kw):
+    g, _ = _stream(23, 96)
+    spec = _jspec(spec_kw)
+    want = jax.jit(lambda g: pergroup_write_plan(spec, g))(
+        jnp.array(g))
+    got = port.write_plan(spec_kw, g)
+    assert len(want) == len(got) == 9
+    _same_tree(want, got, "write_plan")
+
+
+@pytest.mark.parametrize("dtype,ops", [
+    (np.int32, PARTIAL),
+    (np.float32, ("min", "count", "max", "sum", "mean")),
+])
+def test_fused_plain_matches_pallas(port, dtype, ops):
+    g, k = _stream(24, 96, dtype)
+    spec = _jspec(SQUEEZE)
+    plan = jax.jit(lambda g: pergroup_write_plan(spec, g))(
+        jnp.array(g))
+    ck = k[:len(k) // spec.wa * spec.wa].reshape(-1, spec.wa)
+    inputs = (ck,) + tuple(np.asarray(x) for x in plan[:8])
+    want = jk.pergroup_fused_pallas(*(jnp.array(x) for x in inputs), ops,
+                                    interpret=True)
+    got = port.pergroup_fused(inputs, ops)
+    assert list(got) == list(ops)
+    for name in ops:
+        assert_same(want[name], got[name], name=name,
+                    float_keys=dtype == np.float32)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_replay_plain_matches_pallas(port, dtype):
+    g, k = _stream(25, 96, dtype)
+    spec = _jspec(SQUEEZE)
+    _final, runs = jax.jit(lambda g, k: per_group_chunk_scan(
+        spec, jps.init_store(spec, k.dtype), g, k,
+        lambda st: jps.gather_runs(spec, st)))(jnp.array(g), jnp.array(k))
+    length = runs.run_keys.shape[-1]
+    rk = np.asarray(runs.run_keys).reshape(-1, length)
+    rv = np.asarray(runs.run_valid).reshape(-1, length).astype(np.int32)
+    want = jk.pergroup_replay_pallas(jnp.array(rk), jnp.array(rv),
+                                     ALL_DIRECT, run=spec.wa, interpret=True)
+    got = port.pergroup_replay(rk, rv, ALL_DIRECT, spec.wa)
+    for name in ALL_DIRECT:
+        assert_same(want[name], got[name], name=name,
+                    float_keys=dtype == np.float32)
+
+
+@pytest.mark.parametrize("ops", [PARTIAL, ALL_DIRECT],
+                         ids=["partial", "all_direct"])
+def test_jax_state_continues_in_the_port(port, ops):
+    # a stream begun in JAX (its final state carried across as numpy)
+    # continues in the port as it continues in JAX
+    g, k = _stream(26, 128)
+    spec = _jspec(SQUEEZE)
+    run = jax.jit(lambda g, k, st: swag_per_group(
+        g, k, spec=spec, ops=list(ops), state=st))
+    (og, vals, valid, num), jstate = jax.jit(
+        lambda g, k: swag_per_group(g, k, spec=spec, ops=list(ops)))(
+        jnp.array(g[:96]), jnp.array(k[:96]))
+    # the port's own run of the first part ends in the same state
+    (pg, pvals, pvalid, pnum), pstate = port.swag_per_group(
+        SQUEEZE, g[:96], k[:96], ops)
+    _same_tree((og, valid, num), (pg, pvalid, pnum), "first part")
+    for field, w in zip(jps.PaneStoreState._fields, jstate):
+        assert_same(w, pstate[field], name=field)
+
+    arrays = {f: np.asarray(v) for f, v in zip(jps.PaneStoreState._fields,
+                                               jstate)}
+    (og2, vals2, valid2, num2), jfinal = run(jnp.array(g[96:]),
+                                             jnp.array(k[96:]), jstate)
+    (pg2, pvals2, pvalid2, pnum2), pfinal = port.swag_per_group(
+        SQUEEZE, g[96:], k[96:], ops, arrays)
+    _same_tree((og2, valid2, num2), (pg2, pvalid2, pnum2), "continued")
+    for name in ops:
+        assert_same(vals2[name], pvals2[name], name=name)
+    for field, w in zip(jps.PaneStoreState._fields, jfinal):
+        assert_same(w, pfinal[field], name=f"final {field}")
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda-panestore"])
+def test_stream_shorter_than_a_pane(port, backend):
+    g, k = _stream(27, 5)
+    want, got = execute_both(port, ("sum", "median"), g, k, backend=backend,
+                             window={"ws": 16, "wa": 8,
+                                     "ws_per_group": {0: 8}})
+    assert got.groups.shape == (0, 16)
+    assert got.num_groups.shape == (0,)
+    assert_result_same(want, got)
+
+
+def test_probe_rejections(port):
+    w = {"ws": 16, "wa": 4, "ws_per_group": {0: 8}}
+    reason = port.backend_reason
+    assert reason("cuda-panestore", ("sum",), w) is None
+    assert "per-group windows" in reason("cuda-panestore", ("sum",))
+    assert "per-group windows" in reason("cuda-panestore", ("sum",),
+                                         {"ws": 16})
+    assert "streaming" in reason("cuda-panestore", ("sum",), w,
+                                 {"streaming": True})
+    assert "lower-median" in reason("cuda-panestore", ("median",), w,
+                                    {"interpolate": True})
+    assert "variance" in reason("cuda-panestore", ("variance",), w)
+    for backend in ("cuda", "cuda-panes"):
+        assert "use the cuda-panestore backend" in reason(backend,
+                                                          ("sum",), w)
+    with pytest.raises(ValueError, match="cuda-panestore backend"):
+        port.plan_backend(("sum",), backend="cuda", window=w)
+    assert port.plan_backend(("sum",), window=w) == "reference"  # auto, CPU
+
+
+def test_reference_runs_engine_tail_ops(port):
+    # ops outside DIRECT_OPS fall back to an engine pass on the reference
+    g, k = _stream(28, 96)
+    want, got = execute_both(port, ("variance", "sum"), g, k,
+                             backend="reference",
+                             window={"ws": 16, "wa": 8,
+                                     "ws_per_group": WS_MAP})
+    assert_result_same(want, got, float_keys=True)
+
+
+def test_kernel_path_probe(port):
+    w = {"ws": 16, "wa": 4, "ws_per_group": {0: 8}}
+    path = port.pergroup_kernel_path
+    assert path(("sum", "mean"), w) == "partial-fused"
+    assert path(("sum", "median"), w) == "merge-replay"
+    assert path(("sum",), w, True) == "merge-replay"
+    assert path(("min", "max"), w, True) == "partial-fused"
+
+
+@pytest.mark.parametrize("window,exc", [
+    (dict(ws=16, wa=6, ws_per_group={0: 8}), ValueError),    # wa not pow2
+    (dict(ws=16, wa=4, ws_per_group={0: 0}), ValueError),    # ws_g <= 0
+    (dict(ws=16, wa=4, ws_per_group={0: 8}, capacity=2), ValueError),
+    (dict(ws=16, wa=4, ws_per_group="eight"), TypeError),    # bad type
+    (dict(ws=16, wa=4, ws_per_group={0: 8}, capacity=0), ValueError),
+])
+def test_pergroup_window_errors(port, window, exc):
+    with pytest.raises(exc):
+        port.plan_backend(("sum",), window=window)
+
+
+def test_pergroup_plan_conflicts(port):
+    w = {"ws": 16, "wa": 4, "ws_per_group": {0: 8}}
+    with pytest.raises(ValueError, match="presorted"):
+        port.plan_backend(("sum",), window=w, query={"presorted": True})
+    with pytest.raises(ValueError, match="panes"):
+        port.plan_backend(("sum",), window=dict(w, panes=False))
+
+
+def test_range_window_still_raises(port):
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        port.make_window(range=10)
+    with pytest.raises(NotImplementedError, match="slice 5"):
+        port.make_window(range=10, ws_per_group={0: 8})

@@ -73,8 +73,8 @@ def test_later_slices_raise_not_implemented(port):
     g = np.zeros(8, np.int32)
     with pytest.raises(NotImplementedError, match="slice 3"):
         port.plan_backend("sum", query={"streaming": True})
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        port.make_window(ws=64, ws_per_group={1: 32})
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        port.swag_per_group_counters()
     with pytest.raises(NotImplementedError, match="slice 5"):
         port.make_window(range=10)
     with pytest.raises(NotImplementedError, match="slice 6"):
