@@ -27,13 +27,31 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
      (g) the same window over 64 groups (the 292 slots hold about half of
          their windows, so the oldest panes are evicted), 2^16 tuples, ops
          (f) + median + dc: the merge-replay regime;
+     (h) batch event-time windows on ``cuda``, Window(range=4096,
+         slide=1024), ungrouped sum/count/min/max: the two-stack; 2^24
+         tuples with int32 keys uniform in [0, 2^20), tuple i stamped
+         floor(i * 8 / 7) + U[0, 64) (0.875 tuples a time unit, out of
+         order within 64): about 18,725 windows of about 3,584 tuples
+         (wcap 4096) in about 4,681 epochs;
+     (i) the same stream and window over 64 groups, ops (a) + median: the
+         replay strategy, the swag kernel over the framed windows;
+     (j) the standalone sort, ``bitonic_sort_cuda``, on 16384 rows of 1024
+         (int32 group, int32 key) pairs of (b)'s stream, with a float32
+         payload;
+     (k) the standalone scan, ``segmented_scan_cuda``, of (a)'s sorted
+         stream (2^24 lanes, 4096 groups, tile 1024), ops sum and mean;
    each result is checked against the ``reference`` backend on the card
    (groups, valid and counts equal, values equal on the valid lanes, int32
-   keys): (a)-(e) over the full stream, (f) and (g) over their first 2^16
-   tuples, whose evaluations are the leading ones of the full run (the
-   reference places tuples one at a time in plain torch); the per-group
-   runs print the evictions and retirements of that prefix, and (f) fails
-   without a retirement, (g) without an eviction; each run is then timed
+   keys): (a)-(e), (h) and (i) over the full stream, (f) and (g) over their
+   first 2^16 tuples, whose evaluations are the leading ones of the full run
+   (the reference places tuples one at a time in plain torch); (h) also
+   against the replay strategy on the card; (j) against two stable
+   ``torch.sort`` passes (keys) and the plain network (payload), (k)
+   against the plain scan; the per-group runs print the evictions and
+   retirements of that prefix, and (f) fails without a retirement, (g)
+   without an eviction; (h) and (i) print the share of their time spent in
+   the window layout (its sort and searches, read back to the host) and,
+   for (h), the host's walk of the epoch schedule; each run is then timed
    over 7 calls (median, fastest and slowest);
 4. each kernel against its plain torch version on the same card tensors at
    the shapes the main path gives it (int32 keys: exact, padded tails
@@ -69,6 +87,13 @@ PREFIX = 1 << 16
 PARTIAL = ("sum", "count", "min", "max", "mean")
 #: the per-group window of runs (f) and (g) (benchmarks/swag_bench.py)
 PERGROUP = dict(ws=1024, wa=128, ws_per_group=1024, capacity=292)
+#: the time window of runs (h) and (i), and its stream: 0.875 tuples a time
+#: unit, out of order within 64 units, keys uniform in [0, 2^20)
+TIME_WINDOW = dict(range=4096, slide=1024)
+TIME_STREAM = dict(key_max=1 << 20, density=0.875, jitter=64)
+TWOSTACK = ("sum", "count", "min", "max")
+#: run (j): 16384 rows of 1024 lanes
+SORT_ROWS = (16384, 1024)
 REPLACES = {
     "groupagg": "src/repro/kernels/groupagg/kernel.py:109",
     "swag": "src/repro/kernels/swag/kernel.py:453",
@@ -78,6 +103,9 @@ REPLACES = {
     "pergroup_fused": "src/repro/kernels/swag/kernel.py:365",
     # no TPU kernel: the XLA lax.scan of _push_decide
     "pergroup_scan": "src/repro/core/panestore.py:238",
+    "twostack_flip": "src/repro/kernels/swag/kernel.py:428",
+    "bitonic_sort": "src/repro/kernels/bitonic/kernel.py:36",
+    "segmented_scan": "src/repro/kernels/segscan/kernel.py:76",
 }
 SOURCES = {
     "groupagg": "src/repro_torch/csrc/groupagg.cu",
@@ -87,6 +115,9 @@ SOURCES = {
     "pergroup_scan": "src/repro_torch/csrc/pergroup.cu",
     "pergroup_fused": "src/repro_torch/csrc/pergroup.cu",
     "pergroup_replay": "src/repro_torch/csrc/pergroup.cu",
+    "twostack_flip": "src/repro_torch/csrc/twostack.cu",
+    "bitonic_sort": "src/repro_torch/csrc/bitonic.cu",
+    "segmented_scan": "src/repro_torch/csrc/segscan.cu",
 }
 
 
@@ -270,6 +301,264 @@ def pergroup_kernels(torch, sk, data, dev) -> list:
     return rows
 
 
+def window_desc(w):
+    if w is None:
+        return None
+    if w.is_time:
+        return {"range": w.range, "slide": w.slide}
+    return [w.ws, w.wa]
+
+
+def host_layout_ms(torch, q, ts):
+    """(ms of the window layout, ms of the host's epoch walk or None): the
+    median of 3 timings each, host clock, synchronised."""
+    from repro_torch.core import eventtime as et
+    from repro_torch.core import twostack as t2
+    from repro_torch.query import resolve_time_strategy
+
+    w = q.window
+    lay_ms, walk_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lay = et.time_window_layout(et.concrete_timestamps(ts), w.range,
+                                    w.slide)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        lay_ms.append((t1 - t0) * 1e3)
+        if resolve_time_strategy(q) == "twostack":
+            t2.epoch_layout(lay.starts.cpu().numpy(), lay.ends.cpu().numpy())
+            walk_ms.append((time.perf_counter() - t1) * 1e3)
+    med = lambda xs: sorted(xs)[len(xs) // 2] if xs else None
+    return med(lay_ms), med(walk_ms)
+
+
+def check_time_strategies(torch, q, k, ts, twostack_res) -> None:
+    """Run (h) against the replay strategy on the card: the same windows
+    re-aggregated from their framed tuples by the swag kernel."""
+    import dataclasses
+
+    from repro_torch.query import Query, execute
+
+    qr = Query(ops=q.ops, group_by=False, window=dataclasses.replace(
+        q.window, strategy="replay"))
+    rp, _ = execute(qr, None, k, backend="cuda", timestamps=ts)
+    a, b = twostack_res, rp
+    if not (torch.equal(a.valid[:, 0], b.valid[:, 0])
+            and torch.equal(a.groups[:, 0], b.groups[:, 0])):
+        raise AssertionError("run (h): two-stack and replay windows differ")
+    for name in q.op_names:
+        x = torch.where(a.valid[:, 0], a.values[name][:, 0], 0)
+        y = torch.where(a.valid[:, 0], b.values[name][:, 0], 0)
+        if not torch.equal(x, y):
+            raise AssertionError(f"run (h): {name} differs between the "
+                                 f"two-stack and replay")
+
+
+def standalone_runs(torch, data, dev, wrappers, run_launches, identity):
+    """Runs (j) and (k): the standalone sort and scan entry points, each
+    with every launch count set to 0 just before and read just after."""
+    import numpy as np
+
+    from repro_torch.core import sorter
+    from repro_torch.core.combiners import get_combiner
+    from repro_torch.core.segscan import segmented_scan
+    from repro_torch.kernels.bitonic.kernel import bitonic_plain
+    from repro_torch.kernels.bitonic.ops import bitonic_sort_cuda
+    from repro_torch.kernels.segscan.ops import segmented_scan_cuda
+
+    g, k = data["stream"]
+    r, t = SORT_ROWS
+    pay = torch.from_numpy(np.random.default_rng(SEED).random(
+        r * t, dtype=np.float32)).to(dev).reshape(r, t)
+    ops = (g[:r * t].reshape(r, t), k[:r * t].reshape(r, t), pay)
+    sg, skk = data["sorted"]
+    flags = torch.ones_like(sg, dtype=torch.bool)
+    flags[1:] = sg[1:] != sg[:-1]
+    states = {"sum": get_combiner("sum").lift(skk),
+              "mean": get_combiner("mean").lift(skk)}
+
+    def sort_run():
+        return bitonic_sort_cuda(ops, num_keys=2)
+
+    def scan_run():
+        return {op: segmented_scan_cuda(flags, st, op, tile=1024)
+                for op, st in states.items()}
+
+    def check_sort(out):
+        lib = sorter.sort_pairs_xla(ops[0], ops[1])
+        plain = bitonic_plain(ops, 2)
+        if not (torch.equal(out[0], lib[0]) and torch.equal(out[1], lib[1])
+                and torch.equal(out[2], plain[2])):
+            raise AssertionError("run (j): the sort differs from the "
+                                 "library sort or the plain network")
+
+    def check_scan(out):
+        for op, st in states.items():
+            want = segmented_scan(flags, st, get_combiner(op))
+            got = out[op]
+            if not all(torch.equal(a, b) for a, b in zip(
+                    got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,))):
+                raise AssertionError(f"run (k): {op} differs from the plain "
+                                     f"scan")
+
+    phases = []
+    for tag, name, fn, check, n, expect in (
+            ("j", "bitonic_sort_cuda", sort_run, check_sort, r * t,
+             "bitonic_sort"),
+            ("k", "segmented_scan_cuda", scan_run, check_scan, sg.numel(),
+             "segmented_scan")):
+        fn()  # warm-up
+        torch.cuda.synchronize()
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        counts = {nm: w.launches for nm, w in wrappers.items()}
+        if counts[expect] == 0:
+            raise AssertionError(f"run ({tag}) did not launch {expect}")
+        run_launches[tag] = counts
+        t1 = time.perf_counter()
+        check(out)
+        check_s = time.perf_counter() - t1
+        del out
+        times = timed_all(torch, fn, 7)[1]
+        ms = times[len(times) // 2]
+        phases.append({"run": tag, "entry": name, "tuples": n, "ms": ms,
+                       "ms_min": times[0], "ms_max": times[-1],
+                       "calls": len(times), "tuples_per_s": n / (ms / 1e3),
+                       "launches": counts, "reference_check_s": check_s,
+                       "equal_to_reference": True})
+        print(f"run ({tag}) {name}: {n} tuples in {ms:.3f} ms (median of "
+              f"{len(times)}, {times[0]:.3f}-{times[-1]:.3f}) = "
+              f"{n / (ms / 1e3):.4g} tuples/s, launches {counts}, checked "
+              f"({check_s:.1f} s) [{identity}]", flush=True)
+    return phases
+
+
+def slice5_kernels(torch, sk, data, dev) -> list:
+    """twostack_flip at (h)'s shape, swag at (i)'s, bitonic_sort at (j)'s
+    and segmented_scan at (k)'s, each against its plain version."""
+    import numpy as np
+
+    from repro_torch.core import eventtime as et
+    from repro_torch.core import twostack as t2
+    from repro_torch.core.combiners import get_combiner
+    from repro_torch.core.engine import PAD_GROUP
+    from repro_torch.kernels.bitonic import kernel as bk
+    from repro_torch.kernels.segscan import kernel as ssk
+
+    rows = []
+    g, k, ts = data["time"]
+    lay = et.time_window_layout(et.concrete_timestamps(ts),
+                                TIME_WINDOW["range"], TIME_WINDOW["slide"])
+    ep = t2.epoch_layout(lay.starts.cpu().numpy(), lay.ends.cpu().numpy())
+    ks = k[lay.order]
+    col = lambda x: torch.as_tensor(x, dtype=torch.int64, device=dev)
+    f_lo, hi, b_hi = col(ep.f_lo), col(ep.hi), col(ep.b_hi)
+    wcap = lay.wcap
+    kf, vf = t2._region(ks, f_lo, hi - f_lo, wcap)
+    kb, vb = t2._region(ks, hi, b_hi - hi, wcap)
+    out, ms = timed(torch, lambda: sk.twostack_flip(kf, vf, kb, vb,
+                                                    TWOSTACK), 5)
+    want, plain_ms = timed(torch, lambda: sk.twostack_flip_plain(
+        kf, vf, kb, vb, TWOSTACK))
+    err = max_abs_err(torch, [x for pair in out.values() for x in pair],
+                      [x for pair in want.values() for x in pair])
+
+    def library_flip():  # the sum op: masked cumsums over flipped rows
+        zero = torch.zeros((), dtype=kf.dtype, device=dev)
+        front = torch.flip(torch.cumsum(torch.flip(
+            torch.where(vf, kf, zero), (-1,)), -1, dtype=torch.int32), (-1,))
+        return front, torch.cumsum(torch.where(vb, kb, zero), -1,
+                                   dtype=torch.int32)
+
+    lib, lib_ms = timed(torch, library_flip, 5)
+    if max_abs_err(torch, lib, out["sum"]) != 0.0:
+        raise AssertionError("masked cumsum disagrees with twostack_flip")
+    del out, want, lib
+    ne = kf.shape[0]
+    lanes = ne * wcap
+    b, by = bound_ms(lanes * 10 + lanes * 8 * len(TWOSTACK),
+                     lanes * 2.0 * len(TWOSTACK))
+    rows.append({"name": "twostack_flip", "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms,
+                 "library": "op sum: masked torch.cumsum over the flipped "
+                            "front rows and over the back rows",
+                 "max_abs_err": err, "bound_ms": b, "bound_by": by,
+                 "shape": [ne, wcap], "ops": list(TWOSTACK), "runs": ["h"]})
+    del kf, vf, kb, vb
+
+    # swag over run (i)'s framed windows
+    ops = OPS[:4] + ("distinct_count", "median")
+    fg, fk, _ = et.frame_time_windows(lay, g[lay.order], ks, PAD_GROUP)
+    out, ms = timed(torch, lambda: sk.swag(fg, fk, ops), 3)
+    want, plain_ms = plain_once(torch, lambda: sk.swag_plain(fg, fk, ops))
+    err = max_abs_err(torch, flat(out), flat(want))
+    del out, want
+    nw = fg.shape[0]
+    b, by = bound_ms(nw * wcap * 8 + nw * wcap * 4 * (1 + len(ops)) + nw * 4,
+                     network_exchanges(nw, wcap) * 4
+                     + nw * wcap * 2 * len(ops))
+    rows.append({"name": "swag", "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": None, "max_abs_err": err, "bound_ms": b,
+                 "bound_by": by, "shape": [nw, wcap], "runs": ["i"]})
+    del fg, fk, ks
+
+    # bitonic_sort at run (j)'s shape
+    sg, skk = data["stream"]
+    r, t = SORT_ROWS
+    pay = torch.from_numpy(np.random.default_rng(SEED).random(
+        r * t, dtype=np.float32)).to(dev).reshape(r, t)
+    ops3 = (sg[:r * t].reshape(r, t), skk[:r * t].reshape(r, t), pay)
+    out, ms = timed(torch, lambda: bk.bitonic_sort(ops3, 2), 5)
+    want, plain_ms = timed(torch, lambda: bk.bitonic_plain(ops3, 2))
+    err = max_abs_err(torch, out, want)
+
+    def library_sort():
+        by_key = torch.sort(ops3[1], dim=-1, stable=True).indices
+        g1 = torch.gather(ops3[0], -1, by_key)
+        by_group = torch.sort(g1, dim=-1, stable=True).indices
+        return tuple(torch.gather(torch.gather(x, -1, by_key), -1, by_group)
+                     for x in ops3)
+
+    lib, lib_ms = timed(torch, library_sort, 5)
+    if max_abs_err(torch, lib[:2], out[:2]) != 0.0:
+        raise AssertionError("library sort disagrees with bitonic_sort")
+    del out, want, lib
+    b, by = bound_ms(r * t * 12 * 2, network_exchanges(r, t) * 4)
+    rows.append({"name": "bitonic_sort", "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms,
+                 "library": "two stable torch.sort passes + gathers of the "
+                            "three operands",
+                 "max_abs_err": err, "bound_ms": b, "bound_by": by,
+                 "shape": [r, t], "keys": 2, "payloads": 1, "runs": ["j"]})
+
+    # segmented_scan at run (k)'s shape, one row an op
+    sg, skk = data["sorted"]
+    flags = torch.ones_like(sg, dtype=torch.bool)
+    flags[1:] = sg[1:] != sg[:-1]
+    n = sg.numel()
+    for op in ("sum", "mean"):
+        comb = get_combiner(op)
+        leaves = comb.lift(skk)
+        leaves = leaves if isinstance(leaves, tuple) else (leaves,)
+        out, ms = timed(torch, lambda: ssk.segscan(flags, leaves, comb,
+                                                   tile=1024), 5)
+        want, plain_ms = timed(torch, lambda: ssk.segscan_plain(
+            flags, leaves, comb))
+        err = max_abs_err(torch, out, want)
+        del out, want
+        leaf_bytes = sum(x.element_size() for x in leaves)
+        b, by = bound_ms(n * (1 + 2 * leaf_bytes), n * 2.0 * len(leaves))
+        rows.append({"name": "segmented_scan", "op": op, "ms": ms,
+                     "plain_ms": plain_ms, "library_ms": None,
+                     "max_abs_err": err, "bound_ms": b, "bound_by": by,
+                     "shape": [n // 1024, 1024], "runs": ["k"]})
+    return rows
+
+
 def main() -> int:
     try:
         import torch
@@ -288,9 +577,11 @@ def main() -> int:
     sys.path.insert(0, str(src))
 
     from repro_torch.core import panestore as ps
-    from repro_torch.interop import from_numpy, make_stream
+    from repro_torch.interop import from_numpy, make_stream, make_time_stream
     from repro_torch.kernels import _build
+    from repro_torch.kernels.bitonic import kernel as bk
     from repro_torch.kernels.groupagg import kernel as gk
+    from repro_torch.kernels.segscan import kernel as ssk
     from repro_torch.kernels.swag import kernel as sk
     from repro_torch.query import Query, Window, execute
 
@@ -308,7 +599,10 @@ def main() -> int:
                 "sort_panes": sk.sort_panes, "swag_panes": sk.swag_panes,
                 "pergroup_scan": sk.pergroup_scan,
                 "pergroup_fused": sk.pergroup_fused,
-                "pergroup_replay": sk.pergroup_replay}
+                "pergroup_replay": sk.pergroup_replay,
+                "twostack_flip": sk.twostack_flip,
+                "bitonic_sort": bk.bitonic_sort,
+                "segmented_scan": ssk.segscan}
     run_launches = {}
 
     t0 = time.perf_counter()
@@ -321,6 +615,10 @@ def main() -> int:
         "pergroup32": from_numpy(*make_stream(SEED, 1 << 20, 32, 1000), dev),
         "pergroup64": from_numpy(*make_stream(SEED, 1 << 16, 64, 1000), dev),
     }
+    g_t, k_t, ts_t = make_time_stream(SEED, N, 64, **TIME_STREAM)
+    data["time"] = (*from_numpy(g_t, k_t, dev),
+                    torch.from_numpy(ts_t).to(dev))
+    del g_t, k_t, ts_t
     print(f"data: {time.perf_counter() - t0:.1f} s", flush=True)
 
     runs = [
@@ -341,6 +639,12 @@ def main() -> int:
         ("g", "cuda-panestore", Query(ops=PARTIAL + ("median", "dc"),
                                       window=Window(**PERGROUP)),
          "pergroup64", ("pergroup_scan", "pergroup_replay")),
+        ("h", "cuda", Query(ops=TWOSTACK, group_by=False,
+                            window=Window(**TIME_WINDOW)),
+         "time", ("twostack_flip",)),
+        ("i", "cuda", Query(ops=OPS + ("median",),
+                            window=Window(**TIME_WINDOW)),
+         "time", ("swag",)),
     ]
     #: the store event each per-group run exists to exercise: (f)'s 32
     #: groups fit the 292 slots (9 panes each at most), so it retires and
@@ -348,14 +652,15 @@ def main() -> int:
     must_see = {"f": "retirements", "g": "evictions"}
     phases = []
     for tag, backend, q, which, expect in runs:
-        g, k = data[which]
+        g, k, *ts = data[which]
         g_in = g if q.group_by else None
-        execute(q, g_in, k, backend=backend)  # warm-up
+        extra = {"timestamps": ts[0]} if ts else {}
+        execute(q, g_in, k, backend=backend, **extra)  # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for fn in wrappers.values():
             fn.launches = 0
-        res, _ = execute(q, g_in, k, backend=backend)
+        res, _ = execute(q, g_in, k, backend=backend, **extra)
         torch.cuda.synchronize()
         counts = {name: fn.launches for name, fn in wrappers.items()}
         peak = torch.cuda.max_memory_allocated()
@@ -372,9 +677,11 @@ def main() -> int:
                               backend="reference")
             res = leading(res, checked // q.window.wa)
         else:
-            want, _ = execute(q, g_in, k, backend="reference")
+            want, _ = execute(q, g_in, k, backend="reference", **extra)
             checked = k.shape[0]
         check_against_reference(torch, res, want, f"run ({tag})")
+        if tag == "h":
+            check_time_strategies(torch, q, k, ts[0], res)
         check_s = time.perf_counter() - t1
         if tag in must_see:
             spec = q.window.store_spec()
@@ -387,20 +694,29 @@ def main() -> int:
         del want, res
         # [1]: the last timed result is dropped here, not held into the
         # next run's peak memory
-        times = timed_all(torch, lambda: execute(q, g_in, k,
-                                                 backend=backend), 7)[1]
+        times = timed_all(torch, lambda: execute(q, g_in, k, backend=backend,
+                                                 **extra), 7)[1]
         ms = times[len(times) // 2]
         n = k.shape[0]
+        layout = None
+        if ts:
+            lay_ms, walk_ms = host_layout_ms(torch, q, ts[0])
+            share = (lay_ms + (walk_ms or 0.0)) / ms
+            layout = {"layout_ms": lay_ms, "epoch_walk_ms": walk_ms,
+                      "share_of_run": share}
+            print(f"run ({tag}) host layout: time_window_layout "
+                  f"{lay_ms:.3f} ms" + ("" if walk_ms is None else
+                                        f" + epoch walk {walk_ms:.3f} ms")
+                  + f" = {share:.1%} of the run's {ms:.3f} ms", flush=True)
         row = {"run": tag, "backend": backend, "tuples": n,
-               "ops": list(q.op_names),
-               "window": None if q.window is None else [q.window.ws,
-                                                        q.window.wa],
+               "ops": list(q.op_names), "window": window_desc(q.window),
                "group_by": q.group_by, "ms": ms, "ms_min": times[0],
                "ms_max": times[-1], "calls": len(times),
                "tuples_per_s": n / (ms / 1e3), "peak_bytes": peak,
                "launches": counts, "reference_check_s": check_s,
                "reference_checked_tuples": checked,
-               "store_events_checked": events, "equal_to_reference": True}
+               "store_events_checked": events, "host_layout": layout,
+               "equal_to_reference": True}
         phases.append(row)
         print(f"run ({tag}) {backend}: {n} tuples in {ms:.3f} ms (median "
               f"of {len(times)}, {times[0]:.3f}-{times[-1]:.3f}) = "
@@ -409,6 +725,9 @@ def main() -> int:
               f"{checked} tuples ({check_s:.1f} s)"
               + ("" if events is None else f" with {events}")
               + f" [{identity}]", flush=True)
+
+    phases += standalone_runs(torch, data, dev, wrappers, run_launches,
+                              identity)
 
     kernels = []
 
@@ -509,12 +828,14 @@ def main() -> int:
                     "runs": ["b", "d"]})
 
     kernels += pergroup_kernels(torch, sk, data, dev)
+    kernels += slice5_kernels(torch, sk, data, dev)
 
     for row in kernels:
         if row["max_abs_err"] != 0.0:
             raise AssertionError(f"{row['name']}: kernel and plain version "
                                  f"differ by {row['max_abs_err']} (int32 "
-                                 f"keys must match exactly)")
+                                 f"keys and lane payloads must match "
+                                 f"exactly)")
         # launches: the main-path runs that give the kernel this shape
         row.update(route="cuda", source=SOURCES[row["name"]],
                    replaces=REPLACES[row["name"]],

@@ -24,7 +24,7 @@ host whatever the state's device); on the card the same scan runs as one
 CUDA kernel (``repro_torch.kernels.swag.kernel.pergroup_scan``).
 They update the directory tensors of their own copy of the state in place.
 
-Event-time (time-mode) stores come with ROADMAP slice 5.
+Time-mode stores (event-time streaming) come with ROADMAP slice 5b.
 """
 from __future__ import annotations
 
@@ -67,12 +67,17 @@ def _ceil_div(a: int, b: int) -> int:
 
 @dataclasses.dataclass(frozen=True)
 class PaneStoreSpec:
-    """Static configuration of one count-mode pane store.
+    """Static configuration of one pane store.
 
     ``wa``: pane width (a power of two).  ``capacity``: pane slots in the
     shared buffer.  ``default_ws``: window of groups not in ``per_group``,
-    a sorted tuple of ``(group_id, ws)`` overrides.  ``slide`` and
-    ``time_range`` (time mode) are kept and raise."""
+    a sorted tuple of ``(group_id, ws)`` overrides.
+
+    **Time mode** (``slide`` and ``time_range`` both set): panes are keyed
+    by ``ts // slide`` and retire by watermark, every group sharing the
+    window ``[eval_time - time_range, eval_time)``.  A time clause is
+    validated through its spec; the store operations of time mode serve
+    event-time streaming, a later slice (:func:`init_store` raises)."""
     wa: int
     capacity: int
     default_ws: int
@@ -81,16 +86,22 @@ class PaneStoreSpec:
     time_range: int | None = None
 
     def __post_init__(self):
-        if self.slide is not None or self.time_range is not None:
-            raise NotImplementedError(
-                "time-mode pane stores (slide/time_range) are not ported "
-                "yet; they come with ROADMAP queue 1, slice 5 (event time)")
         if self.wa <= 0 or self.wa & (self.wa - 1):
             raise ValueError(f"pane width wa must be a positive power of "
                              f"two, got {self.wa}")
         if self.default_ws <= 0:
             raise ValueError(f"default_ws must be positive, got "
                              f"{self.default_ws}")
+        if (self.slide is None) != (self.time_range is None):
+            raise ValueError("slide and time_range come together (time "
+                             "mode) or not at all (count mode)")
+        if self.slide is not None:
+            if self.slide <= 0 or self.time_range <= 0:
+                raise ValueError(f"slide/time_range must be positive, got "
+                                 f"{self.slide}/{self.time_range}")
+            if self.per_group:
+                raise ValueError("time-mode stores share one time range — "
+                                 "per_group window overrides do not apply")
         pairs = tuple(sorted((int(g), int(w)) for g, w in self.per_group))
         for g, w in pairs:
             if w <= 0:
@@ -103,17 +114,27 @@ class PaneStoreSpec:
                 f"window (need >= {self.min_capacity} slots)")
 
     @property
+    def is_time(self) -> bool:
+        return self.slide is not None
+
+    @property
     def max_ws(self) -> int:
         return max([self.default_ws] + [w for _, w in self.per_group])
 
     @property
     def max_panes(self) -> int:
         """Most slots one group can hold: ceil(WS_g/WA) full panes plus one
-        straddling the window's trailing edge."""
+        straddling the window's trailing edge.  Time mode: slots chain when
+        a slide interval holds more than ``wa`` tuples, so one group may
+        own every slot."""
+        if self.is_time:
+            return self.capacity
         return _ceil_div(self.max_ws, self.wa) + 1
 
     @property
     def min_capacity(self) -> int:
+        if self.is_time:
+            return _ceil_div(self.time_range, self.slide) + 1
         return self.max_panes
 
     @property
@@ -154,8 +175,17 @@ class PaneStoreState(NamedTuple):
     clock: torch.Tensor   # [] int32
 
 
+def _count_mode(spec: PaneStoreSpec) -> None:
+    if spec.is_time:
+        raise NotImplementedError(
+            "time-mode pane stores (push_time, gather_runs(eval_time=)) are "
+            "not ported yet; they come with ROADMAP queue 1, slice 5b "
+            "(event-time streaming) — use repro.query meanwhile")
+
+
 def init_store(spec: PaneStoreSpec, key_dtype=torch.int32,
                device="cpu") -> PaneStoreState:
+    _count_mode(spec)
     c, wa = spec.capacity, spec.wa
 
     def full(shape, v, dt=torch.int32):
@@ -242,6 +272,7 @@ def push(spec: PaneStoreSpec, state: PaneStoreState, groups, keys,
     """Stream one batch of tuples through the store, one tuple at a time
     (the first ``n_valid`` only, when given).  Returns the new state; the
     input state is not modified."""
+    _count_mode(spec)
     st = _copy(state)
     dev = st.owner.device
     groups = torch.as_tensor(groups, device=dev).to(torch.int32)
@@ -294,6 +325,7 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
     the host and a kernel launch each on the card, so the loop runs on a
     host copy of its inputs and what it records moves to the device of
     ``state`` at the end."""
+    _count_mode(spec)
     wa, c = spec.wa, spec.capacity
     dev = state.owner.device
     host = torch.device("cpu")
@@ -442,6 +474,7 @@ def gather_runs(spec: PaneStoreSpec, state: PaneStoreState) -> ReplayRuns:
     index past the group's count) may gather another slot's keys; its lanes
     are dead, every run is still ascending, and the replayed window depends
     only on the live lanes."""
+    _count_mode(spec)
     c, wa, s = spec.capacity, spec.wa, spec.runs
     dev = state.owner.device
     perm, ugroups, offsets, nslots, num, _n_occ = _slot_directory(

@@ -47,6 +47,21 @@ def make_stream(seed: int, n: int, n_groups: int, key_max: int,
     return g[order], k[order]
 
 
+def make_time_stream(seed: int, n: int, n_groups: int, key_max: int,
+                     density: float, jitter: int):
+    """A stream of ``n`` (group, key, timestamp) tuples from ``seed``, in
+    arrival order: groups uniform in ``[0, n_groups)``, int32 keys uniform
+    in ``[0, key_max)``, and tuple ``i`` stamped ``floor(i / density) +
+    U[0, jitter)`` — ``density`` tuples per time unit, out of order within
+    ``jitter`` units.  Returns three int32 numpy columns."""
+    rng = np.random.default_rng(seed)
+    g = rng.integers(0, n_groups, n).astype(np.int32)
+    k = rng.integers(0, key_max, n).astype(np.int32)
+    ts = (np.floor(np.arange(n) / density).astype(np.int64)
+          + rng.integers(0, jitter, n)).astype(np.int32)
+    return g, k, ts
+
+
 def from_numpy(groups, keys, device="cuda"):
     """Two numpy columns as tensors on ``device``."""
     import torch

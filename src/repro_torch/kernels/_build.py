@@ -48,6 +48,16 @@ _SIGNATURES = {
     # rk, rv, key_type, nrows, L, codes, outs, nops, stream
     "rt_pergroup_replay": [_P, _P, _I, _I, _I, ctypes.POINTER(_I),
                            ctypes.POINTER(_P), _I, _P],
+    # keys, okeys, nk, float_keys, pays, opays, psize, np, R, T, stream
+    "rt_bitonic_sort": [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I,
+                        ctypes.POINTER(_P), ctypes.POINTER(_P),
+                        ctypes.POINTER(_I), _I, _I, _I, _P],
+    # flags, ins, outs, nleaves, key_type, op, nt, tile, scratch, stream
+    "rt_segscan": [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I,
+                   _I, _I, _P, _P],
+    # kf, vf, kb, vb, key_type, ne, W, codes, outs, nops, stream
+    "rt_twostack_flip": [_P, _P, _P, _P, _I, _I, _I, ctypes.POINTER(_I),
+                         ctypes.POINTER(_P), _I, _P],
 }
 
 _lock = threading.Lock()

@@ -4,8 +4,10 @@ package's registry).
   * ``reference``   — plain torch engine/SWAG in ``repro_torch.core`` (runs
                       on either device; the oracle the kernels are held to)
   * ``cuda``        — the hand-written kernels, each window re-sorted
-                      (group-by via the tiled groupagg kernel); the
-                      counterpart of ``pallas``
+                      (group-by via the tiled groupagg kernel; time-range
+                      windows via the two-stack flip kernel or the swag
+                      kernel over framed windows); the counterpart of
+                      ``pallas``
   * ``cuda-panes``  — WA-panes sorted once, windows merged from presorted
                       panes; the counterpart of ``pallas-panes``
   * ``cuda-panestore`` — per-group windows (``Window(ws_per_group=...)``):
@@ -59,6 +61,13 @@ def _cuda_window_common(q) -> str | None:
 
 
 def _cuda_supports(q) -> str | None:
+    if q.window is not None and q.window.is_time:
+        # both time strategies have kernels: replay frames run the swag
+        # kernel, the two-stack the twostack_flip kernel — which strategy a
+        # query may take is the planner's check
+        if q.interpolate:
+            return "cuda median is lower-median only (interpolate=False)"
+        return None
     if q.window is not None:
         reason = _cuda_window_common(q)
         if reason is not None:
@@ -78,6 +87,10 @@ def _cuda_supports(q) -> str | None:
 def _cuda_panes_supports(q) -> str | None:
     if q.window is None:
         return "pane kernels are a windowed-query backend"
+    if q.window.is_time:
+        return ("time-range windows re-frame by timestamp (no shared "
+                "count-panes to sort once); use the cuda or reference "
+                "backend")
     reason = _cuda_window_common(q)
     if reason is not None:
         return reason

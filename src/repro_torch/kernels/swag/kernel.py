@@ -1,8 +1,9 @@
 """The fused sliding-window kernels: counterparts of the JAX package's
 ``swag_pallas``, ``sort_panes_pallas``, ``swag_pallas_panes``,
-``pergroup_fused_pallas`` and ``pergroup_replay_pallas``
-(``src/repro/kernels/swag/kernel.py``), plus the per-group placement scan,
-which the JAX package leaves to an XLA ``lax.scan``.
+``pergroup_fused_pallas``, ``pergroup_replay_pallas`` and
+``twostack_flip_pallas`` (``src/repro/kernels/swag/kernel.py``), plus the
+per-group placement scan, which the JAX package leaves to an XLA
+``lax.scan``.
 
 * :func:`swag` — one row per window: sort by (group, key), then every
   requested op's tail (one shared compaction; the lower median rides along).
@@ -14,8 +15,11 @@ which the JAX package leaves to an XLA ``lax.scan``.
 * :func:`pergroup_fused` — per chunk, in order: the writes into the
   resident ring, the close sort, the per-group partial aggregates.
 * :func:`pergroup_replay` — per replay row: the live lanes' DIRECT_OPS.
+* :func:`twostack_flip` — per epoch row of a two-stack time-window batch:
+  the front region's suffix scan and the back region's prefix scan.
 
-Each wrapper launches ``csrc/swag.cu`` or ``csrc/pergroup.cu`` on CUDA
+Each wrapper launches ``csrc/swag.cu``, ``csrc/pergroup.cu`` or
+``csrc/twostack.cu`` on CUDA
 tensors and runs the plain torch version beside it (``*_plain``) on CPU
 tensors.  The window kernels' outputs follow the TPU kernels: ``og [NW,
 WS]`` (PAD_GROUP tail), ``{op: ov [NW, WS]}`` (zero tail), ``oc [NW]``.
@@ -230,6 +234,72 @@ def swag_panes(panes_g: torch.Tensor, panes_k: torch.Tensor, ops, *,
                        nrows=np_ - p + 1, width=p * wa, run=wa)
     swag_panes.launches += 1
     return out
+
+
+# ------------------------------------------------- two-stack time windows
+
+#: the widest epoch row the two-stack kernel takes: per op it holds the
+#: front and back regions double-buffered in shared memory, 16 bytes a
+#: lane (csrc/twostack.cu, MAX_WCAP)
+MAX_WCAP = 8192
+#: the ops the two-stack flip scans (single-tensor monoid states)
+TWOSTACK_OPS = ("sum", "count", "min", "max")
+
+
+def twostack_flip_plain(kf, vf, kb, vb, names):
+    """Plain torch version of :func:`twostack_flip`."""
+    from repro_torch.core.twostack import flip_scans
+
+    return flip_scans(kf, vf, kb, vb, tuple(names), kf.dtype)
+
+
+def twostack_flip(kf: torch.Tensor, vf: torch.Tensor, kb: torch.Tensor,
+                  vb: torch.Tensor, names):
+    """The flip of the two-stack over ``[NE, wcap]`` epoch regions: per op,
+    the inclusive suffix scan of the front keys ``kf`` and the inclusive
+    prefix scan of the back keys ``kb``, lanes where the bool masks
+    ``vf``/``vb`` are False pinned to the op's identity.  Returns ``{name:
+    (front_suffix, back_prefix)}`` in each op's state dtype (``count`` is
+    int32 for any key)."""
+    names = (names,) if isinstance(names, str) else tuple(names)
+    if kf.device.type == "cpu":
+        return twostack_flip_plain(kf, vf, kb, vb, names)
+    bad = [nm for nm in names if nm not in TWOSTACK_OPS]
+    if bad:
+        raise ValueError(f"twostack_flip scans {list(TWOSTACK_OPS)}, not "
+                         f"{bad}")
+    if kf.dim() != 2 or any(t.shape != kf.shape for t in (vf, kb, vb)):
+        raise ValueError(f"twostack_flip takes four [NE, wcap] tensors, got "
+                         f"{[tuple(t.shape) for t in (kf, vf, kb, vb)]}")
+    ne, wcap = kf.shape
+    if ne == 0 or not common.is_pow2(wcap):
+        raise ValueError(f"twostack_flip needs at least one epoch row of "
+                         f"power-of-two width, got {tuple(kf.shape)}")
+    if wcap > MAX_WCAP:
+        raise ValueError(
+            f"twostack_flip: an epoch row of {wcap} lanes does not fit one "
+            f"block's shared memory; the CUDA kernel takes rows of at most "
+            f"{MAX_WCAP} lanes")
+    if kf.dtype not in common.KEY_TYPES or kb.dtype != kf.dtype \
+            or vf.dtype != torch.bool or vb.dtype != torch.bool:
+        raise TypeError(f"twostack_flip: int32 or float32 keys and bool "
+                        f"masks, got {kf.dtype}/{kb.dtype} and "
+                        f"{vf.dtype}/{vb.dtype}")
+    kf, vf, kb, vb = (t.contiguous() for t in (kf, vf, kb, vb))
+    dev = kf.device
+    outs = {nm: tuple(torch.empty((ne, wcap), dtype=out_dtype(nm, kf.dtype),
+                                  device=dev) for _ in range(2))
+            for nm in names}
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.rt_twostack_flip(
+            kf.data_ptr(), vf.data_ptr(), kb.data_ptr(), vb.data_ptr(),
+            common.KEY_TYPES[kf.dtype], ne, wcap, _codes(names),
+            _ptrs([t for pair in outs.values() for t in pair]), len(names),
+            _build.stream_handle(dev))
+    _build.check(err, "twostack_flip")
+    twostack_flip.launches += 1
+    return outs
 
 
 # ------------------------------------------------------ per-group windows
@@ -476,3 +546,4 @@ swag_panes.launches = 0
 pergroup_scan.launches = 0
 pergroup_fused.launches = 0
 pergroup_replay.launches = 0
+twostack_flip.launches = 0

@@ -5,6 +5,9 @@
 presorted panes; otherwise each window is re-sorted.  A fully (group,
 key)-sorted window is unique, so both give identical results.
 
+:func:`_timeframe_kernel_exec` runs the replay strategy of time-range
+windows: each framed window row through the swag kernel.
+
 :func:`_swag_pergroup_kernel_exec` runs per-group windows on the pane
 store: the placement scan kernel, then either the fused push + partials
 kernel or a gather in torch and the replay kernel.
@@ -88,6 +91,38 @@ def _engine_median_kernel_exec(groups: torch.Tensor, keys: torch.Tensor,
     valid = _prefix_mask(n, num, dev)
     og = torch.where(valid, og[0, :n], PAD_GROUP)
     return og, {name: v[0, :n] for name, v in ovs.items()}, valid, num
+
+
+def _timeframe_kernel_exec(frames_g: torch.Tensor, frames_k: torch.Tensor,
+                           *, ops):
+    """The replay strategy of time-range windows on the swag kernel: the
+    event-time layer has framed the ts-sorted stream into ``[NW, wcap]``
+    rows (``repro_torch.core.eventtime.frame_time_windows``: variable tuple
+    counts, dead lanes at PAD_GROUP), and each row is sorted and reduced as
+    a count window's is.  Returns ``(og, {name: ov}, valid, oc)``."""
+    names = _names(ops)
+    nw, wcap = frames_g.shape
+    dev = frames_g.device
+    if wcap & (wcap - 1):
+        raise ValueError(f"time frames must be power-of-two wide, "
+                         f"got {wcap}")
+    if nw == 0:
+        return (torch.full((0, wcap), PAD_GROUP, dtype=torch.int32,
+                           device=dev),
+                {name: torch.zeros((0, wcap),
+                                   dtype=out_dtype(name, frames_k.dtype),
+                                   device=dev) for name in names},
+                torch.zeros((0, wcap), dtype=torch.bool, device=dev),
+                torch.zeros((0,), dtype=torch.int32, device=dev))
+    if dev.type == "cuda" and wcap > _k.MAX_ROW:
+        raise ValueError(
+            f"a time window holds up to {wcap} tuples (padded); the cuda "
+            f"replay sorts each window in one block's shared memory, at "
+            f"most {_k.MAX_ROW} lanes — use a shorter range or the "
+            f"reference backend")
+    og, ovs, oc = _k.swag(frames_g.to(torch.int32), frames_k, names)
+    valid = _prefix_mask(wcap, oc, dev)
+    return torch.where(valid, og, PAD_GROUP), ovs, valid, oc
 
 
 def _swag_pergroup_kernel_exec(groups: torch.Tensor, keys: torch.Tensor, *,

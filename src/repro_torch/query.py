@@ -11,6 +11,11 @@ Per-group windows (``Window(ws, wa, ws_per_group=..., capacity=...)``) run
 on the shared pane store: the last ``WS_g`` tuples of each group, one
 evaluation per ``wa`` tuples.
 
+Time-range windows (``Window(range=R, slide=S)``) aggregate by event time
+over a batch: ``execute(q, groups, keys, timestamps=ts)`` gives one window
+``[e - R, e)`` per multiple ``e`` of ``S``, by the flip-batched two-stack
+(ungrouped sum/count/min/max) or by replaying each framed window.
+
 Entry points run on the card (``device="cuda"``) unless the caller asks for
 the CPU; with no card, asking for ``cuda`` raises.  Backends:
 ``reference`` | ``cuda`` | ``cuda-panes`` | ``cuda-panestore`` | ``auto``
@@ -20,9 +25,9 @@ Contracts (as in the paper): non-windowed queries need the input sorted by
 group id; ``distinct_count`` and ``median`` also need keys sorted within
 groups.  Windowed queries sort internally.
 
-Streaming, event-time windows, execution statistics and sharded execution
-belong to later slices of the port and raise ``NotImplementedError`` naming
-the ROADMAP slice that brings them.
+Streaming (event-time streaming included), execution statistics and
+sharded execution belong to later slices of the port and raise
+``NotImplementedError`` naming the ROADMAP slice that brings them.
 """
 from __future__ import annotations
 
@@ -33,16 +38,20 @@ import numpy as np
 import torch
 
 from repro_torch.core import engine as _engine
+from repro_torch.core import eventtime as _eventtime
 from repro_torch.core import panestore as _panestore
-from repro_torch.core.combiners import Combiner, get_combiner
-from repro_torch.core.swag import (_median_sorted_window, _swag,
+from repro_torch.core import twostack as _twostack
+from repro_torch.core.combiners import Combiner, get_combiner, out_dtype
+from repro_torch.core.sorter import next_pow2, sort_pairs_xla
+from repro_torch.core.swag import (PARTIAL_OPS, _median_sorted_window, _swag,
                                    _swag_median, swag_multi, swag_per_group)
 from repro_torch.kernels import common as _common
 from repro_torch.kernels import registry as _registry
 from repro_torch.kernels.groupagg.ops import _groupagg_kernel_exec
 from repro_torch.kernels.swag.ops import (_engine_median_kernel_exec,
                                           _swag_kernel_exec,
-                                          _swag_pergroup_kernel_exec)
+                                          _swag_pergroup_kernel_exec,
+                                          _timeframe_kernel_exec)
 
 #: spelling conveniences accepted anywhere an op name is
 OP_ALIASES = {
@@ -58,7 +67,7 @@ def canonical_op(name: str) -> str:
     return OP_ALIASES.get(name, name)
 
 
-def _later_slice(feature: str, slice_no: int, title: str):
+def _later_slice(feature: str, slice_no, title: str):
     return NotImplementedError(
         f"{feature} is not ported yet; it comes with ROADMAP queue 1, "
         f"slice {slice_no} ({title}) — use repro.query meanwhile")
@@ -78,8 +87,15 @@ class Window:
     plus four default ones).  When live groups need more, the globally
     oldest pane is evicted and its group's window shrinks.
 
-    The event-time fields of ``repro.query.Window`` are kept and raise
-    until their slice is ported."""
+    **Event-time clause** — ``Window(range=R, slide=S)``, without
+    ``ws``/``ws_per_group``/``panes``: windows cover ``[e - R, e)`` for
+    evaluation times ``e`` at multiples of ``S`` (``slide=None``: tumbling;
+    ``S > R`` samples).  Tuples carry timestamps (``execute(...,
+    timestamps=...)``).  ``strategy`` is ``"twostack"`` (replay-free;
+    ungrouped PARTIAL_OPS only), ``"replay"`` (any op) or ``None`` (the
+    two-stack when eligible).  ``wa`` (pane-slot capacity, default 8),
+    ``max_lateness`` and ``reorder_capacity`` are validated here and serve
+    event-time streaming, a later slice."""
     ws: int | None = None
     wa: int | None = None
     panes: bool | None = None
@@ -95,7 +111,8 @@ class Window:
         if self.capacity is not None and self.capacity <= 0:
             raise ValueError(f"capacity must be positive, got {self.capacity}")
         if self.range is not None:
-            raise _later_slice("Window(range=...)", 5, "event time")
+            self._time_clause()
+            return
         for val, nm in ((self.slide, "slide"),
                         (self.max_lateness, "max_lateness"),
                         (self.reorder_capacity, "reorder_capacity"),
@@ -127,12 +144,58 @@ class Window:
             wpg = tuple(sorted((int(g), int(w)) for g, w in pairs))
             object.__setattr__(self, "ws_per_group", wpg)
 
+    def _time_clause(self) -> None:
+        if self.ws is not None or self.ws_per_group is not None:
+            raise ValueError(
+                "Window(range=...) is time-bounded — the tuple-count "
+                "clauses ws / ws_per_group do not apply")
+        if self.panes is not None:
+            raise ValueError("panes is a count-window control; "
+                             "time-range windows pick a strategy "
+                             "(strategy='replay'|'twostack')")
+        if self.range <= 0:
+            raise ValueError(f"range must be positive, got {self.range}")
+        slide = self.range if self.slide is None else self.slide
+        if slide <= 0:
+            raise ValueError(f"slide must be positive, got {slide}")
+        object.__setattr__(self, "slide", slide)
+        wa = 8 if self.wa is None else self.wa
+        if wa <= 0 or wa & (wa - 1):
+            raise ValueError(f"time-mode wa (pane-slot tuple capacity) "
+                             f"must be a positive power of two, got {wa}")
+        object.__setattr__(self, "wa", wa)
+        lateness = 0 if self.max_lateness is None else self.max_lateness
+        if lateness < 0:
+            raise ValueError(f"max_lateness must be >= 0, got {lateness}")
+        object.__setattr__(self, "max_lateness", lateness)
+        rc = 64 if self.reorder_capacity is None else self.reorder_capacity
+        if rc <= 0 or rc & (rc - 1):
+            raise ValueError(f"reorder_capacity must be a positive "
+                             f"power of two, got {rc}")
+        object.__setattr__(self, "reorder_capacity", rc)
+        if self.strategy not in (None, "replay", "twostack"):
+            raise ValueError(f"strategy must be 'replay', 'twostack' or "
+                             f"None, got {self.strategy!r}")
+
     @property
     def per_group(self) -> bool:
         return self.ws_per_group is not None
 
+    @property
+    def is_time(self) -> bool:
+        return self.range is not None
+
     def store_spec(self) -> _panestore.PaneStoreSpec:
-        """The pane-store configuration this window clause implies."""
+        """The pane-store configuration this window clause implies; a time
+        clause gives a time-mode store (panes keyed by ``ts // slide``)."""
+        if self.is_time:
+            npanes = -(-self.range // self.slide) + 1
+            cap = self.capacity
+            if cap is None:
+                cap = next_pow2(max(16, 4 * npanes))
+            return _panestore.PaneStoreSpec(
+                wa=self.wa, capacity=cap, default_ws=1, per_group=(),
+                slide=self.slide, time_range=self.range)
         wpg = self.ws_per_group
         pairs = wpg if isinstance(wpg, tuple) else ()
         default = wpg if isinstance(wpg, int) else self.ws
@@ -141,6 +204,42 @@ class Window:
             cap = _panestore.default_capacity(self.wa, default, pairs)
         return _panestore.PaneStoreSpec(wa=self.wa, capacity=cap,
                                         default_ws=default, per_group=pairs)
+
+    def reorder_spec(self):
+        """The bounded-lateness reorder buffer of a time clause: event-time
+        streaming, a later slice."""
+        if not self.is_time:
+            raise ValueError("reorder buffers serve Window(range=...) only")
+        raise _later_slice("Window.reorder_spec()", "5b",
+                           "event-time streaming")
+
+
+def _twostack_reason(query: "Query") -> str | None:
+    """Why the two-stack strategy cannot serve ``query`` (None = it can)."""
+    if query.group_by:
+        return ("the flip-batched two-stack aggregates the whole stream "
+                "(group_by=False); grouped time windows take the replay "
+                "strategy")
+    bad = sorted(set(query.op_names) - set(PARTIAL_OPS))
+    if bad:
+        return (f"two-stack scans need single-array monoid states "
+                f"({sorted(PARTIAL_OPS)}); {bad} take the replay strategy")
+    return None
+
+
+def resolve_time_strategy(query: "Query") -> str:
+    """A time-window query's strategy, validating an explicit
+    ``Window(strategy=...)`` (never a silent fallback)."""
+    w = query.window
+    if w.strategy == "twostack":
+        reason = _twostack_reason(query)
+        if reason is not None:
+            raise ValueError(f"Window(strategy='twostack') cannot run this "
+                             f"query: {reason}")
+        return "twostack"
+    if w.strategy == "replay":
+        return "replay"
+    return "twostack" if _twostack_reason(query) is None else "replay"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -210,9 +309,18 @@ def plan(query: Query, *, backend: str | None = None,
     if not isinstance(query, Query):
         raise TypeError(f"expected a Query, got {type(query).__name__}")
     if query.streaming:
+        if query.window is not None and query.window.is_time:
+            raise _later_slice("Query(streaming=True) with Window(range=...)",
+                               "5b", "event-time streaming")
         raise _later_slice("Query(streaming=True)", 3, "streaming")
     device = _common.require_cuda(device)
-    if query.window is not None and query.window.per_group:
+    if query.window is not None and query.window.is_time:
+        if query.presorted:
+            raise ValueError("presorted does not apply to time-range "
+                             "windows — they frame by timestamp")
+        resolve_time_strategy(query)  # explicit strategy validated now
+        query.window.store_spec()     # wa/capacity validated now
+    elif query.window is not None and query.window.per_group:
         if query.presorted:
             raise ValueError("presorted is meaningless with the pane "
                              "store — it frames and sorts panes itself")
@@ -338,9 +446,76 @@ def _execute_window(p: Plan, groups, keys):
     return AggResult(r.groups, {name: r.values}, r.valid, r.num_groups)
 
 
+def _execute_time_window(p: Plan, groups, keys, timestamps):
+    """A batch of ``Window(range=..., slide=...)``: sort by timestamp once
+    (window count and width are shapes, read back from the device), then
+    either the flip-batched **two-stack** (ungrouped PARTIAL_OPS; plain
+    scans or the twostack_flip kernel) or a **replay** of each framed
+    window (any op; engine rows or the swag kernel)."""
+    q = p.query
+    w = q.window
+    ts = _eventtime.concrete_timestamps(timestamps, keys.device)
+    if ts.shape[0] != keys.shape[-1]:
+        raise ValueError(f"timestamps length {ts.shape[0]} != stream "
+                         f"length {keys.shape[-1]}")
+    layout = _eventtime.time_window_layout(ts, w.range, w.slide)
+    gs = groups.to(torch.int32)[layout.order]
+    ks = keys[layout.order]
+    kernels = p.backend != "reference"
+    dev = keys.device
+
+    if resolve_time_strategy(q) == "twostack":
+        epochs = _twostack.epoch_layout(layout.starts.cpu().numpy(),
+                                        layout.ends.cpu().numpy())
+        values, cnt = _twostack.twostack_time_windows(
+            ks, layout, epochs, q.op_names, use_kernel=kernels)
+        valid = (cnt > 0)[:, None]
+        og = torch.where(valid, torch.zeros((), dtype=torch.int32,
+                                            device=dev),
+                         torch.tensor(_engine.PAD_GROUP, dtype=torch.int32,
+                                      device=dev))
+        return AggResult(og, {name: v[:, None] for name, v in values.items()},
+                         valid, valid[:, 0].to(torch.int32))
+
+    fg, fk, cnt = _eventtime.frame_time_windows(layout, gs, ks,
+                                                _engine.PAD_GROUP)
+    if kernels:
+        return AggResult(*_timeframe_kernel_exec(fg, fk, ops=q.op_names))
+
+    names = q.op_names
+    if cnt.shape[0] == 0:
+        shape = (0, layout.wcap)
+        med = torch.float32 if q.interpolate else keys.dtype
+        return AggResult(
+            torch.zeros(shape, dtype=torch.int32, device=dev),
+            {name: torch.zeros(shape, dtype=med if name == "median"
+                               else out_dtype(name, keys.dtype), device=dev)
+             for name in names},
+            torch.zeros(shape, dtype=torch.bool, device=dev),
+            torch.zeros((0,), dtype=torch.int32, device=dev))
+    # each row sorted by (group, key): PAD_GROUP sorts last, so the live
+    # lanes form the prefix n_valid marks
+    g2, k2 = sort_pairs_xla(fg, fk)
+    non_median = tuple(op for op, nm in zip(q.ops, names) if nm != "median")
+    values = {}
+    shared = None
+    if non_median:
+        (og, vals, valid, num), _ = _engine.multi_engine_step(
+            g2, k2, non_median, n_valid=cnt)
+        values.update(vals)
+        shared = (og, valid, num)
+    if "median" in names:
+        t = _median_sorted_window(g2, k2, interpolate=q.interpolate,
+                                  n_valid=cnt)
+        values["median"] = t.medians
+        shared = shared or (t.groups, t.valid, t.num_groups)
+    return AggResult(shared[0], values, shared[1], shared[2])
+
+
 def execute(plan_or_query, groups, keys=None, *, backend: str | None = None,
-            device="cuda", tile: int = 1024, n_valid=None, mesh=None,
-            num_shards: int | None = None, collect_stats: bool = False):
+            device="cuda", tile: int = 1024, n_valid=None, timestamps=None,
+            mesh=None, num_shards: int | None = None,
+            collect_stats: bool = False):
     """Run a :class:`Query` (planned on the fly) or a prebuilt :class:`Plan`.
 
     Args:
@@ -352,6 +527,8 @@ def execute(plan_or_query, groups, keys=None, *, backend: str | None = None,
         the kernel backends run their kernels' plain torch versions.
       tile: kernel tile length of the ``cuda`` group-by path.
       n_valid: prefix-length override of ``query.n_valid``.
+      timestamps: [N] integer event times of a ``Window(range=...)``
+        query (numpy or torch; required by it, refused by the others).
       mesh, num_shards, collect_stats: later slices of the port.
 
     Returns ``(AggResult, None)``.
@@ -373,8 +550,17 @@ def execute(plan_or_query, groups, keys=None, *, backend: str | None = None,
 
     groups, keys, n_valid = _prepare_inputs(p.query, groups, keys, n_valid,
                                             device)
+    is_time = p.query.window is not None and p.query.window.is_time
+    if is_time and timestamps is None:
+        raise ValueError("Window(range=...) queries aggregate by event "
+                         "time; pass timestamps=")
+    if not is_time and timestamps is not None:
+        raise ValueError("timestamps apply to time-range windows "
+                         "(Window(range=...)) only")
     if p.path == "window":
         if n_valid is not None:
             raise ValueError("n_valid applies to non-windowed queries")
+        if is_time:
+            return _execute_time_window(p, groups, keys, timestamps), None
         return _execute_window(p, groups, keys), None
     return _execute_engine(p, groups, keys, n_valid, tile=tile), None

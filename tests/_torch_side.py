@@ -208,3 +208,75 @@ def swag_per_group_counters():
     g = torch.zeros(8, dtype=torch.int32)
     run(g, g, spec=_spec(dict(wa=4, capacity=8, default_ws=8)), ops=["sum"],
         counters={})
+
+
+# ------------------------------------------------------ time-range windows
+
+def time_layout(ts, time_range, slide):
+    """``time_window_layout`` and ``epoch_layout`` of the port, in numpy."""
+    from repro_torch.core import eventtime as et
+    from repro_torch.core import twostack as t2
+
+    lay = et.time_window_layout(et.concrete_timestamps(ts), time_range,
+                                slide)
+    ep = t2.epoch_layout(lay.starts.numpy(), lay.ends.numpy())
+    return _np(tuple(lay)), tuple(ep)
+
+
+def frame_time(ts, g, k, time_range, slide, pad_group):
+    from repro_torch.core import eventtime as et
+
+    lay = et.time_window_layout(et.concrete_timestamps(ts), time_range,
+                                slide)
+    return _np(et.frame_time_windows(lay, _t(g)[lay.order], _t(k)[lay.order],
+                                     pad_group))
+
+
+def flip_scans(kf, vf, kb, vb, names):
+    """The two-stack flip through its wrapper (the plain version on the
+    CPU)."""
+    return _np(sk.twostack_flip(_t(kf), _t(vf), _t(kb), _t(vb), names))
+
+
+def window_info(window):
+    """A time clause's normalised fields and its store spec."""
+    w = tq.Window(**window)
+    spec = w.store_spec()
+    return (w.slide, w.wa, w.max_lateness, w.reorder_capacity, w.is_time,
+            spec.is_time, spec.min_capacity, spec.capacity)
+
+
+def init_time_store(spec_kw):
+    from repro_torch.core import panestore as ps
+
+    ps.init_store(_spec(spec_kw))
+
+
+def reorder_spec(window):
+    tq.Window(**window).reorder_spec()
+
+
+# ------------------------------------------- standalone sort and scan
+
+def bitonic_sort_cuda(operands, num_keys):
+    from repro_torch.kernels.bitonic.ops import bitonic_sort_cuda as run
+
+    return _np(run(tuple(_t(o) for o in operands), num_keys))
+
+
+def sort_pairs_cuda(g, k, full_width):
+    from repro_torch.kernels.bitonic.ops import sort_pairs_cuda as run
+
+    return _np(run(_t(g), _t(k), full_width=full_width))
+
+
+def segmented_scan_cuda(flags, leaves, op, tile):
+    """``segmented_scan_cuda`` over the state's leaves; the scanned leaves
+    and the launches counted (none on the CPU)."""
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.kernels.segscan.ops import segmented_scan_cuda as run
+
+    state = tuple(_t(x) for x in leaves)
+    out = run(_t(flags), state if len(state) > 1 else state[0], op,
+              tile=tile)
+    return _np(out if isinstance(out, tuple) else (out,)), ssk.segscan.launches

@@ -300,3 +300,262 @@ def test_pergroup_execute_on_card_matches_reference(cuda, ops, dtype,
     for name in ops:
         assert_same(got.values[name], want.values[name],
                     inexact=name in INEXACT, what=name)
+
+
+# ------------------------------------------------- two-stack time windows
+
+TWOSTACK_OPS = ("sum", "count", "min", "max")
+
+
+def _flip_inputs(torch, seed, ne, wcap, dtype, device):
+    """[NE, wcap] front/back keys and masks: row 0 with an empty front,
+    row 1 with an empty back, the others live prefixes of random length
+    (the two-stack regions), full rows included."""
+    rng = np.random.default_rng(seed)
+
+    def keys():
+        if dtype == np.float32:
+            return (rng.normal(size=(ne, wcap)) * 100).astype(np.float32)
+        return rng.integers(-2**31, 2**31 - 1, (ne, wcap)).astype(np.int32)
+
+    lane = np.arange(wcap)[None, :]
+    nf = rng.integers(0, wcap + 1, ne)
+    nb = rng.integers(0, wcap + 1, ne)
+    nf[0], nb[min(1, ne - 1)] = 0, 0
+    nf[-1] = wcap
+    return (torch.from_numpy(keys()).to(device),
+            torch.from_numpy(lane < nf[:, None]).to(device),
+            torch.from_numpy(keys()).to(device),
+            torch.from_numpy(lane < nb[:, None]).to(device))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("ne,wcap", [(3, 1), (4, 2), (9, 64), (5, 1024),
+                                     (3, 4096), (2, 8192)])
+def test_twostack_flip_kernel_vs_plain(cuda, dtype, ne, wcap):
+    import torch
+
+    from repro_torch.kernels.swag import kernel as sk
+
+    kf, vf, kb, vb = _flip_inputs(torch, ne * wcap, ne, wcap, dtype, cuda)
+    got = sk.twostack_flip(kf, vf, kb, vb, TWOSTACK_OPS)
+    want = sk.twostack_flip_plain(kf, vf, kb, vb, TWOSTACK_OPS)
+    torch.cuda.synchronize()
+    # the kernel's sweeps add in the plain version's order: float sums
+    # are equal bit for bit, int32 sums wrap alike
+    for name in TWOSTACK_OPS:
+        assert_same(got[name][0], want[name][0], what=f"{name} front")
+        assert_same(got[name][1], want[name][1], what=f"{name} back")
+    assert got["count"][0].dtype == torch.int32
+
+
+def test_twostack_flip_rejects_rows_past_shared_memory(cuda):
+    import torch
+
+    from repro_torch.kernels.swag import kernel as sk
+
+    k = torch.zeros((1, 2 * sk.MAX_WCAP), dtype=torch.int32, device=cuda)
+    v = torch.ones_like(k, dtype=torch.bool)
+    with pytest.raises(ValueError, match=str(sk.MAX_WCAP)):
+        sk.twostack_flip(k, v, k, v, ("sum",))
+
+
+def _time_query(ops, group_by, window):
+    from repro_torch.query import Query, Window
+
+    return Query(ops=ops, group_by=group_by, window=Window(**window))
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("ops,group_by,window", [
+    (TWOSTACK_OPS, False, dict(range=300, slide=100)),
+    (TWOSTACK_OPS, False, dict(range=40, slide=100)),     # gaps: slide > range
+    (("min", "max"), False, dict(range=4096, slide=1024)),
+    (("min", "max", "sum", "count", "dc", "median", "mean"), True,
+     dict(range=300, slide=100)),
+    (TWOSTACK_OPS, False, dict(range=300, slide=100, strategy="replay")),
+])
+def test_time_windows_on_card_match_reference(cuda, dtype, ops, group_by,
+                                              window):
+    import torch
+
+    from repro_torch.interop import make_time_stream
+    from repro_torch.query import execute, plan
+
+    g, k, ts = make_time_stream(7, 5000, 9, 1000, 0.875, 64)
+    ts = ts - 3000  # negative timestamps frame by floor division
+    if dtype == np.float32:
+        k = k.astype(np.float32) / 7
+    q = _time_query(ops, group_by, window)
+    assert plan(q).backend == "cuda"
+    g_in = g if group_by else None
+    got, _ = execute(q, g_in, k, timestamps=ts)
+    want, _ = execute(q, g_in, k, backend="reference", timestamps=ts)
+    torch.cuda.synchronize()
+    assert_same(got.groups, want.groups, what="groups")
+    assert_same(got.valid, want.valid, what="valid")
+    assert_same(got.num_groups, want.num_groups, what="num_groups")
+    for name in want.values:
+        assert_same(torch.where(want.valid, got.values[name], 0),
+                    torch.where(want.valid, want.values[name], 0),
+                    inexact=name in INEXACT, what=name)
+
+
+def test_time_windows_empty_batch_on_card(cuda):
+    import torch
+
+    from repro_torch.query import execute
+
+    for ops, group_by in ((TWOSTACK_OPS, False), (("median",), True)):
+        q = _time_query(ops, group_by, dict(range=64, slide=16))
+        got, _ = execute(q, np.zeros(0, np.int32), np.zeros(0, np.int32),
+                         timestamps=np.zeros(0, np.int32))
+        want, _ = execute(q, np.zeros(0, np.int32), np.zeros(0, np.int32),
+                          backend="reference",
+                          timestamps=np.zeros(0, np.int32))
+        assert got.groups.shape == want.groups.shape
+        assert got.groups.shape[0] == 0
+
+
+def test_time_replay_rejects_frames_past_shared_memory(cuda):
+    import torch
+
+    from repro_torch.kernels.swag import kernel as sk
+    from repro_torch.query import execute
+
+    n = sk.MAX_ROW + 1  # one window of every tuple: a frame of 2 * MAX_ROW
+    q = _time_query(("median",), True, dict(range=64))
+    args = (np.zeros(n, np.int32), np.ones(n, np.int32))
+    with pytest.raises(ValueError, match=str(sk.MAX_ROW)):
+        execute(q, *args, timestamps=np.zeros(n, np.int32))
+    execute(q, *args, backend="reference", timestamps=np.zeros(n, np.int32))
+
+
+# ------------------------------------------- standalone sort and scan
+
+#: (key types, rows, lanes): rows of up to 16384 lanes with one or two
+#: keys, 8192 with three or four (the key words and the lane index fill
+#: one block's shared memory)
+BITONIC_CASES = [(kt, rows, t)
+                 for kt in (("i",), ("f",), ("i", "i"), ("i", "f"),
+                            ("f", "i", "i"), ("i", "i", "f", "i"))
+                 for rows, t in ((3, 1), (2, 2), (5, 64), (4, 1024),
+                                 (2, 8192), (1, 16384))
+                 if t <= (16384 if len(kt) <= 2 else 8192)]
+
+
+@pytest.mark.parametrize("key_types,rows,t", BITONIC_CASES)
+def test_bitonic_kernel_vs_plain(cuda, key_types, rows, t):
+    import torch
+
+    from repro_torch.kernels.bitonic import kernel as bk
+
+    num_keys = len(key_types)
+    rng = np.random.default_rng(rows * t + num_keys)
+    keys = [rng.integers(0, 5, (rows, t)).astype(np.int32) if kt == "i"
+            else (rng.integers(-3, 3, (rows, t)) * 0.5).astype(np.float32)
+            for kt in key_types]
+    if key_types[0] == "f":
+        keys[0][:, ::7] = -0.0  # -0.0 ties with 0.0: neither swaps
+    # tied keys everywhere: payloads must land where the network puts them
+    pays = [rng.normal(size=(rows, t)).astype(np.float32),
+            rng.integers(-100, 100, (rows, t)).astype(np.int8),
+            rng.integers(-2**40, 2**40, (rows, t)).astype(np.int64),
+            rng.integers(0, 9, (rows, t)).astype(np.int16)]
+    ops = [torch.from_numpy(x).to(cuda) for x in keys + pays]
+    got = bk.bitonic_sort(ops, num_keys)
+    want = bk.bitonic_plain(ops, num_keys)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert_same(a, b, what=f"operand {i}")
+
+
+def test_bitonic_kernel_limits(cuda):
+    import torch
+
+    from repro_torch.kernels.bitonic import kernel as bk
+
+    x = torch.zeros((1, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=f"at most {bk.MAX_KEYS} keys"):
+        bk.bitonic_sort((x,) * 5, 5)
+    with pytest.raises(ValueError, match=f"at most {bk.MAX_ROW} lanes"):
+        y = torch.zeros((1, 2 * bk.MAX_ROW), dtype=torch.int32, device=cuda)
+        bk.bitonic_sort((y, y), 2)
+    with pytest.raises(ValueError, match="at most 8192 lanes"):
+        y = torch.zeros((1, bk.MAX_ROW), dtype=torch.int32, device=cuda)
+        bk.bitonic_sort((y, y, y), 3)
+
+
+@pytest.mark.parametrize("full_width", [True, False])
+@pytest.mark.parametrize("shape", [(1000,), (3, 100), (1,), (16384,)])
+def test_sort_pairs_cuda_vs_plain(cuda, full_width, shape):
+    import torch
+
+    from repro_torch.core import sorter
+    from repro_torch.kernels.bitonic.ops import sort_pairs_cuda
+
+    rng = np.random.default_rng(shape[-1])
+    g = torch.from_numpy(rng.integers(0, 23, shape).astype(np.int32))
+    k = torch.from_numpy((rng.normal(size=shape) * 50).astype(np.float32))
+    got = sort_pairs_cuda(g.to(cuda), k.to(cuda), full_width=full_width)
+    want = sorter.sort_pairs(g, k, full_width=full_width)
+    torch.cuda.synchronize()
+    assert_same(got[0], want[0], what="groups")
+    assert_same(got[1], want[1], what="keys")
+
+
+SEGSCAN_OPS = ("sum", "min", "max", "count", "mean", "distinct_count")
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("op", SEGSCAN_OPS)
+@pytest.mark.parametrize("n,tile,groups", [
+    (64, 64, 3), (1000, 128, 11), (513, 256, 1), (4096, 32, 1),
+    (70000, 4096, 50), (37, 1, 4), (3000, 1024, 2000)])
+def test_segscan_kernel_vs_plain(cuda, op, dtype, n, tile, groups):
+    import torch
+
+    from repro_torch.core.combiners import get_combiner
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.kernels.segscan.ops import segmented_scan_cuda
+
+    g, k = _stream(n + tile, n, groups, dtype, "group_key", cuda)
+    flags = torch.cat([torch.ones(1, dtype=torch.bool, device=cuda),
+                       g[1:] != g[:-1]])
+    state = get_combiner(op).lift(k)
+    got = segmented_scan_cuda(flags, state, op, tile=tile)
+    want = ssk.segscan_plain(flags, state if isinstance(state, tuple)
+                             else (state,), get_combiner(op))
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    for i, (a, b) in enumerate(zip(got, want)):
+        # float sums: thread-local runs, then warp and block scans, then
+        # the tile carries — another order than the Hillis–Steele rounds
+        assert_same(a, b, inexact=op in INEXACT, what=f"{op} leaf {i}")
+
+
+def test_segscan_one_segment_over_many_tiles(cuda):
+    import torch
+
+    from repro_torch.kernels.segscan.ops import segmented_scan_cuda
+
+    n = 1 << 20
+    k = torch.randint(0, 10, (n,), dtype=torch.int32, device=cuda)
+    flags = torch.zeros(n, dtype=torch.bool, device=cuda)
+    flags[0] = True
+    got = segmented_scan_cuda(flags, k, "sum", tile=1024)
+    want = torch.cumsum(k, 0, dtype=torch.int32)
+    assert_same(got, want, what="one segment over 1024 tiles")
+
+
+def test_segscan_kernel_rejects(cuda):
+    import torch
+
+    from repro_torch.kernels.segscan import kernel as ssk
+
+    f = torch.ones(8192, dtype=torch.bool, device=cuda)
+    k = torch.zeros(8192, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=str(ssk.MAX_TILE)):
+        ssk.segscan(f, (k,), "sum", tile=8192)
+    with pytest.raises(ValueError, match="variance"):
+        ssk.segscan(f, (k,), "variance", tile=1024)

@@ -257,7 +257,12 @@ def test_pergroup_plan_conflicts(port):
 
 
 def test_range_window_still_raises(port):
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        port.make_window(range=10)
-    with pytest.raises(NotImplementedError, match="slice 5"):
+    # batch time windows are ported (slice 5a); a time clause takes no
+    # per-group windows, and time-mode pane stores serve event-time
+    # streaming, which still raises (slice 5b)
+    port.make_window(range=10)
+    with pytest.raises(ValueError, match="time-bounded"):
         port.make_window(range=10, ws_per_group={0: 8})
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        port.init_time_store(dict(wa=8, capacity=16, default_ws=1, slide=4,
+                                  time_range=16))

@@ -75,8 +75,9 @@ def test_later_slices_raise_not_implemented(port):
         port.plan_backend("sum", query={"streaming": True})
     with pytest.raises(NotImplementedError, match="slice 6"):
         port.swag_per_group_counters()
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        port.make_window(range=10)
+    with pytest.raises(NotImplementedError, match="slice 5b"):
+        port.plan_backend("sum", window={"range": 10},
+                          query={"streaming": True})
     with pytest.raises(NotImplementedError, match="slice 6"):
         port.execute("sum", g, g, backend=None, collect_stats=True)
     with pytest.raises(NotImplementedError, match="slice 7"):
