@@ -228,6 +228,11 @@ def pergroup_kernels(torch, sk, data, dev) -> list:
         st = ps.init_store(spec, torch.int32, device=dev)
         n = g.shape[0]
         trace, ms = timed(torch, lambda: sk.pergroup_scan(spec, st, g, k), 3)
+        batches, clean = sk.pergroup_scan.batch_stats.tolist()
+        print(f"run ({tag}) placement scan: {clean} of {batches} batches of "
+              f"up to 32 tuples placed at once ({clean / batches:.1%}), the "
+              f"rest up to an allocation or a second retirement of a group",
+              flush=True)
         pk = None if k is None else k[:PREFIX]
         got = sk.pergroup_scan(spec, st, g[:PREFIX], pk)
         want, plain_ms = plain_once(torch, lambda: sk.pergroup_scan_plain(
@@ -239,12 +244,13 @@ def pergroup_kernels(torch, sk, data, dev) -> list:
         ne = n // wa
         nbytes = (4 * n * (2 if ring else 1) + 12 * n + 16 * ne * c + 4 * ne
                   + 32 * c + (8 * ne * c * wa if ring else 0))
-        # per tuple: compare and select over the C slots (newest, free,
-        # oldest, retire)
-        b, by = bound_ms(nbytes, 4.0 * n * c)
+        # per tuple: a few compares and adds on its group's newest and
+        # oldest pane (the placement needs no pass over the C slots)
+        b, by = bound_ms(nbytes, 8.0 * n)
         rows.append({"name": "pergroup_scan", "ms": ms, "plain_ms": plain_ms,
                      "plain_tuples": PREFIX, "evictions": evictions,
-                     "retirements": retirements, "library_ms": None,
+                     "retirements": retirements, "batches": batches,
+                     "batches_at_once": clean, "library_ms": None,
                      "max_abs_err": err, "bound_ms": b, "bound_by": by,
                      "shape": [ne, wa, c], "ring": ring, "runs": [tag]})
         return trace
@@ -467,16 +473,29 @@ def slice5_kernels(torch, sk, data, dev) -> list:
     err = max_abs_err(torch, [x for pair in out.values() for x in pair],
                       [x for pair in want.values() for x in pair])
 
-    def library_flip():  # the sum op: masked cumsums over flipped rows
-        zero = torch.zeros((), dtype=kf.dtype, device=dev)
-        front = torch.flip(torch.cumsum(torch.flip(
-            torch.where(vf, kf, zero), (-1,)), -1, dtype=torch.int32), (-1,))
-        return front, torch.cumsum(torch.where(vb, kb, zero), -1,
-                                   dtype=torch.int32)
+    def library_flip():
+        """Every op: the masked lanes at the op's identity, then a torch
+        scan (cumsum, cummin, cummax) over the flipped front rows and over
+        the back rows."""
+        scans = {"sum": lambda x: torch.cumsum(x, -1, dtype=x.dtype),
+                 "count": lambda x: torch.cumsum(x, -1, dtype=x.dtype),
+                 "min": lambda x: torch.cummin(x, -1).values,
+                 "max": lambda x: torch.cummax(x, -1).values}
+        res = {}
+        for nm in TWOSTACK:
+            comb = get_combiner(nm)
+            ident = comb.identity((), kf.dtype, dev)
+            front = torch.where(vf, comb.lift(kf), ident)
+            back = torch.where(vb, comb.lift(kb), ident)
+            res[nm] = (torch.flip(scans[nm](torch.flip(front, (-1,))),
+                                  (-1,)), scans[nm](back))
+        return res
 
     lib, lib_ms = timed(torch, library_flip, 5)
-    if max_abs_err(torch, lib, out["sum"]) != 0.0:
-        raise AssertionError("masked cumsum disagrees with twostack_flip")
+    for nm in TWOSTACK:
+        if max_abs_err(torch, lib[nm], out[nm]) != 0.0:
+            raise AssertionError(f"the torch scans disagree with "
+                                 f"twostack_flip on op {nm}")
     del out, want, lib
     ne = kf.shape[0]
     lanes = ne * wcap
@@ -484,8 +503,9 @@ def slice5_kernels(torch, sk, data, dev) -> list:
                      lanes * 2.0 * len(TWOSTACK))
     rows.append({"name": "twostack_flip", "ms": ms, "plain_ms": plain_ms,
                  "library_ms": lib_ms,
-                 "library": "op sum: masked torch.cumsum over the flipped "
-                            "front rows and over the back rows",
+                 "library": "every op: torch.cumsum (sum, count), "
+                            "torch.cummin, torch.cummax over the masked, "
+                            "flipped front rows and the masked back rows",
                  "max_abs_err": err, "bound_ms": b, "bound_by": by,
                  "shape": [ne, wcap], "ops": list(TWOSTACK), "runs": ["h"]})
     del kf, vf, kb, vb

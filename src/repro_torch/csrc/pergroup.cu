@@ -1,5 +1,5 @@
 // Per-group windows on the shared pane store: the placement scan, the
-// fused push + partial evaluation, and the merge-replay tails.
+// per-slot partial evaluation, and the merge-replay tails.
 //
 // Replaces, in src/repro/kernels/swag/kernel.py (the JAX package's Pallas
 // TPU kernels):
@@ -8,33 +8,52 @@
 // and, with no TPU kernel behind it, the XLA lax.scan of _push_decide
 // (src/repro/core/panestore.py) -> pergroup_scan_kernel.
 //
-// pergroup_scan_kernel — one warp for the whole stream.  Placement is
+// pergroup_scan_kernel — one warp places the whole stream.  Placement is
 // sequential (each tuple's slot depends on the global eviction order), so
-// one warp holds the [C] directory (owner, count, base, stamp) in
-// registers, lane l owning slots l, l+32, ... (up to 32 a lane; larger
-// stores spill to local memory).  Per tuple, single-instruction warp
-// reductions (__reduce_*_sync) give the group's newest slot (first max
-// base), the first free slot and the oldest slot (first min stamp); the
-// owning lane applies the update and every lane retires the group's stale
-// panes in its own registers.  It records each tuple's (slot, lane, seq),
-// the directory after every WA chunk and the evictions and retirements of
-// the scan; given keys it also keeps the
-// [C, WA] ring in device memory (L2), sorts a pane by (key, seq) when it
-// closes, and after every chunk eight warps copy the ring out.  Bound:
-// the latency of one warp, some hundred cycles a tuple; bytes are ~20 a
-// tuple, so the card's memory is idle.
+// the design makes the common tuple constant-time and takes 32 of them at
+// once.  The wrapper gives every group a dense index, its window size and
+// its panes as a chain ordered by base.  Shared memory holds, per slot, the
+// owner (dense index and id), count, base, stamp and the next pane of the
+// same group, and a bitmap of the free slots; per group, its newest and
+// oldest pane (up to GROUP_SMEM_MAX groups: more stay in device memory,
+// where L1 and L2 serve them); the stream is staged through shared memory
+// by cp.async a window ahead.  Within a group the live panes' bases are
+// distinct and WA apart, ordered like their stamps, so a group's newest
+// pane is the chain's tail, only the chain's head can fall behind the
+// group's horizon, and an evicted pane (the minimum stamp) is its group's
+// head.  A batch of 32 tuples: __match_any_sync ranks each lane among the
+// lanes of its group; a lane whose group's newest pane has room (count +
+// rank < WA) places itself at lane count + rank, and the first lane of a
+// group whose head falls behind retires it.  The batch commits the lanes
+// before its first event (an allocation, or a second pane of a group
+// falling behind), the last lane of each group writing the count; the
+// event tuple then runs the full step (the warp finds the first free slot
+// in the bitmap, else the first minimum stamp, as _push_decide's
+// first-index ties pick; the victim leaves its group's chain; the group's
+// stale heads retire in a loop), and the next batch starts after it.  It
+// records each tuple's (slot, lane, seq), the directory after every WA
+// chunk and the evictions and retirements; given keys it also keeps the
+// [C, WA] ring in device memory (L2): the panes that close in a chunk are
+// sorted by (key, seq) at its end by the block's warps, one pane a warp,
+// before they copy the ring out (a pane reallocated in the chunk it closed
+// is sorted by the scanning warp first).  Bound: the latency of one warp,
+// a few dependent shared-memory loads a batch and the full step a WA
+// tuples a group; bytes are ~20 a tuple, so the card's memory is idle.
 //
-// pergroup_fused_kernel — one persistent block loops over the NE chunks in
-// order, in place of the TPU kernel's sequential grid with the ring in
-// VMEM scratch.  The ring is C*WA*8 bytes (299,008 at C = 292, WA = 128),
-// above the 232,448 a block may hold, so it lives in device memory and
-// stays in L2.  Per chunk: the WA writes in parallel, where of several
-// writes to one (slot, lane) only the chunk's last lands (an atomicMax of
-// the writer's stream index into a tag per lane: the TPU kernel's in-order
-// loop); the panes the plan marks as closing sorted by (key, seq), one
-// warp a pane; per-slot partials of the live lanes (one warp a slot);
-// per-row combination over the slots of each group.  Bound: one SM and L2
-// latency; the other 131 SMs idle.
+// pergroup_fused_kernel — parallel over chunks, one block a chunk.  The
+// ring is scratch (the fused regime returns only op values) and sum,
+// count, min, max and mean do not depend on the order of a pane's lanes,
+// so the close sort changes no output and is dropped.  A pane fills lanes
+// 0, 1, ... in order and a reallocation overwrites from lane 0, so at
+// chunk e the live lanes of slot s are the last cnt[e, s] writes to s at
+// or before chunk e (lanes a carried-in pane wrote before the stream are
+// the ring's zeros), filtered by seq >= lo[e, s].  The wrapper groups the
+// writes by slot (stable, in stream order) and gives each (chunk, slot)
+// the end of its run; a warp per slot reduces the run into per-slot
+// partials in shared memory, then a thread per output row adds up the
+// slots of its group, found by binary search in the chunk's owner-sorted
+// slots (stable, so slot order within a group).  Bound: L2 reads of the
+// runs, every SM busy.
 //
 // pergroup_replay_kernel — one block per replay row of S*WA lanes: dead
 // lanes become the key sentinel, the row is sorted (no merge: every tail
@@ -44,6 +63,8 @@
 // (free candidate rows, most of them) write zeros and stop.  Bound: shared
 // memory passes of the sort, log2(L)(log2(L)+1)/2 barriers a live row;
 // bytes are 8 per lane read.
+#include <cuda_pipeline.h>
+
 #include "tile.cuh"
 
 namespace rt {
@@ -55,35 +76,6 @@ template <> __device__ __forceinline__ float key_max<float>() { return __int_as_
 template <typename K> __device__ __forceinline__ K key_min();
 template <> __device__ __forceinline__ int key_min<int>() { return SHIFT_FILL; }
 template <> __device__ __forceinline__ float key_min<float>() { return __int_as_float(0xff800000); }
-
-// (value, index) reductions across a warp: the first index of the maximum
-// (resp. minimum), as jnp.argmax / jnp.argmin pick.
-__device__ __forceinline__ void warp_argmax(int& v, int& i) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const int ov = __shfl_xor_sync(FULL_MASK, v, d);
-    const int oi = __shfl_xor_sync(FULL_MASK, i, d);
-    if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-  }
-}
-__device__ __forceinline__ void warp_argmin(int& v, int& i) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) {
-    const int ov = __shfl_xor_sync(FULL_MASK, v, d);
-    const int oi = __shfl_xor_sync(FULL_MASK, i, d);
-    if (ov < v || (ov == v && oi < i)) { v = ov; i = oi; }
-  }
-}
-__device__ __forceinline__ int warp_min(int v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v = min(v, __shfl_xor_sync(FULL_MASK, v, d));
-  return v;
-}
-__device__ __forceinline__ int warp_max(int v) {
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v = max(v, __shfl_xor_sync(FULL_MASK, v, d));
-  return v;
-}
 
 template <typename K>
 __device__ __forceinline__ bool key_seq_less(K ka, int sa, K kb, int sb) {
@@ -115,17 +107,41 @@ __device__ void sort_key_seq(K* k, int* s, int n, int tid, int nthreads,
 }
 
 struct WarpSync { __device__ void operator()() const { __syncwarp(); } };
-struct BlockSync { __device__ void operator()() const { __syncthreads(); } };
 
 // ------------------------------------------------------- placement scan
 
+// Dynamic shared memory a block may use: the card's 227 KiB less room for
+// the kernels' static variables.
+constexpr int SMEM_BUDGET = 227 * 1024 - 256;
+// Threads of the scan block: the scanning warp, plus seven that sort the
+// closed panes and copy the ring after every chunk when the scan keeps it
+// (no more: a block of 256 threads keeps up to 255 registers a thread, and
+// the scanning warp's loop must not spill).
+constexpr int SCAN_RING_THREADS = 256;
+constexpr int MAX_SCAN_SLOTS = 4096;
+// Group tables (newest, oldest, ws: 12 bytes a group) stay in shared memory
+// up to this many groups (48 KiB), in device memory beyond.
+constexpr int GROUP_SMEM_MAX = 4096;
+// Tuples (group index, key) are staged in shared memory in windows of
+// SCAN_STAGE, a ring of SCAN_WINDOWS: the current window and the next are
+// resident while the one after is in flight (cp.async), so the scanning
+// warp never waits for device memory.
+constexpr int SCAN_STAGE = 512;
+constexpr int SCAN_WINDOWS = 4;
+constexpr int SCAN_RING_MASK = SCAN_STAGE * SCAN_WINDOWS - 1;
+
 struct ScanArgs {
-  const int* g;       // [NE*WA] group ids
+  const int* g;       // [NE*WA] dense group index of every tuple
   const void* k;      // [NE*WA] keys, or null: no ring
-  int ne, wa, c;
-  const int* pg;      // [npg, 2] sorted (group id, ws) overrides
-  int npg, default_ws;
-  int* dir;           // [4, C] owner, count, base, stamp (in/out)
+  int ne, wa, c, ng;
+  const int* gid;     // [ng] group id of each dense index
+  const int* slots0;  // [5, C] owner (dense, -1 free), count, base, stamp,
+                      // next pane of the group (-1: none)
+  int* gtab;          // [3, ng] newest, oldest pane, ws of each group; used
+                      // in place when not copied to shared memory
+  int gsmem;          // 1: the group tables live in shared memory
+  int nbuf;           // sort buffers of WA pairs (ring only)
+  int* dir;           // [4, C] owner, count, base, stamp after the scan
   int* clock;         // [1] (in/out)
   void* ring_k;       // [C, WA] (in/out) when k
   int* ring_s;        // [C, WA] (in/out) when k
@@ -135,15 +151,12 @@ struct ScanArgs {
   void* rk_s;         // [NE, C, WA] the ring after every chunk, when k
   int* rs_s;          // [NE, C, WA]
   int* events;        // [2] evictions, retirements (out)
+  int* stats;         // [2] batches, batches without an event (out)
 };
 
-// Threads of the scan block: the scanning warp, plus seven that help copy
-// the ring after every chunk when the scan keeps it.
-constexpr int SCAN_RING_THREADS = 256;
-constexpr int MAX_SCAN_SLOTS = 128 * 32;
-
 // The ring after chunk e, copied by every thread of the block (16 bytes a
-// load when the row length allows).
+// load when the row length allows, sixteen loads a thread in flight: one SM
+// copying from L2 is bound by the loads it keeps in flight).
 template <typename K>
 __device__ void copy_ring(const K* ring_k, const int* ring_s, K* rk, int* rs,
                           long long cw) {
@@ -153,9 +166,25 @@ __device__ void copy_ring(const K* ring_k, const int* ring_s, K* rk, int* rs,
     const int4* ss = reinterpret_cast<const int4*>(ring_s);
     int4* dk = reinterpret_cast<int4*>(rk);
     int4* ds = reinterpret_cast<int4*>(rs);
-    for (long long x = threadIdx.x; x < n4; x += blockDim.x) {
-      dk[x] = sk[x];
-      ds[x] = ss[x];
+    const long long nt = blockDim.x;
+    for (long long x0 = threadIdx.x; x0 < n4; x0 += 8 * nt) {
+      int4 vk[8], vs[8];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const long long x = x0 + q * nt;
+        if (x < n4) {
+          vk[q] = sk[x];
+          vs[q] = ss[x];
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const long long x = x0 + q * nt;
+        if (x < n4) {
+          dk[x] = vk[q];
+          ds[x] = vs[q];
+        }
+      }
     }
   } else {
     for (long long x = threadIdx.x; x < cw; x += blockDim.x) {
@@ -165,201 +194,415 @@ __device__ void copy_ring(const K* ring_k, const int* ring_s, K* rk, int* rs,
   }
 }
 
-// J: slots a lane holds in registers (slot j * 32 + lane for j < J).
-template <typename K, int J>
-__global__ void __launch_bounds__(SCAN_RING_THREADS)
+// The directory and scratch of the scan in shared memory.
+template <typename K>
+struct ScanSmem {
+  int *own, *cnt, *base, *stamp, *next;  // [C]
+  int* oid;                               // [C] owner id (PAD_GROUP free)
+  unsigned* freew;                        // [ceil(C/32)] bit s: slot s free
+  int *pend, *plist;                      // [C] ring: closed in this chunk
+  int* st_g;                              // [SCAN_WINDOWS * SCAN_STAGE]
+  K* st_k;                                // the same, ring
+  int *g_new, *g_old;                     // [ng] (shared or device memory)
+  const int* g_ws;                        // [ng]
+  int* sbuf;                              // [nbuf, 2, WA] ring sort buffers
+};
+
+// Sort pane `s` of the ring by (key, seq) with one warp and its buffer.
+template <typename K>
+__device__ void sort_pane(K* ring_k, int* ring_s, int s, int wa, int* buf,
+                          int lane) {
+  int* bs = buf;
+  K* bk = reinterpret_cast<K*>(buf + wa);
+  const long long row = static_cast<long long>(s) * wa;
+  for (int l = lane; l < wa; l += 32) {
+    bk[l] = ring_k[row + l];
+    bs[l] = ring_s[row + l];
+  }
+  __syncwarp();
+  sort_key_seq<K>(bk, bs, wa, lane, 32, WarpSync());
+  for (int l = lane; l < wa; l += 32) {
+    ring_k[row + l] = bk[l];
+    ring_s[row + l] = bs[l];
+  }
+  __syncwarp();
+}
+
+// End of chunk e, run by every thread of the block: the panes that closed
+// in the chunk sorted (ring), the ring copied out, the directory and clock
+// recorded.
+template <typename K, bool RING>
+__device__ __forceinline__ void chunk_end(const ScanArgs& a,
+                                          const ScanSmem<K>& m, int e,
+                                          const int* s_clock, int* s_npend) {
+  const int C = a.c, WA = a.wa;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long nc = static_cast<long long>(a.ne) * C;
+  const long long ec = static_cast<long long>(e) * C;
+  __syncthreads();
+  if (RING) {
+    K* ring_k = static_cast<K*>(a.ring_k);
+    const int np = *s_npend;
+    if (warp < a.nbuf) {
+      for (int p = warp; p < np; p += a.nbuf) {
+        const int s = m.plist[p];
+        if (m.pend[s])
+          sort_pane<K>(ring_k, a.ring_s, s, WA, m.sbuf + 2 * warp * WA, lane);
+      }
+    }
+    __syncthreads();
+    for (int p = tid; p < np; p += blockDim.x) m.pend[m.plist[p]] = 0;
+    const long long cw = static_cast<long long>(C) * WA;
+    copy_ring<K>(ring_k, a.ring_s, static_cast<K*>(a.rk_s) + e * cw,
+                 a.rs_s + e * cw, cw);
+  }
+  const int nt = blockDim.x;
+  if ((C & 3) == 0) {  // 16 bytes a load and a store
+    const int c4 = C >> 2;
+    const int4* cols[4] = {reinterpret_cast<const int4*>(m.oid),
+                           reinterpret_cast<const int4*>(m.cnt),
+                           reinterpret_cast<const int4*>(m.base),
+                           reinterpret_cast<const int4*>(m.stamp)};
+    for (int x = tid; x < c4; x += nt) {
+      int4 v[4];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) v[f] = cols[f][x];
+#pragma unroll
+      for (int f = 0; f < 4; ++f)
+        reinterpret_cast<int4*>(a.snaps + f * nc + ec)[x] = v[f];
+    }
+  } else {
+    for (int x = tid; x < C; x += nt) {
+      a.snaps[ec + x] = m.oid[x];
+      a.snaps[nc + ec + x] = m.cnt[x];
+      a.snaps[2 * nc + ec + x] = m.base[x];
+      a.snaps[3 * nc + ec + x] = m.stamp[x];
+    }
+  }
+  if (tid == 0) {
+    a.clock_s[e] = *s_clock;
+    *s_npend = 0;
+  }
+  __syncthreads();
+}
+
+// Start copying window w of the stream (its group indices and, with a
+// ring, keys) into its place in the staging ring; one cp.async group.
+template <typename K, bool RING>
+__device__ __forceinline__ void stage_window(const ScanArgs& a,
+                                             const ScanSmem<K>& m,
+                                             long long w, long long n,
+                                             int lane) {
+  const long long w0 = w * SCAN_STAGE;
+  const int len = static_cast<int>(n - w0 < SCAN_STAGE ? n - w0 : SCAN_STAGE);
+  const int at = static_cast<int>(w0 & SCAN_RING_MASK);
+  for (int x = lane; x < len; x += 32) {
+    __pipeline_memcpy_async(m.st_g + at + x, a.g + w0 + x, sizeof(int));
+    if (RING)
+      __pipeline_memcpy_async(m.st_k + at + x,
+                              static_cast<const K*>(a.k) + w0 + x, sizeof(K));
+  }
+  __pipeline_commit();
+}
+
+// RING: keys given, the ring kept; GS: the group tables in shared memory.
+template <typename K, bool RING, bool GS>
+__global__ void __launch_bounds__(RING ? SCAN_RING_THREADS : 32)
 pergroup_scan_kernel(ScanArgs a) {
   extern __shared__ __align__(16) unsigned char dyn[];
-  const int C = a.c, WA = a.wa;
-  int* sseq = reinterpret_cast<int*>(dyn);        // [WA] sort buffer
-  K* skey = reinterpret_cast<K*>(sseq + WA);      // [WA]
-  const int lane = threadIdx.x & 31;
-  const K* keys = static_cast<const K*>(a.k);
-  K* ring_k = static_cast<K*>(a.ring_k);
-  const bool ring = keys != nullptr;
-  const long long cw = static_cast<long long>(C) * WA;
-  const long long nc = static_cast<long long>(a.ne) * C;
+  __shared__ int s_clock, s_npend;
+  const int C = a.c, WA = a.wa, NG = a.ng;
+  constexpr bool ring = RING;
+  const int tid = threadIdx.x, lane = tid & 31;
 
-  if (threadIdx.x >= 32) {  // helpers: the ring copy after every chunk
-    for (int e = 0; e < a.ne; ++e) {
-      __syncthreads();
-      copy_ring<K>(ring_k, a.ring_s, static_cast<K*>(a.rk_s) + e * cw,
-                   a.rs_s + e * cw, cw);
-      __syncthreads();
-    }
+  ScanSmem<K> m;
+  m.own = reinterpret_cast<int*>(dyn);
+  m.cnt = m.own + C;
+  m.base = m.cnt + C;
+  m.stamp = m.base + C;
+  m.next = m.stamp + C;
+  m.oid = m.next + C;
+  const int nwords = (C + 31) / 32;
+  m.freew = reinterpret_cast<unsigned*>(m.oid + C);
+  m.pend = reinterpret_cast<int*>(m.freew + nwords);
+  m.plist = m.pend + (ring ? C : 0);
+  m.st_g = m.plist + (ring ? C : 0);
+  m.st_k = reinterpret_cast<K*>(m.st_g + SCAN_WINDOWS * SCAN_STAGE);
+  int* gsh = reinterpret_cast<int*>(
+      m.st_k + (ring ? SCAN_WINDOWS * SCAN_STAGE : 0));
+  m.sbuf = gsh + (GS ? 3 * NG : 0);
+  m.g_new = GS ? gsh : a.gtab;
+  m.g_old = m.g_new + NG;
+  m.g_ws = m.g_old + NG;
+
+  for (int s = tid; s < C; s += blockDim.x) {
+    m.own[s] = a.slots0[s];
+    m.oid[s] = m.own[s] >= 0 ? a.gid[m.own[s]] : PAD_GROUP;
+    m.cnt[s] = a.slots0[C + s];
+    m.base[s] = a.slots0[2 * C + s];
+    m.stamp[s] = a.slots0[3 * C + s];
+    m.next[s] = a.slots0[4 * C + s];
+    if (ring) m.pend[s] = 0;
+  }
+  __syncthreads();
+  for (int w = tid; w < nwords; w += blockDim.x) {
+    unsigned bits = 0;
+    for (int j = 0; j < 32 && w * 32 + j < C; ++j)
+      if (m.own[w * 32 + j] < 0) bits |= 1u << j;
+    m.freew[w] = bits;
+  }
+  if (GS)
+    for (int x = tid; x < 3 * NG; x += blockDim.x) gsh[x] = a.gtab[x];
+  if (tid == 0) {
+    s_clock = a.clock[0];
+    s_npend = 0;
+  }
+  __syncthreads();
+
+  if (tid >= 32) {  // helpers: the chunk ends
+    for (int e = 0; e < a.ne; ++e)
+      chunk_end<K, RING>(a, m, e, &s_clock, &s_npend);
     return;
   }
 
-  int own[J], cnt[J], bas[J], stp[J];
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int s = j * 32 + lane;
-    const bool have = s < C;
-    own[j] = have ? a.dir[s] : PAD_GROUP;
-    cnt[j] = have ? a.dir[C + s] : 0;
-    bas[j] = have ? a.dir[2 * C + s] : 0;
-    stp[j] = have ? a.dir[3 * C + s] : -1;
-  }
-  int clock = a.clock[0];
-  int evictions = 0, retired = 0;  // retired: this lane's slots
-
+  const K* keys = static_cast<const K*>(a.k);
+  K* ring_k = static_cast<K*>(a.ring_k);
   const long long n = static_cast<long long>(a.ne) * WA;
-  int gl = 0, my_slot = 0, my_lane = 0, my_seq = 0;
-  K kl = K(0);
-  for (long long i = 0; i < n; ++i) {
-    const int w = static_cast<int>(i & 31);
-    if (w == 0 && i + lane < n) {  // the next 32 tuples, one per lane
-      gl = a.g[i + lane];
-      if (ring) kl = keys[i + lane];
-    }
-    const int gi = __shfl_sync(FULL_MASK, gl, w);
-
-    // the group's newest slot (first max base), the first free slot and
-    // the oldest slot (first min stamp)
-    int nv = SHIFT_FILL, ni = 0x7fffffff;
-    int ov = 0x7fffffff, oi = 0x7fffffff;
-    int fi = 0x7fffffff;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      const int s = j * 32 + lane;
-      if (s < C) {
-        const int v = own[j] == gi ? bas[j] : -1;
-        if (v > nv) { nv = v; ni = s; }
-        const bool fr = own[j] == PAD_GROUP;
-        if (fr && fi == 0x7fffffff) fi = s;
-        const int sv = fr ? 0x7fffffff : stp[j];
-        if (sv < ov || oi == 0x7fffffff) { ov = sv; oi = s; }
-      }
-    }
-    const int nmax = __reduce_max_sync(FULL_MASK, nv);
-    const int newest = __reduce_min_sync(FULL_MASK, nv == nmax ? ni : 0x7fffffff);
-    const int omin = __reduce_min_sync(FULL_MASK, ov);
-    const int oldest = __reduce_min_sync(FULL_MASK, ov == omin ? oi : 0x7fffffff);
-    const int first_free = __reduce_min_sync(FULL_MASK, fi);
-    const bool any_mine = nmax >= 0;  // bases are never negative
-    int ws_g = a.default_ws;
-    if (a.npg > 0) {  // the last matching override wins
-      int pi = -1;
-      for (int p = lane; p < a.npg; p += 32)
-        if (a.pg[2 * p] == gi) pi = p;
-      pi = __reduce_max_sync(FULL_MASK, pi);
-      if (pi >= 0) ws_g = a.pg[2 * pi + 1];
-    }
-
-    int cn_l = 0, bn_l = 0;
-#pragma unroll
-    for (int j = 0; j < J; ++j)
-      if (j == (newest >> 5)) { cn_l = cnt[j]; bn_l = bas[j]; }
-    const int cn = __shfl_sync(FULL_MASK, cn_l, newest & 31);
-    const int bn = __shfl_sync(FULL_MASK, bn_l, newest & 31);
-    const int m_g = any_mine ? bn + cn : 0;
-    const bool has_open = any_mine && cn < WA;
-    const int slot = has_open ? newest
-                              : (first_free != 0x7fffffff ? first_free : oldest);
-    const int ln = has_open ? cn : 0;
-    const int new_cs = has_open ? cn + 1 : 1;
-    const int horizon = m_g + 1 - ws_g;
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      if (j * 32 + lane == slot) {
-        cnt[j] = new_cs;
-        if (!has_open) { own[j] = gi; bas[j] = m_g; stp[j] = clock; }
-      }
-      // retire this group's panes that no longer intersect its last WS_g
-      if (j * 32 + lane < C && own[j] == gi && bas[j] + WA <= horizon) {
-        ++retired;
-        own[j] = PAD_GROUP;
-        cnt[j] = 0;
-        stp[j] = -1;
-      }
-    }
-    if (!has_open) ++clock;
-    if (!has_open && first_free == 0x7fffffff) ++evictions;
-    if (lane == w) { my_slot = slot; my_lane = ln; my_seq = m_g; }
-    if (ring) {
-      const K kv = __shfl_sync(FULL_MASK, kl, w);
-      const long long row = static_cast<long long>(slot) * WA;
-      if (lane == 0) {
-        ring_k[row + ln] = kv;
-        a.ring_s[row + ln] = m_g;
-      }
-      if (new_cs == WA) {  // sort the pane once, when it closes
-        __syncwarp();
-        for (int l = lane; l < WA; l += 32) {
-          skey[l] = ring_k[row + l];
-          sseq[l] = a.ring_s[row + l];
-        }
-        __syncwarp();
-        sort_key_seq<K>(skey, sseq, WA, lane, 32, WarpSync());
-        for (int l = lane; l < WA; l += 32) {
-          ring_k[row + l] = skey[l];
-          a.ring_s[row + l] = sseq[l];
-        }
-      }
+  const unsigned below = (1u << lane) - 1;
+  int clock = s_clock;
+  int evictions = 0, retired = 0, batches = 0, clean = 0, npend = 0;
+  long long i = 0;
+  // windows 0 and 1 resident, 2 in flight
+  const long long nwin = (n + SCAN_STAGE - 1) / SCAN_STAGE;
+  for (long long w = 0; w < 3 && w < nwin; ++w)
+    stage_window<K, RING>(a, m, w, n, lane);
+  __pipeline_wait_prior(nwin > 2 ? 1 : 0);
+  __syncwarp();
+  long long cur = 0;    // the window batches start in
+  long long stop = WA;  // batches stay in a chunk
+  int e = 0;
+  while (i < n) {
+    const int nb = static_cast<int>(stop - i < 32 ? stop - i : 32);
+    if (i >= (cur + 1) * SCAN_STAGE) {  // next window: the one after in
+      ++cur;                              // flight, the old one's place free
+      __pipeline_wait_prior(0);
       __syncwarp();
+      if (cur + 2 < nwin) stage_window<K, RING>(a, m, cur + 2, n, lane);
     }
+    const bool in = lane < nb;
+    const int off = static_cast<int>((i + lane) & SCAN_RING_MASK);
+    const int d = in ? m.st_g[off] : -1 - lane;
+    const K kv = (ring && in) ? m.st_k[off] : K(0);
 
-    if (w == 31 || i == n - 1) {  // flush the plan of the last 32 tuples
-      const long long t = i - w + lane;
-      if (lane <= w) {
-        a.plan[t] = my_slot;
-        a.plan[n + t] = my_lane;
-        a.plan[2 * n + t] = my_seq;
+    // the fast path: the group's newest pane has room for this lane, and
+    // no more than its oldest pane falls behind the window
+    const unsigned peers = __match_any_sync(FULL_MASK, d);
+    const int rank = __popc(peers & below);
+    const int t = in ? m.g_new[d] : -1;
+    const int h = in ? m.g_old[d] : -1;
+    const int ws = in ? m.g_ws[d] : 0;
+    int c = 0, b = 0, nh = -1;
+    bool ev = true, r1 = false;
+    if (t >= 0) {
+      const int bh = m.base[h];
+      nh = m.next[h];
+      c = m.cnt[t] + rank;
+      b = m.base[t];
+      const int horizon = b + c + 1 - ws;
+      // r1: the head falls behind (never the pane written, so nh >= 0);
+      // its successor too is an event
+      r1 = bh + WA <= horizon;
+      ev = c >= WA || (r1 && m.base[nh] + WA <= horizon);
+    }
+    const unsigned evm = __ballot_sync(FULL_MASK, in && ev);
+    const int f = evm ? __ffs(evm) - 1 : nb;  // the first event lane
+    const unsigned before = f >= 32 ? FULL_MASK : (1u << f) - 1;
+    // the first lane of each group before f whose head falls behind
+    // retires it (horizons rise with rank: later lanes find it gone)
+    const unsigned rm = __ballot_sync(FULL_MASK, r1) & before;
+    const bool retires = r1 && lane < f && lane == __ffs(rm & peers) - 1;
+    retired += __popc(__ballot_sync(FULL_MASK, retires));
+    ++batches;
+    clean += evm == 0 ? 1 : 0;
+    if (lane < f) {
+      const long long at = i + lane;
+      a.plan[at] = t;
+      a.plan[n + at] = c;
+      a.plan[2 * n + at] = b + c;
+      if (lane == 31 - __clz(peers & before)) m.cnt[t] = c + 1;
+      if (retires) {
+        m.own[h] = -1;
+        m.oid[h] = PAD_GROUP;
+        m.cnt[h] = 0;
+        m.stamp[h] = -1;
+        atomicOr(m.freew + (h >> 5), 1u << (h & 31));
+        m.g_old[d] = nh;
+      }
+      if (ring) {
+        const long long at_r = static_cast<long long>(t) * WA + c;
+        ring_k[at_r] = kv;
+        a.ring_s[at_r] = b + c;
       }
     }
-    if (((i + 1) & (WA - 1)) == 0) {  // chunk end: snapshot the store
-      const long long e = i / WA;
+    if (ring) {
+      const bool closes = lane < f && c + 1 == WA;
+      const unsigned cm = __ballot_sync(FULL_MASK, closes);
+      if (closes) {
+        m.pend[t] = 1;
+        m.plist[npend + __popc(cm & below)] = t;
+      }
+      npend += __popc(cm);
+    }
+    __syncwarp();
+
+    if (f < nb) {  // the full step for tuple i + f (warp-uniform values)
+      const long long at = i + f;
+      const int dg = __shfl_sync(FULL_MASK, d, f);
+      const K kg = __shfl_sync(FULL_MASK, kv, f);
+      const int tn = m.g_new[dg];
+      const int cn = tn >= 0 ? m.cnt[tn] : 0;
+      const int mg = tn >= 0 ? m.base[tn] + cn : 0;
+      int slot, ln;
+      if (tn >= 0 && cn < WA) {
+        slot = tn;
+        ln = cn;
+        if (lane == 0) m.cnt[tn] = cn + 1;
+      } else {
+        // the first free slot (the bitmap), else the first minimum stamp
+        int ff = 0x7fffffff;
+        for (int w = lane; w < nwords; w += 32) {
+          const unsigned bits = m.freew[w];
+          if (bits != 0 && ff == 0x7fffffff) ff = w * 32 + __ffs(bits) - 1;
+        }
+        ff = __reduce_min_sync(FULL_MASK, ff);
+        const bool evict = ff == 0x7fffffff;
+        if (evict) {
+          int ov = 0x7fffffff, oi = 0x7fffffff;
+          for (int s0 = lane; s0 < C; s0 += 128) {
+            int sv[4];
 #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        const int s = j * 32 + lane;
-        if (s < C) {
-          a.snaps[e * C + s] = own[j];
-          a.snaps[nc + e * C + s] = cnt[j];
-          a.snaps[2 * nc + e * C + s] = bas[j];
-          a.snaps[3 * nc + e * C + s] = stp[j];
+            for (int q = 0; q < 4; ++q)
+              sv[q] = s0 + q * 32 < C ? m.stamp[s0 + q * 32] : 0x7fffffff;
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              if (sv[q] < ov) {
+                ov = sv[q];
+                oi = s0 + q * 32;
+              }
+          }
+          const int omin = __reduce_min_sync(FULL_MASK, ov);
+          slot = __reduce_min_sync(FULL_MASK, ov == omin ? oi : 0x7fffffff);
+          ++evictions;
+        } else {
+          slot = ff;
+        }
+        ln = 0;
+        if (ring && m.pend[slot]) {  // closed in this chunk: sort it first
+          sort_pane<K>(ring_k, a.ring_s, slot, WA, m.sbuf, lane);
+          if (lane == 0) m.pend[slot] = 0;
+        }
+        if (lane == 0) {
+          if (evict) {  // the victim leaves its group's chain
+            const int v = m.own[slot];
+            const int nx = m.next[slot];
+            int p = m.g_old[v];
+            if (p == slot) {
+              m.g_old[v] = nx;
+            } else {  // not the head: only on a state the scan never makes
+              while (m.next[p] != slot) p = m.next[p];
+              m.next[p] = nx;
+            }
+            if (m.g_new[v] == slot) m.g_new[v] = p == slot ? -1 : p;
+          }
+          m.freew[slot >> 5] &= ~(1u << (slot & 31));
+          const int tail = m.g_new[dg];
+          if (tail >= 0) m.next[tail] = slot; else m.g_old[dg] = slot;
+          m.g_new[dg] = slot;
+          m.own[slot] = dg;
+          m.oid[slot] = a.gid[dg];
+          m.cnt[slot] = 1;
+          m.base[slot] = mg;
+          m.stamp[slot] = clock;
+          m.next[slot] = -1;
+        }
+        ++clock;
+      }
+      if (lane == 0) {
+        a.plan[at] = slot;
+        a.plan[n + at] = ln;
+        a.plan[2 * n + at] = mg;
+        if (ring) {
+          const long long at_r = static_cast<long long>(slot) * WA + ln;
+          ring_k[at_r] = kg;
+          a.ring_s[at_r] = mg;
+          if (ln + 1 == WA) {
+            m.pend[slot] = 1;
+            m.plist[npend] = slot;
+          }
         }
       }
-      if (lane == 0) a.clock_s[e] = clock;
-      if (ring) {
-        __syncthreads();
-        copy_ring<K>(ring_k, a.ring_s, static_cast<K*>(a.rk_s) + e * cw,
-                     a.rs_s + e * cw, cw);
-        __syncthreads();
+      if (ring && ln + 1 == WA) ++npend;
+      __syncwarp();
+      // retire the group's panes that no longer intersect its last WS_g:
+      // the oldest first (the pane just written never retires)
+      const int horizon = mg + 1 - m.g_ws[dg];
+      for (;;) {
+        const int old = m.g_old[dg];
+        if (m.base[old] + WA > horizon) break;
+        if (lane == 0) {
+          m.own[old] = -1;
+          m.oid[old] = PAD_GROUP;
+          m.freew[old >> 5] |= 1u << (old & 31);
+          m.cnt[old] = 0;
+          m.stamp[old] = -1;
+          m.g_old[dg] = m.next[old];
+        }
+        ++retired;
+        __syncwarp();
       }
+      i = at + 1;
+    } else {
+      i += nb;
+    }
+    if (i == stop) {
+      if (lane == 0) {
+        s_clock = clock;
+        s_npend = npend;
+      }
+      chunk_end<K, RING>(a, m, e, &s_clock, &s_npend);
+      npend = 0;
+      ++e;
+      stop += WA;
     }
   }
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int s = j * 32 + lane;
-    if (s < C) {
-      a.dir[s] = own[j];
-      a.dir[C + s] = cnt[j];
-      a.dir[2 * C + s] = bas[j];
-      a.dir[3 * C + s] = stp[j];
-    }
+  for (int s = lane; s < C; s += 32) {
+    a.dir[s] = m.oid[s];
+    a.dir[C + s] = m.cnt[s];
+    a.dir[2 * C + s] = m.base[s];
+    a.dir[3 * C + s] = m.stamp[s];
   }
-  retired = __reduce_add_sync(FULL_MASK, retired);
   if (lane == 0) {
     a.clock[0] = clock;
     a.events[0] = evictions;
     a.events[1] = retired;
+    a.stats[0] = batches;
+    a.stats[1] = clean;
   }
 }
 
-// ------------------------------------------------- fused push + partials
+// ---------------------------------------------------- per-slot partials
 
 struct FusedArgs {
-  const void* ck;                           // [NE, WA] keys
-  const int *slots, *lanes, *seqs;          // [NE, WA]
-  const int *own, *cnt, *lo, *sortmask, *ug;  // [NE, C]
+  const void* wk;     // [NE*WA] keys of the writes, by slot, stream order
+  const int* wq;      // [NE*WA] seqs of the writes, the same order
+  const int* start;   // [C] where each slot's writes begin
+  const int* endp;    // [NE, C] one past the last write to the slot at or
+                      // before the chunk
+  const int *own, *cnt, *lo, *ug, *perm;  // [NE, C]; perm: owner-sorted
   int ne, wa, c;
-  void* ring_k;                             // [C, WA] scratch, zeroed
-  int* ring_s;                              // [C, WA] scratch, zeroed
-  int* tag;                                 // [C, WA] scratch, all -1
-  int nbuf;                                 // warps with a sort buffer
 };
 
-constexpr int FUSED_THREADS = 1024;
+constexpr int FUSED_THREADS = 256;
 
 template <typename K>
 __global__ void __launch_bounds__(FUSED_THREADS)
@@ -368,144 +611,113 @@ pergroup_fused_kernel(FusedArgs a, OpList ops) {
   extern __shared__ __align__(16) unsigned char dyn[];
   const int C = a.c, WA = a.wa;
   int* s_own = reinterpret_cast<int*>(dyn);          // [C]
-  int* s_pc = s_own + C;                             // [C]
-  int* s_mark = s_pc + C;                            // [C]
-  Acc* s_psum = reinterpret_cast<Acc*>(s_mark + C);  // [C]
+  int* s_perm = s_own + C;                           // [C]
+  int* s_so = s_perm + C;                            // [C] sorted owners
+  int* s_pc = s_so + C;                              // [C]
+  Acc* s_psum = reinterpret_cast<Acc*>(s_pc + C);    // [C]
   K* s_pmin = reinterpret_cast<K*>(s_psum + C);      // [C]
   K* s_pmax = s_pmin + C;                            // [C]
-  int* s_seq = reinterpret_cast<int*>(s_pmax + C);   // [nbuf, WA]
-  K* s_key = reinterpret_cast<K*>(s_seq + a.nbuf * WA);  // [nbuf, WA]
-  __shared__ int nmark;
-  const K* ck = static_cast<const K*>(a.ck);
-  K* ring_k = static_cast<K*>(a.ring_k);
+  const K* wk = static_cast<const K*>(a.wk);
   const int tid = threadIdx.x, nt = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = nt >> 5;
   const K hi = key_max<K>(), lo_sent = key_min<K>();
+  const long long ec = static_cast<long long>(blockIdx.x) * C;
 
-  for (int e = 0; e < a.ne; ++e) {
-    const long long ew = static_cast<long long>(e) * WA;
-    const long long ec = static_cast<long long>(e) * C;
-    for (int s = tid; s < C; s += nt) s_own[s] = a.own[ec + s];
-    if (tid == 0) nmark = 0;
-    // of several writes to one (slot, lane) the chunk's last wins: each
-    // lane's tag is the stream index of its latest writer
-    for (int t = tid; t < WA; t += nt)
-      atomicMax(a.tag + static_cast<long long>(a.slots[ew + t]) * WA +
-                    a.lanes[ew + t],
-                static_cast<int>(ew + t));
-    __syncthreads();
-    for (int t = tid; t < WA; t += nt) {
-      const long long at = static_cast<long long>(a.slots[ew + t]) * WA +
-                           a.lanes[ew + t];
-      if (a.tag[at] == static_cast<int>(ew + t)) {
-        ring_k[at] = ck[ew + t];
-        a.ring_s[at] = a.seqs[ew + t];
-      }
-    }
-    for (int s = tid; s < C; s += nt)
-      if (a.sortmask[ec + s] != 0) s_mark[atomicAdd(&nmark, 1)] = s;
-    __syncthreads();
-    // the panes that closed in this chunk, sorted by (key, seq), one warp
-    // a pane
-    const int nm = nmark;
-    if (warp < a.nbuf) {
-      K* bk = s_key + warp * WA;
-      int* bs = s_seq + warp * WA;
-      for (int m = warp; m < nm; m += a.nbuf) {
-        const long long row = static_cast<long long>(s_mark[m]) * WA;
-        for (int l = lane; l < WA; l += 32) {
-          bk[l] = ring_k[row + l];
-          bs[l] = a.ring_s[row + l];
-        }
-        __syncwarp();
-        sort_key_seq<K>(bk, bs, WA, lane, 32, WarpSync());
-        for (int l = lane; l < WA; l += 32) {
-          ring_k[row + l] = bk[l];
-          a.ring_s[row + l] = bs[l];
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();
-    // per-slot partials of the live lanes, one warp a slot; four loads a
-    // lane in flight at once
-    for (int s = warp; s < C; s += nwarps) {
-      const bool occ = s_own[s] != PAD_GROUP;
-      const int cs = occ ? min(a.cnt[ec + s], WA) : 0;
-      const int los = a.lo[ec + s];
-      const long long row = static_cast<long long>(s) * WA;
-      int pc = 0;
-      Acc ps = Acc(0);
-      K pmin = hi, pmax = lo_sent;
-      for (int l0 = 0; l0 < cs; l0 += 128) {
-        int sq[4];
-        K kv[4];
+  for (int s = tid; s < C; s += nt) {
+    s_own[s] = a.own[ec + s];
+    s_perm[s] = a.perm[ec + s];
+  }
+  __syncthreads();
+  for (int p = tid; p < C; p += nt) s_so[p] = s_own[s_perm[p]];
+  // per-slot partials of the live lanes, one warp a slot: the slot's last
+  // min(cnt, writes) writes (a carried-in pane's earlier lanes are the
+  // ring's zeros, seq 0); four loads a lane in flight at once
+  for (int s = warp; s < C; s += nwarps) {
+    const bool occ = s_own[s] != PAD_GROUP;
+    const int cs = occ ? min(a.cnt[ec + s], WA) : 0;
+    const int los = a.lo[ec + s];
+    const int end = a.endp[ec + s];
+    const int nw = min(cs, end - a.start[s]);
+    const int p0 = end - nw;
+    int pc = 0;
+    Acc ps = Acc(0);
+    K pmin = hi, pmax = lo_sent;
+    for (int l0 = 0; l0 < nw; l0 += 128) {
+      int sq[4];
+      K kv[4];
 #pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const int l = l0 + q * 32 + lane;
-          sq[q] = l < cs ? a.ring_s[row + l] : 0;
-          kv[q] = l < cs ? ring_k[row + l] : K(0);
-        }
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (l0 + q * 32 + lane < cs && sq[q] >= los) {
-            ++pc;
-            ps = add_wrap(ps, kv[q]);
-            pmin = kv[q] < pmin ? kv[q] : pmin;
-            pmax = pmax < kv[q] ? kv[q] : pmax;
-          }
-        }
+      for (int q = 0; q < 4; ++q) {
+        const int l = l0 + q * 32 + lane;
+        sq[q] = l < nw ? a.wq[p0 + l] : 0;
+        kv[q] = l < nw ? wk[p0 + l] : K(0);
       }
 #pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        pc += __shfl_xor_sync(FULL_MASK, pc, d);
-        ps = add_wrap(ps, __shfl_xor_sync(FULL_MASK, ps, d));
-        const K omin = __shfl_xor_sync(FULL_MASK, pmin, d);
-        const K omax = __shfl_xor_sync(FULL_MASK, pmax, d);
-        pmin = omin < pmin ? omin : pmin;
-        pmax = pmax < omax ? omax : pmax;
-      }
-      if (lane == 0) {
-        s_pc[s] = pc;
-        s_psum[s] = ps;
-        s_pmin[s] = pmin;
-        s_pmax[s] = pmax;
-      }
-    }
-    __syncthreads();
-    // every output row: its group's slots combined
-    for (int r = tid; r < C; r += nt) {
-      const int u = a.ug[ec + r];
-      int cnt = 0;
-      Acc sum = Acc(0);
-      K vmin = hi, vmax = lo_sent;
-      if (u != PAD_GROUP) {
-        for (int s = 0; s < C; ++s) {
-          if (s_own[s] == u) {
-            cnt += s_pc[s];
-            sum = add_wrap(sum, s_psum[s]);
-            vmin = s_pmin[s] < vmin ? s_pmin[s] : vmin;
-            vmax = vmax < s_pmax[s] ? s_pmax[s] : vmax;
-          }
-        }
-      }
-      for (int o = 0; o < ops.n; ++o) {
-        void* out = ops.out[o];
-        const long long at = ec + r;
-        switch (ops.code[o]) {
-          case OP_COUNT: static_cast<int*>(out)[at] = cnt; break;
-          case OP_SUM: static_cast<Acc*>(out)[at] = sum; break;
-          case OP_MEAN:
-            static_cast<float*>(out)[at] =
-                static_cast<float>(sum) / static_cast<float>(cnt > 1 ? cnt : 1);
-            break;
-          case OP_MIN: static_cast<K*>(out)[at] = cnt > 0 ? vmin : K(0); break;
-          case OP_MAX: static_cast<K*>(out)[at] = cnt > 0 ? vmax : K(0); break;
-          default: break;
+      for (int q = 0; q < 4; ++q) {
+        if (l0 + q * 32 + lane < nw && sq[q] >= los) {
+          ++pc;
+          ps = add_wrap(ps, kv[q]);
+          pmin = kv[q] < pmin ? kv[q] : pmin;
+          pmax = pmax < kv[q] ? kv[q] : pmax;
         }
       }
     }
-    __syncthreads();
+    if (lane == 0 && cs > nw && los <= 0) {
+      pc += cs - nw;
+      pmin = K(0) < pmin ? K(0) : pmin;
+      pmax = pmax < K(0) ? K(0) : pmax;
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      pc += __shfl_xor_sync(FULL_MASK, pc, d);
+      ps = add_wrap(ps, __shfl_xor_sync(FULL_MASK, ps, d));
+      const K omin = __shfl_xor_sync(FULL_MASK, pmin, d);
+      const K omax = __shfl_xor_sync(FULL_MASK, pmax, d);
+      pmin = omin < pmin ? omin : pmin;
+      pmax = pmax < omax ? omax : pmax;
+    }
+    if (lane == 0) {
+      s_pc[s] = pc;
+      s_psum[s] = ps;
+      s_pmin[s] = pmin;
+      s_pmax[s] = pmax;
+    }
+  }
+  __syncthreads();
+  // every output row: its group's slots (a run of the owner-sorted slots)
+  for (int r = tid; r < C; r += nt) {
+    const int u = a.ug[ec + r];
+    int cnt = 0;
+    Acc sum = Acc(0);
+    K vmin = hi, vmax = lo_sent;
+    if (u != PAD_GROUP) {
+      int lo = 0, hi_p = C;  // the first sorted position with owner >= u
+      while (lo < hi_p) {
+        const int mid = (lo + hi_p) >> 1;
+        if (s_so[mid] < u) lo = mid + 1; else hi_p = mid;
+      }
+      for (int p = lo; p < C && s_so[p] == u; ++p) {
+        const int s = s_perm[p];
+        cnt += s_pc[s];
+        sum = add_wrap(sum, s_psum[s]);
+        vmin = s_pmin[s] < vmin ? s_pmin[s] : vmin;
+        vmax = vmax < s_pmax[s] ? s_pmax[s] : vmax;
+      }
+    }
+    const long long at = ec + r;
+    for (int o = 0; o < ops.n; ++o) {
+      void* out = ops.out[o];
+      switch (ops.code[o]) {
+        case OP_COUNT: static_cast<int*>(out)[at] = cnt; break;
+        case OP_SUM: static_cast<Acc*>(out)[at] = sum; break;
+        case OP_MEAN:
+          static_cast<float*>(out)[at] =
+              static_cast<float>(sum) / static_cast<float>(cnt > 1 ? cnt : 1);
+          break;
+        case OP_MIN: static_cast<K*>(out)[at] = cnt > 0 ? vmin : K(0); break;
+        case OP_MAX: static_cast<K*>(out)[at] = cnt > 0 ? vmax : K(0); break;
+        default: break;
+      }
+    }
   }
 }
 
@@ -625,51 +837,55 @@ OpList make_ops(const int* codes, void* const* outs, int nops) {
 
 bool pow2(int x) { return x >= 1 && (x & (x - 1)) == 0; }
 
-template <typename K, int J>
-cudaError_t launch_scan_j(const ScanArgs& a, cudaStream_t st) {
-  const size_t smem = static_cast<size_t>(a.wa) * 8;
-  cudaError_t err = opt_in_smem(pergroup_scan_kernel<K, J>, smem);
+// Shared memory of the scan: six [C] slot columns, the free-slot bitmap
+// and the staged tuples;
+// with a ring, two more [C] columns, staged keys and `nbuf` sort buffers of
+// WA (key, seq) pairs (as many as fit, at most one a warp); the group
+// tables when they hold at most GROUP_SMEM_MAX groups and fit beside the
+// rest.  Returns 0 when even one sort buffer does not fit.
+size_t scan_smem(int c, int wa, int ng, bool ring, int* gsmem, int* nbuf) {
+  const size_t staged = SCAN_WINDOWS * SCAN_STAGE;
+  size_t base = 4 * (6 * static_cast<size_t>(c) + (c + 31) / 32 + staged);
+  if (ring) base += 4 * (2 * static_cast<size_t>(c) + staged);
+  const size_t per = ring ? static_cast<size_t>(wa) * 8 : 0;
+  const size_t groups = 12 * static_cast<size_t>(ng);
+  *gsmem = ng <= GROUP_SMEM_MAX && base + groups + per <= SMEM_BUDGET;
+  if (*gsmem) base += groups;
+  *nbuf = 0;
+  if (!ring) return base;
+  if (base + per > SMEM_BUDGET) return 0;
+  size_t nb = (SMEM_BUDGET - base) / per;
+  nb = nb > SCAN_RING_THREADS / 32 ? SCAN_RING_THREADS / 32 : nb;
+  *nbuf = static_cast<int>(nb);
+  return base + per * nb;
+}
+
+template <typename K, bool RING, bool GS>
+cudaError_t launch_scan_kernel(const ScanArgs& a, size_t smem,
+                               cudaStream_t st) {
+  cudaError_t err = opt_in_smem(pergroup_scan_kernel<K, RING, GS>, smem);
   if (err != cudaSuccess) return err;
-  const int threads = a.k != nullptr ? SCAN_RING_THREADS : 32;
-  pergroup_scan_kernel<K, J><<<1, threads, smem, st>>>(a);
+  pergroup_scan_kernel<K, RING, GS>
+      <<<1, RING ? SCAN_RING_THREADS : 32, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-// The slots a lane holds, J = ceil(C / 32), rounded up to an instantiated
-// width: 10 is the repo's per-group store (C = 292); up to 32 stay in
-// registers, 128 spills to local memory.  Without a ring the key type does
-// not matter, and the int32 variants run.
-template <typename K>
-cudaError_t launch_scan(const ScanArgs& a, cudaStream_t st) {
-  const int need = (a.c + 31) / 32;
-  if (need <= 1) return launch_scan_j<K, 1>(a, st);
-  if (need <= 2) return launch_scan_j<K, 2>(a, st);
-  if (need <= 4) return launch_scan_j<K, 4>(a, st);
-  if (need <= 10) return launch_scan_j<K, 10>(a, st);
-  if (need <= 16) return launch_scan_j<K, 16>(a, st);
-  if (need <= 32) return launch_scan_j<K, 32>(a, st);
-  if (need <= 128) return launch_scan_j<K, 128>(a, st);
-  return cudaErrorInvalidValue;
+template <typename K, bool RING>
+cudaError_t launch_scan(const ScanArgs& a, size_t smem, cudaStream_t st) {
+  return a.gsmem ? launch_scan_kernel<K, RING, true>(a, smem, st)
+                 : launch_scan_kernel<K, RING, false>(a, smem, st);
 }
 
-// Shared memory of the fused kernel: six [C] columns and `nbuf` [WA] sort
-// buffers, as many as fit beside them (one a warp, at least one).
-size_t fused_smem(int c, int wa, int* nbuf) {
-  const size_t base = static_cast<size_t>(c) * 24;
-  const size_t per = static_cast<size_t>(wa) * 8;
-  const size_t room = base + per <= 100 * 1024 ? 100 * 1024 - base : per;
-  int n = static_cast<int>(room / per);
-  n = n < 1 ? 1 : (n > FUSED_THREADS / 32 ? FUSED_THREADS / 32 : n);
-  *nbuf = n;
-  return base + per * n;
-}
+// Shared memory of the fused kernel: seven [C] columns.
+size_t fused_smem(int c) { return static_cast<size_t>(c) * 28; }
 
 template <typename K>
-cudaError_t launch_fused(FusedArgs a, const OpList& ops, cudaStream_t st) {
-  const size_t smem = fused_smem(a.c, a.wa, &a.nbuf);
+cudaError_t launch_fused(const FusedArgs& a, const OpList& ops,
+                         cudaStream_t st) {
+  const size_t smem = fused_smem(a.c);
   cudaError_t err = opt_in_smem(pergroup_fused_kernel<K>, smem);
   if (err != cudaSuccess) return err;
-  pergroup_fused_kernel<K><<<1, FUSED_THREADS, smem, st>>>(a, ops);
+  pergroup_fused_kernel<K><<<a.ne, FUSED_THREADS, smem, st>>>(a, ops);
   return cudaGetLastError();
 }
 
@@ -688,50 +904,62 @@ cudaError_t launch_replay(const K* rk, const int* rv, int nrows, int L,
 }  // namespace
 }  // namespace rt
 
-// The placement scan over ne chunks of wa tuples (one warp).  k may be null
-// (no ring: ring_k, ring_s, rk_s and rs_s are then unused).  pg holds npg
-// sorted (group id, ws) pairs.  dir [4, C] (owner, count, base, stamp) and
-// clock [1] are read and written back; plan [3, ne, wa] gets each tuple's
-// slot, lane and seq; snaps [4, ne, C] and clock_s [ne] the directory after
-// every chunk, rk_s/rs_s [ne, C, wa] the ring after every chunk; events
-// [2] the evictions and retirements of the scan.
+// The placement scan over ne chunks of wa tuples (one warp).  g holds each
+// tuple's dense group index in [0, ng), gid the group id of each index;
+// k may be null (no ring: ring_k, ring_s, rk_s and rs_s are then unused).
+// slots0 [5, C]: each slot's owner (dense index, -1 free), count, base,
+// stamp and the next pane of its group in base order (-1 at the chain's
+// end); gtab [3, ng] each group's newest and oldest pane (-1: none) and
+// window size, scratch the kernel may update.  dir [4, C] (owner id,
+// count, base, stamp) gets the store after the scan; clock [1] is read and
+// written back; plan [3, ne, wa] gets each tuple's slot, lane and seq;
+// snaps [4, ne, C] and clock_s [ne] the directory after every chunk,
+// rk_s/rs_s [ne, C, wa] the ring after every chunk; events [2] the
+// evictions and retirements; stats [2] the batches and the batches that
+// committed all their tuples at once.
 extern "C" int rt_pergroup_scan(const int* g, const void* k, int key_type,
-                                int ne, int wa, int c, const int* pg, int npg,
-                                int default_ws, int* dir, int* clock,
-                                void* ring_k, int* ring_s, int* plan,
-                                int* snaps, int* clock_s, void* rk_s,
-                                int* rs_s, int* events, void* stream) {
+                                int ne, int wa, int c, int ng,
+                                const int* gid, const int* slots0, int* gtab,
+                                int* dir, int* clock, void* ring_k,
+                                int* ring_s, int* plan, int* snaps,
+                                int* clock_s, void* rk_s, int* rs_s,
+                                int* events, int* stats, void* stream) {
   using namespace rt;
+  int gsmem = 0, nbuf = 0;
+  const bool ring = k != nullptr;
   if (ne < 1 || !pow2(wa) || wa > MAX_ROW || c < 1 || c > MAX_SCAN_SLOTS ||
-      npg < 0 || default_ws < 1)
+      ng < 1 || static_cast<long long>(ne) * wa > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  ScanArgs a{g, k, ne, wa, c, pg, npg, default_ws, dir, clock, ring_k, ring_s,
-             plan, snaps, clock_s, rk_s, rs_s, events};
+  const size_t smem = scan_smem(c, wa, ng, ring, &gsmem, &nbuf);
+  if (smem == 0) return cudaErrorInvalidValue;
+  ScanArgs a{g, k, ne, wa, c, ng, gid, slots0, gtab, gsmem, nbuf, dir, clock,
+             ring_k, ring_s, plan, snaps, clock_s, rk_s, rs_s, events, stats};
   auto st = static_cast<cudaStream_t>(stream);
-  if (k == nullptr || key_type == KEY_INT32) return launch_scan<int>(a, st);
-  if (key_type == KEY_FLOAT32) return launch_scan<float>(a, st);
+  if (!ring) return launch_scan<int, false>(a, smem, st);
+  if (key_type == KEY_INT32) return launch_scan<int, true>(a, smem, st);
+  if (key_type == KEY_FLOAT32) return launch_scan<float, true>(a, smem, st);
   return cudaErrorInvalidValue;
 }
 
-// The fused push + partial evaluation over ne chunks (one block); ring_k
-// and ring_s are [C, wa] zeroed scratch, tag [C, wa] scratch set to -1.  codes/outs: ops among sum, count,
-// min, max, mean, each output [ne, C].
-extern "C" int rt_pergroup_fused(const void* ck, const int* slots,
-                                 const int* lanes, const int* seqs,
+// Per-slot partials and their per-row combination over ne chunks (one
+// block a chunk).  wk/wq: the keys and seqs of the ne*wa writes grouped by
+// slot, in stream order within a slot; start [C] where each slot's writes
+// begin; endp [ne, C] one past the slot's last write at or before the
+// chunk; own, cnt, lo, ug [ne, C] the plan's directory; perm [ne, C] each
+// chunk's slots sorted by owner (stable).  codes/outs: ops among sum,
+// count, min, max, mean, each output [ne, C].
+extern "C" int rt_pergroup_fused(const void* wk, const int* wq,
+                                 const int* start, const int* endp,
                                  const int* own, const int* cnt, const int* lo,
-                                 const int* sortmask, const int* ug,
-                                 int key_type, int ne, int wa, int c,
-                                 const int* codes, void* const* outs, int nops,
-                                 void* ring_k, int* ring_s, int* tag,
-                                 void* stream) {
+                                 const int* ug, const int* perm, int key_type,
+                                 int ne, int wa, int c, const int* codes,
+                                 void* const* outs, int nops, void* stream) {
   using namespace rt;
-  int nbuf = 0;
   if (ne < 1 || !pow2(wa) || wa > MAX_ROW || c < 1 || !ops_ok(codes, nops, true) ||
       static_cast<long long>(ne) * wa > 0x7fffffffLL ||
-      fused_smem(c, wa, &nbuf) > 227 * 1024)
+      fused_smem(c) > SMEM_BUDGET)
     return cudaErrorInvalidValue;
-  FusedArgs a{ck, slots, lanes, seqs, own, cnt, lo, sortmask, ug, ne, wa, c,
-              ring_k, ring_s, tag, nbuf};
+  FusedArgs a{wk, wq, start, endp, own, cnt, lo, ug, perm, ne, wa, c};
   const OpList ops = make_ops(codes, outs, nops);
   auto st = static_cast<cudaStream_t>(stream);
   if (key_type == KEY_INT32) return launch_fused<int>(a, ops, st);

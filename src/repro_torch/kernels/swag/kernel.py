@@ -12,8 +12,8 @@ per-group placement scan, which the JAX package leaves to an XLA
   ``i .. i+P-1`` instead of re-sorting, then the same tails.
 * :func:`pergroup_scan` — the per-tuple pane-store placement over a
   stream's WA chunks (optionally keeping the ring buffers).
-* :func:`pergroup_fused` — per chunk, in order: the writes into the
-  resident ring, the close sort, the per-group partial aggregates.
+* :func:`pergroup_fused` — per chunk: the per-group partial aggregates of
+  the ring as the chunk's writes leave it (the chunks in parallel).
 * :func:`pergroup_replay` — per replay row: the live lanes' DIRECT_OPS.
 * :func:`twostack_flip` — per epoch row of a two-stack time-window batch:
   the front region's suffix scan and the back region's prefix scan.
@@ -326,13 +326,58 @@ def pergroup_scan_plain(spec, state, groups, keys=None):
     return _panestore.scan(spec, state, groups, keys)
 
 
+#: the scan keeps its group tables in shared memory up to this many groups,
+#: in device memory beyond (csrc/pergroup.cu, GROUP_SMEM_MAX)
+SCAN_GROUP_SMEM_MAX = 4096
+
+
+def _scan_groups(spec, state, groups: torch.Tensor):
+    """The placement scan kernel's view of a stream and a store: a dense
+    index over the ids of the stream and of the store's live owners, and
+    each group's panes as a chain in base order.  Returns ``(gidx [N], ids
+    [G], slots [5, C], gtab [3, G])``, all int32: each tuple's index; the
+    id of each index (ascending); per slot its owner's index (-1: free),
+    count, base, stamp and the next pane of its group (-1: none); per group
+    its newest and oldest pane (-1: none) and its window."""
+    n, c = groups.shape[0], state.owner.shape[0]
+    free = state.owner == PAD_GROUP
+    ids, inv = torch.unique(torch.cat([groups, torch.where(
+        free, groups[:1], state.owner)]), return_inverse=True)
+    inv = inv.to(torch.int32)
+    own = torch.where(free, -1, inv[n:])
+    ng = ids.shape[0]
+    by_base = torch.sort(state.base, stable=True).indices
+    order = by_base[torch.sort(own[by_base], stable=True).indices]
+    od = own[order]
+    step = od[1:] != od[:-1]
+    true = torch.ones((1,), dtype=torch.bool, device=groups.device)
+    first = (od >= 0) & torch.cat([true, step])
+    last = (od >= 0) & torch.cat([step, true])
+    order32 = order.to(torch.int32)
+    nxt = torch.full((c,), -1, dtype=torch.int32, device=groups.device)
+    nxt[order[:-1]] = torch.where(last[:-1] | (od[:-1] < 0), -1,
+                                  order32[1:])
+    # free slots scatter into a dropped column
+    gtab = torch.full((3, ng + 1), -1, dtype=torch.int32,
+                      device=groups.device)
+    gtab[0].scatter_(0, torch.where(last, od, ng).long(), order32)
+    gtab[1].scatter_(0, torch.where(first, od, ng).long(), order32)
+    gtab[2, :ng] = spec.ws_of(ids)
+    slots = torch.stack([own, state.count, state.base, state.stamp, nxt])
+    return (inv[:n].contiguous(), ids.to(torch.int32),
+            slots.to(torch.int32).contiguous(), gtab[:, :ng].contiguous())
+
+
 def pergroup_scan(spec, state, groups: torch.Tensor,
                   keys: torch.Tensor | None = None):
     """Place the ``N // WA`` full chunks of ``groups`` into the pane store
-    ``state`` (a :class:`repro_torch.core.panestore.PaneStoreState`), one
-    tuple at a time in one warp.  With ``keys`` the ring buffers are kept
+    ``state`` (a :class:`repro_torch.core.panestore.PaneStoreState` the
+    scan made, or an empty one), in one warp, 32 tuples at a time where no
+    pane is allocated or retired.  With ``keys`` the ring buffers are kept
     too.  Returns a :class:`repro_torch.core.panestore.ScanTrace` (without
-    arrival ranks); ``state`` is not modified."""
+    arrival ranks); ``state`` is not modified.  The kernel's batches, and
+    how many of them placed all their tuples at once, are left in
+    ``pergroup_scan.batch_stats`` ([2] int32 on the card)."""
     if groups.device.type == "cpu":
         return pergroup_scan_plain(spec, state, groups, keys)
     wa, c = spec.wa, spec.capacity
@@ -351,7 +396,11 @@ def pergroup_scan(spec, state, groups: torch.Tensor,
                          f"{keys.dtype} (store {state.keys.dtype})")
     dev = groups.device
     kt = state.keys.dtype
-    direc = torch.stack([state.owner, state.count, state.base, state.stamp])
+    gidx, ids, slots0, gtab = _scan_groups(spec, state, groups[:ne * wa])
+    if int(ids[-1]) == PAD_GROUP:
+        raise ValueError(f"pergroup_scan: group id {PAD_GROUP} marks a free "
+                         f"slot and cannot be a tuple's group")
+    direc = torch.empty((4, c), dtype=torch.int32, device=dev)
     clock = state.clock.reshape(1).to(torch.int32).clone()
     ring = keys is not None
     ring_k = state.keys.contiguous().clone() if ring else None
@@ -363,9 +412,8 @@ def pergroup_scan(spec, state, groups: torch.Tensor,
     rk_s = torch.empty((ne, c, wa), dtype=kt, device=dev) if ring else None
     rs_s = torch.empty((ne, c, wa), dtype=torch.int32, device=dev) \
         if ring else None
-    pg = torch.tensor(spec.per_group or [(0, 0)], dtype=torch.int32,
-                      device=dev)
     events = torch.empty((2,), dtype=torch.int32, device=dev)
+    stats = torch.empty((2,), dtype=torch.int32, device=dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -373,14 +421,15 @@ def pergroup_scan(spec, state, groups: torch.Tensor,
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rt_pergroup_scan(
-            groups.data_ptr(), ptr(keys), common.KEY_TYPES[kt] if ring else 0,
-            ne, wa, c, pg.data_ptr(), len(spec.per_group), spec.default_ws,
-            direc.data_ptr(), clock.data_ptr(), ptr(ring_k), ptr(ring_s),
-            plan.data_ptr(), snaps.data_ptr(), clock_s.data_ptr(),
-            ptr(rk_s), ptr(rs_s), events.data_ptr(),
-            _build.stream_handle(dev))
+            gidx.data_ptr(), ptr(keys), common.KEY_TYPES[kt] if ring else 0,
+            ne, wa, c, ids.shape[0], ids.data_ptr(), slots0.data_ptr(),
+            gtab.data_ptr(), direc.data_ptr(), clock.data_ptr(), ptr(ring_k),
+            ptr(ring_s), plan.data_ptr(), snaps.data_ptr(),
+            clock_s.data_ptr(), ptr(rk_s), ptr(rs_s), events.data_ptr(),
+            stats.data_ptr(), _build.stream_handle(dev))
     _build.check(err, "pergroup_scan")
     pergroup_scan.launches += 1
+    pergroup_scan.batch_stats = stats
     states = _panestore.PaneStoreState(
         owner=snaps[0], keys=rk_s, seqs=rs_s, count=snaps[1], base=snaps[2],
         stamp=snaps[3], clock=clock_s)
@@ -439,14 +488,36 @@ def pergroup_fused_plain(chunk_keys, slots, lanes, seqs, own_s, cnt_s, lo_s,
     return outs
 
 
+def _writes_by_slot(chunk_keys, slots, seqs, c: int):
+    """The fused kernel's view of a write plan: the keys and seqs of the
+    ``[NE, WA]`` writes grouped by slot (stable, so stream order within a
+    slot), where each slot's writes begin ``[C]``, and for every (chunk,
+    slot) one past the slot's last write at or before the chunk ``[NE,
+    C]`` (binary searches of (slot, stream index) in the grouped order)."""
+    ne, wa = slots.shape
+    n = ne * wa
+    dev = slots.device
+    by_slot, order = torch.sort(slots.reshape(-1), stable=True)
+    key = by_slot.to(torch.int64) * n + order  # ascending
+    first = torch.arange(c, device=dev, dtype=torch.int64) * n
+    ends = first[None, :] + wa * torch.arange(
+        1, ne + 1, device=dev, dtype=torch.int64)[:, None]
+    return (chunk_keys.reshape(-1)[order], seqs.reshape(-1)[order],
+            torch.searchsorted(key, first).to(torch.int32),
+            torch.searchsorted(key, ends).to(torch.int32))
+
+
 def pergroup_fused(chunk_keys, slots, lanes, seqs, own_s, cnt_s, lo_s,
                    sortmask, ugroups, ops):
-    """Fused push + partial evaluation over ``[NE, WA]`` chunks (the
-    inputs of :func:`repro_torch.core.swag.write_plan`): per chunk, in
-    order, the writes into the ``[C, WA]`` ring, the sort of the closing
-    rows and every row's per-group partial aggregates.  ``ops`` are
-    partial-path names.  Returns ``{name: [NE, C]}`` (mask with the plan's
-    ``num`` outside)."""
+    """Per-group partial evaluation of ``[NE, WA]`` chunks (the inputs of
+    :func:`repro_torch.core.swag.write_plan`): every chunk's per-group
+    partial aggregates over the live lanes of the ``[C, WA]`` ring as the
+    chunk's writes leave it.  ``ops`` are partial-path names; their values
+    do not depend on the order of a pane's lanes, so the kernel skips the
+    close sort (``sortmask``).  The plan must be a placement scan's (a
+    pane fills lanes 0, 1, ... and a reallocated slot starts again at lane
+    0): the kernel reads each slot's live lanes as its last writes.
+    Returns ``{name: [NE, C]}`` (mask with the plan's ``num`` outside)."""
     names = (ops,) if isinstance(ops, str) else tuple(ops)
     if chunk_keys.device.type == "cpu":
         return pergroup_fused_plain(chunk_keys, slots, lanes, seqs, own_s,
@@ -474,18 +545,19 @@ def pergroup_fused(chunk_keys, slots, lanes, seqs, own_s, cnt_s, lo_s,
         raise ValueError("pergroup_fused: plan inputs must be [NE, WA], "
                          "directory inputs [NE, C]")
     dev = chunk_keys.device
+    own, cnt, lo, _, ug = dirs
+    wk, wq, start, endp = _writes_by_slot(chunk_keys, plan[0], plan[2], c)
+    perm = torch.sort(own, dim=1, stable=True).indices.to(torch.int32)
     outs = {nm: torch.empty((ne, c), dtype=out_dtype(
         nm, chunk_keys.dtype), device=dev) for nm in names}
-    ring_k = torch.zeros((c, wa), dtype=chunk_keys.dtype, device=dev)
-    ring_s = torch.zeros((c, wa), dtype=torch.int32, device=dev)
-    tag = torch.full((c, wa), -1, dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rt_pergroup_fused(
-            chunk_keys.data_ptr(), *(t.data_ptr() for t in plan + dirs),
+            wk.data_ptr(), wq.data_ptr(), start.data_ptr(), endp.data_ptr(),
+            *(t.data_ptr() for t in (own, cnt, lo, ug, perm)),
             common.KEY_TYPES[chunk_keys.dtype], ne, wa, c, _codes(names),
-            _ptrs(list(outs.values())), len(names), ring_k.data_ptr(),
-            ring_s.data_ptr(), tag.data_ptr(), _build.stream_handle(dev))
+            _ptrs(list(outs.values())), len(names),
+            _build.stream_handle(dev))
     _build.check(err, "pergroup_fused")
     pergroup_fused.launches += 1
     return outs
@@ -544,6 +616,7 @@ swag.launches = 0
 sort_panes.launches = 0
 swag_panes.launches = 0
 pergroup_scan.launches = 0
+pergroup_scan.batch_stats = None
 pergroup_fused.launches = 0
 pergroup_replay.launches = 0
 twostack_flip.launches = 0

@@ -186,6 +186,95 @@ def swag_per_group(spec_kw, g, k, ops, state_arrays=None):
     return _np(out), pane_state_to_numpy(final)
 
 
+def _check_group_panes(spec, st):
+    """Within each group the live panes' bases are exactly WA apart (so
+    distinct) and ordered like their stamps."""
+    from repro_torch.core import panestore as ps
+
+    live = st.owner != ps.PAD_GROUP
+    for grp in torch.unique(st.owner[live]).tolist():
+        mine = st.owner == grp
+        by_base = torch.sort(st.base[mine]).indices
+        bases, stamps = st.base[mine][by_base], st.stamp[mine][by_base]
+        assert bool((bases.diff() == spec.wa).all()), (grp, bases)
+        assert bool((stamps.diff() > 0).all()), (grp, bases, stamps)
+
+
+def _check_scan_groups(spec, st, g):
+    """The placement kernel wrapper's dense indices, pane chains and window
+    table over the stream ``g`` and the store ``st``."""
+    from repro_torch.core import panestore as ps
+
+    gidx, ids, slots, gtab = sk._scan_groups(spec, st, g)
+    own, nxt = slots[0], slots[4]
+    assert torch.equal(ids[gidx], g)
+    live = st.owner != ps.PAD_GROUP
+    assert torch.equal(torch.where(live, ids[own], ps.PAD_GROUP), st.owner)
+    assert bool((own[~live] == -1).all())
+    assert torch.equal(gtab[2], spec.ws_of(ids))
+    assert torch.equal(slots[1:4], torch.stack([st.count, st.base,
+                                                st.stamp]))
+    for d in range(ids.shape[0]):
+        chain, s = [], int(gtab[1, d])
+        while s >= 0:
+            chain.append(s)
+            s = int(nxt[s])
+        mine = torch.nonzero(own == d).flatten()
+        want = mine[torch.sort(st.base[mine]).indices].tolist()
+        assert chain == want, (d, chain, want)
+        assert int(gtab[0, d]) == (want[-1] if want else -1)
+    return int((~torch.isin(st.owner[live], g)).sum())
+
+
+def pane_invariants(spec_kw, first, second):
+    """Step the plain placement (``_push_decide``) over ``first``, then over
+    ``second`` from the store the first left, one tuple at a time, holding
+    what the placement kernel's constant-time path assumes after every
+    tuple: within each group the live panes' bases are exactly WA apart
+    and ordered like their stamps; every pane that retires or is
+    evicted is its group's oldest.  Between the two streams, the kernel
+    wrapper's dense indices, pane chains and window table
+    (``_scan_groups``) against the store and ``spec.ws_of``.  Returns what
+    was checked."""
+    from repro_torch.core import panestore as ps
+
+    spec = _spec(spec_kw)
+    st = ps.init_store(spec)
+    true = torch.ones((), dtype=torch.bool)
+    seen = {"tuples": 0, "retired": 0, "evicted": 0, "absent_owners": 0,
+            "groups": 0}
+
+    def oldest(owner, base, grp, k):
+        """The ``k`` smallest-base slots of group ``grp``."""
+        mine = torch.nonzero(owner == grp).flatten()
+        return set(mine[torch.sort(base[mine]).indices][:k].tolist())
+
+    for part, stream in enumerate((first, second)):
+        g = _t(stream).to(torch.int32)
+        if part:
+            seen["absent_owners"] = _check_scan_groups(spec, st, g)
+            seen["groups"] = int(torch.unique(torch.cat([
+                g, st.owner[st.owner != ps.PAD_GROUP]])).numel())
+        for x in g:
+            owner, base = st.owner.clone(), st.base.clone()
+            slot, _lane, _m, _alloc, _closes, evicted, _ret = \
+                ps._push_decide(spec, st.owner, st.count, st.base,
+                                st.stamp, st.clock, x, true)
+            if bool(evicted):
+                victim = int(owner[slot])
+                assert int(slot) in oldest(owner, base, victim, 1), \
+                    ("evicted a pane that is not its group's oldest", victim)
+                seen["evicted"] += 1
+            gone = (owner != ps.PAD_GROUP) & (st.owner == ps.PAD_GROUP)
+            retired = set(torch.nonzero(gone).flatten().tolist())
+            assert retired == oldest(owner, base, int(x), len(retired)), \
+                ("retired panes that are not the group's oldest", retired)
+            seen["retired"] += len(retired)
+            seen["tuples"] += 1
+            _check_group_panes(spec, st)
+    return seen
+
+
 def pergroup_kernel_path(ops, window, float_keys=False):
     from repro_torch.kernels import registry
 

@@ -176,33 +176,55 @@ def test_execute_on_card_matches_reference(cuda, backend, window):
 
 PARTIAL_OPS = ("sum", "count", "min", "max", "mean")
 DIRECT_OPS = PARTIAL_OPS + ("median", "distinct_count")
-#: (wa, capacity, default ws, overrides, tuples, groups, hot groups): a
-#: squeezed store that evicts, an ample one, the repo's per-group
-#: configuration (C = 292 > 32 slots a lane, a [C, WA] ring larger than one
-#: block's shared memory), and C = 292 under churn: half the tuples from
-#: 4 hot groups, which retire panes, the rest from 600 cold ones, which
-#: evict (the scan's 10-slots-a-lane variant through both)
-PERGROUP_CASES = [(4, 5, 8, ((0, 16), (1, 4)), 200, 6, 0),
-                  (8, 40, 16, ((0, 32), (1, 8)), 320, 5, 0),
-                  (128, 292, 1024, (), 2048, 64, 0),
-                  (4, 292, 8, ((0, 16),), 2048, 600, 4)]
-CHURN = PERGROUP_CASES[3]
+#: (wa, capacity, default ws, overrides, tuples, groups, hot groups,
+#: start): a squeezed store that evicts, an ample one, the repo's per-group
+#: configuration (C = 292, a [C, WA] ring larger than one block's shared
+#: memory), and C = 292 under churn: half the tuples from 4 hot groups,
+#: which retire panes, the rest from 600 cold ones, which evict.  Then what
+#: the scan kernel's batches and tables must survive: every tuple a new
+#: group (groups = 0: more than its shared-memory group table holds, every
+#: lane of every batch allocating, evictions throughout); one group (every
+#: batch of 32 one group) in 37 slots; and scans continued from the final
+#: store of a first scan (start = "continued") whose owners include groups
+#: the second stream lacks, at WA 128 and at WA 4 under churn.  Capacities
+#: 5, 37 and 292 are not multiples of 32.
+PERGROUP_CASES = [(4, 5, 8, ((0, 16), (1, 4)), 200, 6, 0, "empty"),
+                  (8, 40, 16, ((0, 32), (1, 8)), 320, 5, 0, "empty"),
+                  (128, 292, 1024, (), 2048, 64, 0, "empty"),
+                  (4, 292, 8, ((0, 16),), 2048, 600, 4, "empty"),
+                  (4, 292, 8, ((0, 16), (7, 4)), 6144, 0, 0, "empty"),
+                  (128, 37, 1024, ((0, 512),), 4096, 1, 0, "empty"),
+                  (128, 300, 512, ((1, 2048), (2, 128)), 4096, 12, 0,
+                   "continued"),
+                  (4, 292, 8, ((0, 16),), 2048, 600, 4, "continued")]
+CHURN, MANY_GROUPS = PERGROUP_CASES[3], PERGROUP_CASES[4]
 
 
 def _pergroup_stream(case, dtype, device):
-    wa, cap, ws, pg, n, ngroups, hot = case
+    """``(spec, state, groups, keys)``: the case's stream and the store it
+    starts from."""
+    wa, cap, ws, pg, n, ngroups, hot, start = case
     import torch
 
-    from repro_torch.core.panestore import PaneStoreSpec
+    from repro_torch.core import panestore as ps
 
-    g, k = _stream(n + cap, n, ngroups, dtype, None, device)
+    spec = ps.PaneStoreSpec(wa=wa, capacity=cap, default_ws=ws, per_group=pg)
+    if ngroups:
+        g, k = _stream(n + cap, n, ngroups, dtype, None, device)
+    else:
+        _, k = _stream(n + cap, n, 1, dtype, None, device)
+        g = torch.arange(n, dtype=torch.int32, device=device)
     if hot:
         pick = np.random.default_rng(n).random(n) < 0.5
         g = torch.where(torch.from_numpy(pick).to(device), g % hot, g)
-    return PaneStoreSpec(wa=wa, capacity=cap, default_ws=ws,
-                         per_group=pg), g, k
-
-
+    state = ps.init_store(spec, k.dtype, device=device)
+    if start == "continued":
+        # a first stream over ngroups + 6 groups, all but the hot ones
+        # moved up by 7: some of its owners are absent from the second
+        g1, k1 = _stream(n + 1, n, ngroups + 6, dtype, None, device)
+        state = ps.scan(spec, state, (g1 + 7 * (g1 >= hot)).to(torch.int32),
+                        k1).final
+    return spec, state, g, k
 def _assert_trees(got, want, what, inexact=()):
     for i, (a, b) in enumerate(zip(got, want)):
         if a is None or b is None:
@@ -219,19 +241,20 @@ def _assert_trees(got, want, what, inexact=()):
 def test_pergroup_scan_kernel_vs_plain(cuda, case, dtype, ring):
     import torch
 
-    from repro_torch.core import panestore as ps
     from repro_torch.kernels.swag import kernel as sk
 
-    spec, g, k = _pergroup_stream(case, dtype, cuda)
-    st = ps.init_store(spec, k.dtype, device=cuda)
+    spec, st, g, k = _pergroup_stream(case, dtype, cuda)
     keys = k if ring else None
     got = sk.pergroup_scan(spec, st, g, keys)
     want = sk.pergroup_scan_plain(spec, st, g, keys)
     torch.cuda.synchronize()
     _assert_trees(got, want, "scan")
+    evictions, retirements = want.events.tolist()
     if case == CHURN:
-        evictions, retirements = want.events.tolist()
         assert evictions > 0 and retirements > 0, want.events
+    if case == MANY_GROUPS:
+        assert evictions > 0, want.events
+        assert torch.unique(g).numel() > sk.SCAN_GROUP_SMEM_MAX
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
@@ -239,11 +262,11 @@ def test_pergroup_scan_kernel_vs_plain(cuda, case, dtype, ring):
 def test_pergroup_fused_kernel_vs_plain(cuda, case, dtype):
     import torch
 
-    from repro_torch.core.swag import frame_panes, pergroup_write_plan
+    from repro_torch.core.swag import frame_panes, write_plan
     from repro_torch.kernels.swag import kernel as sk
 
-    spec, g, k = _pergroup_stream(case, dtype, cuda)
-    plan = pergroup_write_plan(spec, g)
+    spec, st, g, k = _pergroup_stream(case, dtype, cuda)
+    plan = write_plan(spec, sk.pergroup_scan_plain(spec, st, g))
     ck = frame_panes(k, spec.wa, plan[0].shape[0]).contiguous()
     got = sk.pergroup_fused(ck, *plan[:8], PARTIAL_OPS)
     want = sk.pergroup_fused_plain(ck, *plan[:8], PARTIAL_OPS)
@@ -262,10 +285,9 @@ def test_pergroup_replay_kernel_vs_plain(cuda, case, dtype):
     from repro_torch.core.swag import per_group_chunk_scan
     from repro_torch.kernels.swag import kernel as sk
 
-    spec, g, k = _pergroup_stream(case, dtype, cuda)
-    _, runs = per_group_chunk_scan(
-        spec, ps.init_store(spec, k.dtype, device=cuda), g, k,
-        lambda st: ps.gather_runs(spec, st))
+    spec, st, g, k = _pergroup_stream(case, dtype, cuda)
+    _, runs = per_group_chunk_scan(spec, st, g, k,
+                                   lambda s: ps.gather_runs(spec, s))
     length = runs.run_keys.shape[-1]
     rk = runs.run_keys.reshape(-1, length).contiguous()
     rv = runs.run_valid.reshape(-1, length).to(torch.int32)

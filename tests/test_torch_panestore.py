@@ -11,6 +11,8 @@ pane store) against the JAX package on the CPU.
 * each ``*_plain`` kernel of ``pergroup_fused`` and ``pergroup_replay``
   against its TPU kernel in interpret mode, on inputs the JAX package
   built;
+* what the placement scan kernel assumes of the stores the plain
+  placement makes, and its wrapper's preparation of a store;
 * the probes and errors of the planner.
 
 Tolerance: element-exact (padded tails included), except float ``sum`` and
@@ -184,6 +186,22 @@ def test_jax_state_continues_in_the_port(port, ops):
         assert_same(vals2[name], pvals2[name], name=name)
     for field, w in zip(jps.PaneStoreState._fields, jfinal):
         assert_same(w, pfinal[field], name=f"final {field}")
+
+
+def test_placement_kernel_assumptions(port):
+    # what the placement scan kernel's constant-time path assumes, held on
+    # the plain placement: churn in a squeezed store (every other tuple
+    # from two hot groups, which retire panes; the rest evict), then a
+    # stream continued from its store whose owners include groups the
+    # second stream lacks; and the kernel wrapper's dense indices, pane
+    # chains and window table (with per-group overrides) on that store
+    g1, _ = _stream(29, 96)
+    g1 = np.where(np.arange(96) % 2 == 0, g1 % 2, g1).astype(np.int32)
+    g2, _ = _stream(30, 96)
+    got = port.pane_invariants(dict(SQUEEZE, capacity=12), g1, g2 + 3)
+    assert got["tuples"] == 192
+    assert got["retired"] > 0 and got["evicted"] > 0, got
+    assert got["absent_owners"] > 0 and got["groups"] > 6, got
 
 
 @pytest.mark.parametrize("backend", ["reference", "cuda-panestore"])
