@@ -55,7 +55,13 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    over 7 calls (median, fastest and slowest);
 4. each kernel against its plain torch version on the same card tensors at
    the shapes the main path gives it (int32 keys: exact, padded tails
-   included; the swag kernel at both its row widths; the per-group
+   included; the swag kernel at both its row widths, and on float32
+   keys swag at (c)'s and swag_panes at (b)'s widths over 4096 rows, every
+   window op, sums, means and variances within rtol = atol = 1e-5; the
+   window kernels' launch shapes and ptxas's registers and spills (one
+   more ``nvcc -Xptxas -v`` of ``csrc/swag.cu``) printed, and swag at
+   (c)'s and swag_panes at (b)'s shape timed with op count alone; the
+   per-group
    placement scan, with its eviction and retirement counts, on the first
    2^16 tuples, its plain version being one torch loop step a tuple),
    timed with CUDA events beside the plain
@@ -71,8 +77,10 @@ exits non-zero without either.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -579,6 +587,102 @@ def slice5_kernels(torch, sk, data, dev) -> list:
     return rows
 
 
+def swag_ptxas(build) -> list:
+    """ptxas's report (``-Xptxas -v``) of every instantiation of the window
+    kernel, from one more ``nvcc`` of ``csrc/swag.cu``: key type, lanes a
+    thread, the most threads it is launched with, registers a thread,
+    spill bytes (stores + loads) and static shared memory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run(
+            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
+             str(build.CSRC / "swag.cu"), "-o", str(Path(tmp) / "swag.o")],
+            capture_output=True, text=True, check=True)
+    rows, cur = [], None
+    for line in (res.stdout + res.stderr).splitlines():
+        m = re.search(r"Compiling entry function '\w*swag_rows_kernelI([if])"
+                      r"Li(\d+)ELi(\d+)E", line)
+        if m:
+            cur = {"keys": "int32" if m[1] == "i" else "float32",
+                   "lanes": int(m[2]), "max_threads": int(m[3])}
+            rows.append(cur)
+        elif "Compiling entry function" in line:
+            cur = None
+        elif cur is not None and "spill stores" in line:
+            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                               r"spill loads", line).groups()
+            cur["spill_bytes"] = int(st) + int(ld)
+        elif cur is not None and "registers" in line:
+            cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line)[1])
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(sm[1]) if sm else 0
+    for r in rows:
+        print(f"ptxas swag_rows_kernel<{r['keys']}, {r['lanes']} lanes, "
+              f"<= {r['max_threads']} threads>: {r['registers']} registers, "
+              f"{r['spill_bytes']} spill bytes, {r['static_smem']} bytes "
+              f"static shared memory", flush=True)
+    if not rows:
+        raise AssertionError("no swag_rows_kernel in ptxas's report")
+    return rows
+
+
+#: every op the window kernels take: the float32-key checks run them all
+ALL_WINDOW_OPS = ("sum", "min", "max", "count", "mean", "distinct_count",
+                  "first", "last", "variance", "argmin", "argmax", "median")
+#: float sums, means and variances reduce in another order in the kernels
+#: than in the plain versions: rtol = atol = 1e-5; every other op exact
+INEXACT = ("sum", "mean", "variance")
+#: window rows of the float32-key checks (the plain versions set the pace)
+FLOAT_ROWS = 4096
+
+
+def float_key_check(torch, got, want, tag: str) -> float:
+    """Hold a window kernel's (og, {op: ov}, oc) on float32 keys to its
+    plain version's; returns the largest |difference| over all outputs."""
+    (og, ov, oc), (wg, wv, wc) = got, want
+    if not (torch.equal(og, wg) and torch.equal(oc, wc)):
+        raise AssertionError(f"{tag}: groups or counts differ from plain")
+    for name, w in wv.items():
+        if name in INEXACT:
+            torch.testing.assert_close(ov[name], w, rtol=1e-5, atol=1e-5,
+                                       msg=f"{tag}: {name}")
+        elif not torch.equal(ov[name], w):
+            raise AssertionError(f"{tag}: {name} differs from plain")
+    return max_abs_err(torch, flat(got), flat(want))
+
+
+def float_key_checks(torch, sk, data, dev) -> dict:
+    """swag at (c)'s row width and swag_panes at (b)'s, on float32 keys
+    (standard normal, from SEED) over (b)'s groups, every window op,
+    against their plain versions on the card."""
+    import numpy as np
+
+    g = data["stream"][0]
+    keys = torch.from_numpy(np.random.default_rng(SEED).standard_normal(
+        FLOAT_ROWS * 1024 + 4096).astype(np.float32)).to(dev)
+    out = {}
+    n = 1024 + 256 * (FLOAT_ROWS - 1)
+    fg, fk = g[:n].unfold(0, 1024, 256), keys[:n].unfold(0, 1024, 256)
+    out["swag"] = {"rows": FLOAT_ROWS, "width": 1024,
+                   "ops": len(ALL_WINDOW_OPS), "max_abs_err": float_key_check(
+                       torch, sk.swag(fg, fk, ALL_WINDOW_OPS),
+                       sk.swag_plain(fg, fk, ALL_WINDOW_OPS), "swag float32")}
+    np_ = FLOAT_ROWS + 3
+    pg, pk = (x[:np_ * 1024].reshape(np_, 1024) for x in (g, keys))
+    sg, skk = sk.sort_panes(pg, pk)
+    out["swag_panes"] = {
+        "rows": np_ - 3, "width": 4096, "ops": len(ALL_WINDOW_OPS),
+        "max_abs_err": float_key_check(
+            torch, sk.swag_panes(sg, skk, ALL_WINDOW_OPS, p=4),
+            sk.swag_panes_plain(sg, skk, ALL_WINDOW_OPS, p=4),
+            "swag_panes float32")}
+    for name, row in out.items():
+        print(f"{name} float32 keys: {row['rows']} rows of {row['width']}, "
+              f"{row['ops']} ops, equal to plain (inexact ops within 1e-5; "
+              f"max |err| {row['max_abs_err']:.3g})", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -784,13 +888,16 @@ def main() -> int:
     want, plain_ms = timed(torch, lambda: sk.swag_plain(fg, fk, ops))
     err = max_abs_err(torch, flat(out), flat(want))
     del out, want
+    # the same rows with one op: the sort and the tails' fixed part
+    _, one_op_ms = timed(torch, lambda: sk.swag(fg, fk, ("count",)), 3)
     nw = fg.shape[0]
     b, by = bound_ms(N * 8 + nw * 1024 * 4 * (1 + len(ops)) + nw * 4,
                      network_exchanges(nw, 1024) * 4
                      + nw * 1024 * 2 * len(ops))
     kernels.append({"name": "swag", "ms": ms, "plain_ms": plain_ms,
                     "library_ms": None, "max_abs_err": err, "bound_ms": b,
-                    "bound_by": by, "shape": [nw, 1024], "runs": ["c"]})
+                    "bound_by": by, "shape": [nw, 1024], "runs": ["c"],
+                    "one_op_ms": one_op_ms})
 
     # swag as run (e) launches it: the whole stream as one 16384-lane row
     # (the 16-lanes-a-thread variant of the kernel)
@@ -838,6 +945,8 @@ def main() -> int:
                                                               p=p))
     err = max_abs_err(torch, flat(out), flat(want))
     del out, want
+    _, one_op_ms = timed(torch, lambda: sk.swag_panes(sg, skk, ("count",),
+                                                      p=p), 3)
     nw = np_ - p + 1
     b, by = bound_ms(np_ * wa * 8 + nw * 4096 * 4 * (1 + len(ops)) + nw * 4,
                      network_exchanges(nw, 4096, wa) * 4
@@ -845,10 +954,32 @@ def main() -> int:
     kernels.append({"name": "swag_panes", "ms": ms, "plain_ms": plain_ms,
                     "library_ms": None, "max_abs_err": err, "bound_ms": b,
                     "bound_by": by, "shape": [nw, 4096],
-                    "runs": ["b", "d"]})
+                    "runs": ["b", "d"], "one_op_ms": one_op_ms})
 
     kernels += pergroup_kernels(torch, sk, data, dev)
     kernels += slice5_kernels(torch, sk, data, dev)
+
+    float_checks = float_key_checks(torch, sk, data, dev)
+    ptxas = swag_ptxas(_build)
+    for row in kernels:
+        if row["name"] in ("swag", "swag_panes"):
+            row["geometry"] = geo = sk.swag_geometry(row["shape"][1])
+            # the int32-key instantiation this launch shape runs
+            row["ptxas"] = min(
+                (r for r in ptxas if r["keys"] == "int32"
+                 and r["lanes"] == geo["lanes_per_thread"]
+                 and r["max_threads"] >= geo["threads"]),
+                key=lambda r: r["max_threads"])
+            print(f"{row['name']} {row['shape'][0]} x {row['shape'][1]}: "
+                  f"{geo['lanes_per_thread']} lanes a thread, "
+                  f"{geo['threads']} threads a block, {geo['smem_bytes']} "
+                  f"bytes of dynamic shared memory, "
+                  f"{row['ptxas']['registers']} registers a "
+                  f"thread, {row['ms']:.4f} ms"
+                  + (f" ({row['one_op_ms']:.4f} ms with op count alone)"
+                     if "one_op_ms" in row else ""), flush=True)
+            if row["runs"] in (["c"], ["b", "d"]):  # (c)'s, (b)'s widths
+                row["float32_check"] = float_checks[row["name"]]
 
     for row in kernels:
         if row["max_abs_err"] != 0.0:

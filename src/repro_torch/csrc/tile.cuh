@@ -10,10 +10,9 @@
 //   * a block exclusive prefix sum (the compaction ranks: where the TPU
 //     kernels route lanes through a reverse butterfly because Mosaic has no
 //     scatter, a Hopper block scatters each lane to its rank);
-//   * a bitonic sort and a merge of presorted power-of-two runs of
-//     (int32 group, key) pairs in shared memory, lexicographic;
-//   * the multi-op window tail (_multi_tails_in_tile) with the lower-median
-//     pick (_median_in_tile) read off each run's end lane.
+//   * a bitonic sort of (int32 group, key) pairs in shared memory,
+//     lexicographic (the window kernels' register sort, merge and tails
+//     live in swag.cu).
 //
 // Group ids lie strictly between INT32_MIN (the shift fill) and INT32_MAX
 // (PAD_GROUP, the padding sentinel).  Integer sums add as uint32 and
@@ -316,30 +315,7 @@ __device__ void block_bitonic_sort(int* g, K* k, int T) {
   }
 }
 
-// Merge of T/run presorted ascending runs (core/sorter.merge_presorted):
-// per round, reverse every odd run, then ascending clean sweeps.
-template <typename K>
-__device__ void block_merge_presorted(int* g, K* k, int T, int run) {
-  for (int len = run; len < T; len <<= 1) {
-    const int half = len / 2;
-    const int nswap = (T / (2 * len)) * half;
-    for (int p = threadIdx.x; p < nswap; p += blockDim.x) {
-      const int b = p / half, q = p % half;
-      swap_pair(g, k, b * 2 * len + len + q, b * 2 * len + 2 * len - 1 - q);
-    }
-    __syncthreads();
-    for (int j = len; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < T / 2; p += blockDim.x) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int q = i + j;
-        if (lex_less(g[q], k[q], g[i], k[i])) swap_pair(g, k, i, q);
-      }
-      __syncthreads();
-    }
-  }
-}
-
-// ------------------------------------------------------------ window tails
+// ------------------------------------------------- op lists, launch shape
 
 struct OpList {
   int n;
@@ -353,113 +329,6 @@ __host__ __device__ constexpr int lanes_per_thread(int T) {
 }
 __host__ __device__ constexpr int threads_for(int T) {
   return T / lanes_per_thread(T) < 32 ? 32 : T / lanes_per_thread(T);
-}
-
-// One op's tail over a sorted row held in shared memory: scan, finalize at
-// the emitting lanes, scatter to the ranks, zero-fill the rest.
-template <class C, int L>
-__device__ void op_tail(const typename C::Key* sk, int T, const bool (&st)[L],
-                        const int (&em)[L], const int (&rk)[L], int cnt,
-                        typename C::Out* out, ScanSmem& sm) {
-  typename C::S s[L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const int i = threadIdx.x * L + j;
-    s[j] = C::lift(sk[i < T ? i : 0], i);
-  }
-  block_seg_scan<C, L>(s, st, false, s[0], sm);
-#pragma unroll
-  for (int j = 0; j < L; ++j)
-    if (em[j]) out[rk[j]] = C::fin(s[j]);
-  for (int r = cnt + threadIdx.x; r < T; r += blockDim.x)
-    out[r] = typename C::Out(0);
-}
-
-// Lower median per run: the count scan gives each run's cardinality at its
-// end lane e, and the median sits at e - card + 1 + (card - 1) / 2.
-template <typename K, int L>
-__device__ void median_tail(const K* sk, int T, const bool (&st)[L],
-                            const int (&em)[L], const int (&rk)[L], int cnt,
-                            K* out, ScanSmem& sm) {
-  using C = Comb<OP_COUNT, K>;
-  int s[L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) s[j] = 1;
-  block_seg_scan<C, L>(s, st, false, 0, sm);
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    if (em[j]) {
-      const int e = threadIdx.x * L + j;
-      out[rk[j]] = sk[e - s[j] + 1 + (s[j] - 1) / 2];
-    }
-  }
-  for (int r = cnt + threadIdx.x; r < T; r += blockDim.x) out[r] = K(0);
-}
-
-template <class C, int L>
-__device__ __forceinline__ void op_tail_at(const typename C::Key* sk, int T,
-                                           const bool (&st)[L],
-                                           const int (&em)[L],
-                                           const int (&rk)[L], int cnt,
-                                           void* out, long long base,
-                                           ScanSmem& sm) {
-  op_tail<C, L>(sk, T, st, em, rk, cnt,
-                static_cast<typename C::Out*>(out) + base, sm);
-}
-
-// All requested tails over one closed, (group, key)-sorted row: the
-// segment marks and the compaction ranks are computed once and every op
-// shares them (_multi_tails_in_tile).  Writes og/ov rows at `row` and
-// oc[row].
-template <typename K, int L>
-__device__ void multi_tails(const int* sg, const K* sk, int T,
-                            const OpList& ops, long long row, int* og,
-                            int* oc, ScanSmem& sm) {
-  bool st[L];
-  int em[L], rk[L], gi[L];
-#pragma unroll
-  for (int j = 0; j < L; ++j) {
-    const int i = threadIdx.x * L + j;
-    if (i < T) {
-      gi[j] = sg[i];
-      const int gp = i > 0 ? sg[i - 1] : SHIFT_FILL;
-      const int gn = i < T - 1 ? sg[i + 1] : SHIFT_FILL;
-      st[j] = gi[j] != gp;
-      em[j] = (gi[j] != gn && gi[j] != PAD_GROUP) ? 1 : 0;
-    } else {
-      gi[j] = PAD_GROUP;
-      st[j] = true;
-      em[j] = 0;
-    }
-  }
-  const int cnt = block_excl_sum<L>(em, rk, sm);
-  const long long base = row * T;
-#pragma unroll
-  for (int j = 0; j < L; ++j)
-    if (em[j]) og[base + rk[j]] = gi[j];
-  for (int r = cnt + threadIdx.x; r < T; r += blockDim.x) og[base + r] = PAD_GROUP;
-
-  for (int o = 0; o < ops.n; ++o) {
-    void* out = ops.out[o];
-    switch (ops.code[o]) {
-      case OP_SUM: op_tail_at<Comb<OP_SUM, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_MIN: op_tail_at<Comb<OP_MIN, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_MAX: op_tail_at<Comb<OP_MAX, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_COUNT: op_tail_at<Comb<OP_COUNT, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_MEAN: op_tail_at<Comb<OP_MEAN, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_DC: op_tail_at<Comb<OP_DC, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_FIRST: op_tail_at<Comb<OP_FIRST, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_LAST: op_tail_at<Comb<OP_LAST, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_VARIANCE: op_tail_at<Comb<OP_VARIANCE, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_ARGMIN: op_tail_at<Comb<OP_ARGMIN, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_ARGMAX: op_tail_at<Comb<OP_ARGMAX, K>, L>(sk, T, st, em, rk, cnt, out, base, sm); break;
-      case OP_MEDIAN:
-        median_tail<K, L>(sk, T, st, em, rk, cnt, static_cast<K*>(out) + base, sm);
-        break;
-      default: break;
-    }
-  }
-  if (threadIdx.x == 0) oc[row] = cnt;
 }
 
 }  // namespace rt

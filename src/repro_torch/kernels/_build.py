@@ -35,6 +35,9 @@ _SIGNATURES = {
     # g, k, key_type, stride, nrows, T, run, codes, outs, nops, og, oc, stream
     "rt_swag_rows": [_P, _P, _I, ctypes.c_longlong, _I, _I, _I,
                      ctypes.POINTER(_I), ctypes.POINTER(_P), _I, _P, _P, _P],
+    # T, lanes a thread, threads a block, dynamic shared memory bytes
+    "rt_swag_geometry": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I),
+                         ctypes.POINTER(ctypes.c_longlong)],
     # g, k, key_type, nrows, T, og, ok, stream
     "rt_sort_rows": [_P, _P, _I, _I, _I, _P, _P, _P],
     # g, k, key_type, ne, wa, c, ng, gid, slots0, gtab, dir, clock, ring_k,

@@ -170,6 +170,19 @@ def _launch_rows(name, g, k, ops, *, nrows: int, width: int, run: int):
     return og, ovs, oc
 
 
+def swag_geometry(width: int) -> dict:
+    """The launch shape of :func:`swag` and :func:`swag_panes` for rows of
+    ``width`` lanes, as the CUDA library chooses it: lanes a thread,
+    threads a block and dynamic shared memory a block (bytes)."""
+    lanes, threads, smem = ctypes.c_int(), ctypes.c_int(), \
+        ctypes.c_longlong()
+    _build.check(_build.library().rt_swag_geometry(
+        width, ctypes.byref(lanes), ctypes.byref(threads),
+        ctypes.byref(smem)), "swag_geometry")
+    return {"lanes_per_thread": lanes.value, "threads": threads.value,
+            "smem_bytes": smem.value}
+
+
 def swag(frames_g: torch.Tensor, frames_k: torch.Tensor, ops):
     """``frames_*``: ``[NW, WS]`` window rows, WS a power of two; rows may
     be a strided view of the stream (``unfold``) as long as each row is

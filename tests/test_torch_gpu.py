@@ -19,6 +19,7 @@ import shutil
 
 import numpy as np
 import pytest
+from _swag_edges import EDGE_CASES, edge_stream
 
 pytestmark = pytest.mark.gpu
 
@@ -99,8 +100,10 @@ def test_groupagg_int32_sum_wraps(cuda):
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
-@pytest.mark.parametrize("ws,wa", [(64, 16), (1024, 256), (4096, 1024),
-                                   (16, 16), (16384, 16384)])
+@pytest.mark.parametrize("ws,wa", [
+    (64, 16), (1024, 256), (4096, 1024), (16, 16), (16384, 16384),
+    (32, 16), (128, 16), (256, 128), (2048, 128), (8192, 1024),
+    (16384, 1024)])
 def test_swag_kernels_vs_plain(cuda, dtype, ws, wa):
     import torch
 
@@ -134,6 +137,37 @@ def test_swag_kernels_vs_plain(cuda, dtype, ws, wa):
     for name in ALL_WINDOW_OPS:
         assert_same(got[1][name], want[1][name], inexact=name in INEXACT,
                     what=f"panes {name}")
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+@pytest.mark.parametrize("ws,wa", [(32, 8), (1024, 256), (4096, 1024),
+                                   (16384, 1024)])
+def test_swag_edge_rows_vs_plain(cuda, case, ws, wa):
+    import torch
+
+    from repro_torch.kernels.swag import kernel as sk
+
+    g, k = (torch.from_numpy(x).to(cuda)
+            for x in edge_stream(case, ws + 3 * wa, seed=ws))
+    fg, fk = g.unfold(0, ws, wa), k.unfold(0, ws, wa)
+    pg, pk = g.reshape(-1, wa), k.reshape(-1, wa)
+    sg, skk = sk.sort_panes_plain(pg, pk)
+    p = ws // wa
+    for what, got, want in (
+            ("swag", sk.swag(fg, fk, ALL_WINDOW_OPS),
+             sk.swag_plain(fg, fk, ALL_WINDOW_OPS)),
+            ("swag_panes", sk.swag_panes(sg, skk, ALL_WINDOW_OPS, p=p),
+             sk.swag_panes_plain(sg, skk, ALL_WINDOW_OPS, p=p))):
+        torch.cuda.synchronize()
+        assert_same(got[2], want[2], what=f"{what} oc")
+        assert_same(got[0], want[0], what=f"{what} og")
+        for name in ALL_WINDOW_OPS:
+            assert_same(got[1][name], want[1][name],
+                        inexact=name in INEXACT, what=f"{what} {name}")
+        if case == "distinct_groups":
+            assert bool((got[2] == ws).all()), what
+        if case == "all_pad":
+            assert bool((got[2] == 0).all()), what
 
 
 def test_swag_rejects_rows_past_shared_memory(cuda):

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from _swag_edges import EDGE_CASES, edge_stream
 from _torch_parity import assert_same, port  # noqa: F401 (fixture)
 from repro.core import sorter as jax_sorter
 from repro.kernels.swag import kernel as jk
@@ -73,6 +74,51 @@ def test_pane_kernels_match_pallas(port, dtype, wa, p):
     want = jk.swag_pallas_panes(wsg, wsk, OPS, p=p, interpret=True)
     _assert_tails(want, port.swag_panes(sg, skk, OPS, p), OPS,
                   dtype == np.float32)
+
+
+#: the edge rows' ops: the int32 sum, mean and distinct count that the
+#: kernel takes as prefix differences, and the max, median and argmax it
+#: reads off a segment's ends (a smaller set keeps the two JAX compiles
+#: of this test near 3.5 s each)
+EDGE_OPS = ("sum", "max", "count", "mean", "distinct_count", "argmax",
+            "median")
+EDGE_WS, EDGE_WA = 8, 4
+
+
+@jax.jit
+def _jax_edge_tails(fg, fk, pg, pk):
+    return (jk.swag_pallas(fg, fk, EDGE_OPS, interpret=True),
+            jk.swag_pallas_panes(pg, pk, EDGE_OPS, p=EDGE_WS // EDGE_WA,
+                                 interpret=True))
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_edge_rows_match_pallas(port, case):
+    """The rows the CUDA kernel's tails find hardest, through the JAX
+    kernels and the port's plain versions (which the card's tests hold the
+    kernel to)."""
+    g, k = edge_stream(case, EDGE_WS + 3 * EDGE_WA, seed=7)
+    nw = 4
+    idx = np.arange(nw)[:, None] * EDGE_WA + np.arange(EDGE_WS)[None, :]
+    fg, fk = g[idx], k[idx]
+    pg, pk = g.reshape(-1, EDGE_WA), k.reshape(-1, EDGE_WA)
+    order = np.lexsort((pk, pg), axis=-1)
+    pg = np.take_along_axis(pg, order, -1)
+    pk = np.take_along_axis(pk, order, -1)
+    # jit hands dicts back in key order: restore the ops' order
+    want_rows, want_panes = ((og, {n: ov[n] for n in EDGE_OPS}, oc)
+                             for og, ov, oc in _jax_edge_tails(fg, fk, pg,
+                                                               pk))
+    float_keys = EDGE_CASES[case] == np.float32
+    _assert_tails(want_rows, port.swag(fg, fk, EDGE_OPS), EDGE_OPS,
+                  float_keys)
+    _assert_tails(want_panes,
+                  port.swag_panes(pg, pk, EDGE_OPS, EDGE_WS // EDGE_WA),
+                  EDGE_OPS, float_keys)
+    if case == "distinct_groups":
+        assert (np.asarray(want_rows[2]) == EDGE_WS).all()
+    if case == "all_pad":
+        assert (np.asarray(want_rows[2]) == 0).all()
 
 
 def test_engine_median_matches_pallas(port):
