@@ -26,7 +26,8 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
          uniform groups, 2^20 tuples, ops sum/count/min/max/mean;
      (g) the same window over 64 groups (the 292 slots hold about half of
          their windows, so the oldest panes are evicted), 2^16 tuples, ops
-         (f) + median + dc: the merge-replay regime;
+         (f) + median + dc: the merge-replay regime, whose replay kernel
+         reads the placement scan's ring snapshots;
      (h) batch event-time windows on ``cuda``, Window(range=4096,
          slide=1024), ungrouped sum/count/min/max: the two-stack; 2^24
          tuples with int32 keys uniform in [0, 2^20), tuple i stamped
@@ -40,6 +41,9 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
          payload;
      (k) the standalone scan, ``segmented_scan_cuda``, of (a)'s sorted
          stream (2^24 lanes, 4096 groups, tile 1024), ops sum and mean;
+     (l) the row-form replay, ``pergroup_replay`` (the signature of the
+         JAX package's ``pergroup_replay_pallas``), over (g)'s 149,504
+         gathered replay rows of 2048 lanes, (g)'s ops;
    each result is checked against the ``reference`` backend on the card
    (groups, valid and counts equal, values equal on the valid lanes, int32
    keys): (a)-(e), (h) and (i) over the full stream, (f) and (g) over their
@@ -47,9 +51,10 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    (the reference places tuples one at a time in plain torch); (h) also
    against the replay strategy on the card; (j) against two stable
    ``torch.sort`` passes (keys) and the plain network (payload), (k)
-   against the plain scan; the per-group runs print the evictions and
-   retirements of that prefix, and (f) fails without a retirement, (g)
-   without an eviction; (h) and (i) print the share of their time spent in
+   against the plain scan, (l) against (g)'s ring-form replay; the
+   per-group runs print the evictions and retirements of that prefix, and
+   (f) fails without a retirement, (g) without an eviction; (h) and (i)
+   print the share of their time spent in
    the window layout (its sort and searches, read back to the host) and,
    for (h), the host's walk of the epoch schedule; each run is then timed
    over 7 calls (median, fastest and slowest);
@@ -59,7 +64,9 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    keys swag at (c)'s and swag_panes at (b)'s widths over 4096 rows, every
    window op, sums, means and variances within rtol = atol = 1e-5; the
    window kernels' launch shapes and ptxas's registers and spills (one
-   more ``nvcc -Xptxas -v`` of ``csrc/swag.cu``) printed, and swag at
+   more ``nvcc -Xptxas -v`` of ``csrc/swag.cu`` and of
+   ``csrc/pergroup.cu``; a spill in the window, pane-sort or replay
+   kernels fails the script) printed, and swag at
    (c)'s and swag_panes at (b)'s shape timed with op count alone; the
    per-group
    placement scan, with its eviction and retirement counts, on the first
@@ -108,6 +115,7 @@ REPLACES = {
     "sort_panes": "src/repro/kernels/swag/kernel.py:138",
     "swag_panes": "src/repro/kernels/swag/kernel.py:176",
     "pergroup_replay": "src/repro/kernels/swag/kernel.py:245",
+    "pergroup_replay_ring": "src/repro/kernels/swag/kernel.py:245",
     "pergroup_fused": "src/repro/kernels/swag/kernel.py:365",
     # no TPU kernel: the XLA lax.scan of _push_decide
     "pergroup_scan": "src/repro/core/panestore.py:238",
@@ -123,6 +131,7 @@ SOURCES = {
     "pergroup_scan": "src/repro_torch/csrc/pergroup.cu",
     "pergroup_fused": "src/repro_torch/csrc/pergroup.cu",
     "pergroup_replay": "src/repro_torch/csrc/pergroup.cu",
+    "pergroup_replay_ring": "src/repro_torch/csrc/pergroup.cu",
     "twostack_flip": "src/repro_torch/csrc/twostack.cu",
     "bitonic_sort": "src/repro_torch/csrc/bitonic.cu",
     "segmented_scan": "src/repro_torch/csrc/segscan.cu",
@@ -220,6 +229,38 @@ def network_exchanges(rows: int, width: int, run: int = 1) -> float:
     return rows * (width / 2) * sweeps
 
 
+#: the ops of run (g) and of the row-form replay, run (l)
+REPLAY_OPS = PARTIAL + ("median", "distinct_count")
+
+
+def replay_inputs(torch, sk, ps, data, dev):
+    """(spec, the stores after every chunk of (g)'s scan with the ring,
+    and the gathered replay rows of them: keys [R, L], int32 liveness)."""
+    from repro_torch.query import Window
+
+    spec = Window(**PERGROUP).store_spec()
+    g, k = data["pergroup64"]
+    states = sk.pergroup_scan(spec, ps.init_store(spec, torch.int32,
+                                                  device=dev), g, k).states
+    runs = ps.gather_runs(spec, states)
+    length = runs.run_keys.shape[-1]
+    return (spec, states, runs.run_keys.reshape(-1, length),
+            runs.run_valid.reshape(-1, length).to(torch.int32))
+
+
+def ring_replay_err(torch, got, want, c: int) -> float:
+    """Hold a ring-form replay's (values, ugroups, num) to another: groups
+    and counts equal, values compared on the rows below num (the kernel
+    leaves the rest unwritten); the largest |difference|."""
+    (gv, gg, gn), (wv, wg, wn) = got, want
+    if not (torch.equal(gg, wg) and torch.equal(gn, wn)):
+        raise AssertionError("pergroup_replay_ring: groups or num differ")
+    valid = torch.arange(c, device=gn.device)[None, :] < wn[:, None]
+    return max_abs_err(
+        torch, [torch.where(valid, gv[nm], 0).to(gv[nm].dtype) for nm in wv],
+        [torch.where(valid, v, 0).to(v.dtype) for v in wv.values()])
+
+
 def pergroup_kernels(torch, sk, data, dev) -> list:
     """The per-group kernels at the shapes runs (f) and (g) give them, each
     against its plain version (the scan on the first PREFIX tuples)."""
@@ -284,34 +325,71 @@ def pergroup_kernels(torch, sk, data, dev) -> list:
     del trace, plan, ck
 
     g64, k64 = data["pergroup64"]
-    trace = scan_row("g", g64, k64)
-    runs = ps.gather_runs(spec, trace.states)
-    length = runs.run_keys.shape[-1]
-    rk = runs.run_keys.reshape(-1, length)
-    rv = runs.run_valid.reshape(-1, length).to(torch.int32)
-    del runs, trace
-    ops = PARTIAL + ("median", "distinct_count")
-    out, ms = timed(torch, lambda: sk.pergroup_replay(rk, rv, ops,
-                                                      run=wa), 3)
+    scan_row("g", g64, k64)
+    _, states, rk, rv = data["replay"]
+    ops = REPLAY_OPS
+
+    # the ring form, as run (g) calls it, against the gather of every
+    # evaluation's replay rows and the plain replay
+    out, ms = timed(torch, lambda: sk.pergroup_replay_ring(spec, states, ops),
+                    5)
+    want, plain_ms = plain_once(torch, lambda: sk.pergroup_replay_ring_plain(
+        spec, states, ops))
+    err = ring_replay_err(torch, out, want, c)
+    # the wrapper's torch glue alone (the slot directory), and the launch
+    # alone over a directory built once
+    dirs, glue_ms = timed(torch, lambda: sk.ring_directory(spec, states), 5)
+    _, launch_ms = timed(torch, lambda: sk.replay_ring_launch(
+        spec, states.keys, dirs, ops), 5)
+    ne = states.owner.shape[0]
+    num, offsets = dirs["num"], dirs["offsets"].long()
+    valid = torch.arange(c, device=dev)[None, :] < num[:, None]
+    live_rows = int(num.sum())
+    # the slots each live group reads (its first min(nslots, runs) in
+    # perm), and the lanes filled in them
+    j = torch.arange(spec.runs, device=dev)
+    reads = valid[..., None] & (j < dirs["nslots"][..., None])
+    at = torch.clamp(offsets[..., None] + j, max=c - 1).reshape(ne, -1)
+    slot = torch.gather(dirs["perm"].long(), 1, at)
+    filled = torch.gather(dirs["count"], 1, slot).reshape(reads.shape)
+    slots_read = int(reads.sum())
+    filled_lanes = int(torch.where(reads, filled, 0).sum())
+    live_lanes = int(torch.where(valid, want[0]["count"], 0).sum())
+    del out, want, dirs
+    # bytes only: the seq of every filled lane of a slot read, the key of
+    # every live lane, each slot read's place in perm and count, each live
+    # row's offset, slot count, window and newest base, num, and one 4-byte
+    # output a live row and op (the rows past num are not written)
+    b, by = bound_ms(4.0 * filled_lanes + 4.0 * live_lanes + 8.0 * slots_read
+                     + 16.0 * live_rows + 4.0 * ne
+                     + 4.0 * live_rows * len(ops), 0.0)
+    rows.append({"name": "pergroup_replay_ring", "ms": ms,
+                 "launch_ms": launch_ms, "glue_ms": glue_ms,
+                 "plain_ms": plain_ms, "library_ms": None,
+                 "max_abs_err": err, "bound_ms": b, "bound_by": by,
+                 "shape": [ne, c, spec.runs, wa], "live_rows": live_rows,
+                 "slots_read": slots_read, "filled_lanes": filled_lanes,
+                 "live_lanes": live_lanes, "runs": ["g"]})
+
+    # the row form at the same evaluations' gathered rows
+    out, ms = timed(torch, lambda: sk.pergroup_replay(rk, rv, ops, run=wa),
+                    5)
     want, plain_ms = timed(torch, lambda: sk.pergroup_replay_plain(
         rk, rv, ops, run=wa))
     err = max_abs_err(torch, list(out.values()), list(want.values()))
     del out, want
-    r = rk.shape[0]
+    r, length = rk.shape
     live_rows = int((rv != 0).any(-1).sum().item())
     live_lanes = int((rv != 0).sum().item())
-    # every lane's validity, the key of every live lane (a dead lane's key
-    # need not be read), one output a row and op; the sort of every row
-    # with a live lane, the tails over its lanes
+    # bytes only: every lane's liveness, the key of every live lane (a
+    # dead lane's key need not be read), one output a row and op
     b, by = bound_ms(4.0 * r * length + 4.0 * live_lanes
-                     + 4.0 * r * len(ops),
-                     network_exchanges(live_rows, length) * 4
-                     + 2.0 * r * length)
+                     + 4.0 * r * len(ops), 0.0)
     rows.append({"name": "pergroup_replay", "ms": ms, "plain_ms": plain_ms,
                  "library_ms": None, "max_abs_err": err, "bound_ms": b,
                  "bound_by": by, "shape": [r, length],
                  "live_rows": live_rows, "live_lanes": live_lanes,
-                 "runs": ["g"]})
+                 "runs": ["l"]})
     return rows
 
 
@@ -370,8 +448,9 @@ def check_time_strategies(torch, q, k, ts, twostack_res) -> None:
 
 
 def standalone_runs(torch, data, dev, wrappers, run_launches, identity):
-    """Runs (j) and (k): the standalone sort and scan entry points, each
-    with every launch count set to 0 just before and read just after."""
+    """Runs (j), (k) and (l): the standalone sort and scan entry points and
+    the row-form replay, each with every launch count set to 0 just before
+    and read just after."""
     import numpy as np
 
     from repro_torch.core import sorter
@@ -380,6 +459,7 @@ def standalone_runs(torch, data, dev, wrappers, run_launches, identity):
     from repro_torch.kernels.bitonic.kernel import bitonic_plain
     from repro_torch.kernels.bitonic.ops import bitonic_sort_cuda
     from repro_torch.kernels.segscan.ops import segmented_scan_cuda
+    from repro_torch.kernels.swag import kernel as sk
 
     g, k = data["stream"]
     r, t = SORT_ROWS
@@ -417,12 +497,35 @@ def standalone_runs(torch, data, dev, wrappers, run_launches, identity):
                 raise AssertionError(f"run (k): {op} differs from the plain "
                                      f"scan")
 
+    spec, rstates, rk, rv = data["replay"]
+
+    def replay_run():
+        return sk.pergroup_replay(rk, rv, REPLAY_OPS, run=spec.wa)
+
+    def check_replay(out):
+        """Every row of every evaluation, against the ring form: equal on
+        the rows below num, the rest are dead rows (count 0)."""
+        ring = sk.pergroup_replay_ring(spec, rstates, REPLAY_OPS)
+        ne, c = ring[1].shape
+        got = ({nm: v.reshape(ne, c) for nm, v in out.items()}, ring[1],
+               ring[2])
+        if ring_replay_err(torch, got, ring, c) != 0.0:
+            raise AssertionError("run (l): the row-form replay differs from "
+                                 "the ring form")
+        valid = torch.arange(c, device=dev)[None, :] < ring[2][:, None]
+        if bool((got[0]["count"][~valid] != 0).any()):
+            raise AssertionError("run (l): a dead replay row has live lanes")
+
     phases = []
-    for tag, name, fn, check, n, expect in (
+    # run (l) counts the live lanes it replays (a tuple once for each
+    # window that holds it), not the padded lanes of its rows
+    for tag, name, fn, check, n, unit, expect in (
             ("j", "bitonic_sort_cuda", sort_run, check_sort, r * t,
-             "bitonic_sort"),
+             "tuples", "bitonic_sort"),
             ("k", "segmented_scan_cuda", scan_run, check_scan, sg.numel(),
-             "segmented_scan")):
+             "tuples", "segmented_scan"),
+            ("l", "pergroup_replay", replay_run, check_replay,
+             int((rv != 0).sum()), "live replay lanes", "pergroup_replay")):
         fn()  # warm-up
         torch.cuda.synchronize()
         for w in wrappers.values():
@@ -439,14 +542,15 @@ def standalone_runs(torch, data, dev, wrappers, run_launches, identity):
         del out
         times = timed_all(torch, fn, 7)[1]
         ms = times[len(times) // 2]
-        phases.append({"run": tag, "entry": name, "tuples": n, "ms": ms,
+        phases.append({"run": tag, "entry": name, "tuples": n,
+                       "tuples_are": unit, "ms": ms,
                        "ms_min": times[0], "ms_max": times[-1],
                        "calls": len(times), "tuples_per_s": n / (ms / 1e3),
                        "launches": counts, "reference_check_s": check_s,
                        "equal_to_reference": True})
-        print(f"run ({tag}) {name}: {n} tuples in {ms:.3f} ms (median of "
+        print(f"run ({tag}) {name}: {n} {unit} in {ms:.3f} ms (median of "
               f"{len(times)}, {times[0]:.3f}-{times[-1]:.3f}) = "
-              f"{n / (ms / 1e3):.4g} tuples/s, launches {counts}, checked "
+              f"{n / (ms / 1e3):.4g} {unit}/s, launches {counts}, checked "
               f"({check_s:.1f} s) [{identity}]", flush=True)
     return phases
 
@@ -587,42 +691,70 @@ def slice5_kernels(torch, sk, data, dev) -> list:
     return rows
 
 
-def swag_ptxas(build) -> list:
+#: the kernels whose ptxas report is printed, by source: mangled name
+#: pattern -> (kernel, names of the template arguments)
+PTXAS_KERNELS = {
+    "swag.cu": [
+        (r"swag_rows_kernelI([if])Li(\d+)ELi(\d+)E", "swag_rows_kernel",
+         ("lanes", "max_threads")),
+        (r"sort_rows_kernelI([if])Li(\d+)ELi(\d+)E", "sort_rows_kernel",
+         ("lanes", "max_threads"))],
+    "pergroup.cu": [
+        (r"pergroup_replay_kernelI([if])Lb([01])E",
+         "pergroup_replay_kernel", ("ring",))],
+}
+
+
+def kernel_ptxas(build) -> list:
     """ptxas's report (``-Xptxas -v``) of every instantiation of the window
-    kernel, from one more ``nvcc`` of ``csrc/swag.cu``: key type, lanes a
-    thread, the most threads it is launched with, registers a thread,
-    spill bytes (stores + loads) and static shared memory."""
+    kernel, the pane sort and the replay kernel, from one more ``nvcc`` of
+    ``csrc/swag.cu`` and of ``csrc/pergroup.cu`` (both at once): kernel,
+    key type, template arguments, registers a thread, spill bytes (stores +
+    loads), stack frame (local arrays) and static shared memory."""
     with tempfile.TemporaryDirectory() as tmp:
-        res = subprocess.run(
+        procs = {src: subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
-             str(build.CSRC / "swag.cu"), "-o", str(Path(tmp) / "swag.o")],
-            capture_output=True, text=True, check=True)
-    rows, cur = [], None
-    for line in (res.stdout + res.stderr).splitlines():
-        m = re.search(r"Compiling entry function '\w*swag_rows_kernelI([if])"
-                      r"Li(\d+)ELi(\d+)E", line)
-        if m:
-            cur = {"keys": "int32" if m[1] == "i" else "float32",
-                   "lanes": int(m[2]), "max_threads": int(m[3])}
-            rows.append(cur)
-        elif "Compiling entry function" in line:
-            cur = None
-        elif cur is not None and "spill stores" in line:
-            st, ld = re.search(r"(\d+) bytes spill stores, (\d+) bytes "
-                               r"spill loads", line).groups()
-            cur["spill_bytes"] = int(st) + int(ld)
-        elif cur is not None and "registers" in line:
-            cur["registers"] = int(re.search(r"Used (\d+) registers",
-                                             line)[1])
-            sm = re.search(r"(\d+) bytes smem", line)
-            cur["static_smem"] = int(sm[1]) if sm else 0
+             str(build.CSRC / src), "-o", str(Path(tmp) / (src + ".o"))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src in PTXAS_KERNELS}
+        reports = {src: proc.communicate()[0] for src, proc in procs.items()}
+        for src, proc in procs.items():
+            if proc.returncode != 0:
+                raise AssertionError(f"nvcc -Xptxas -v {src}:\n{reports[src]}")
+    rows = []
+    for src, pats in PTXAS_KERNELS.items():
+        cur = None
+        for line in reports[src].splitlines():
+            if "Compiling entry function" in line:
+                cur = None
+                for pat, kernel, args in pats:
+                    m = re.search(pat, line)
+                    if m:
+                        cur = {"kernel": kernel,
+                               "keys": "int32" if m[1] == "i" else "float32",
+                               **{a: int(v) for a, v in zip(args, m.groups()[1:])}}
+                        rows.append(cur)
+            elif cur is not None and "spill stores" in line:
+                fr, st, ld = re.search(
+                    r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads", line).groups()
+                cur["spill_bytes"] = int(st) + int(ld)
+                cur["stack_bytes"] = int(fr)
+            elif cur is not None and "registers" in line:
+                cur["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 line)[1])
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(sm[1]) if sm else 0
     for r in rows:
-        print(f"ptxas swag_rows_kernel<{r['keys']}, {r['lanes']} lanes, "
-              f"<= {r['max_threads']} threads>: {r['registers']} registers, "
-              f"{r['spill_bytes']} spill bytes, {r['static_smem']} bytes "
-              f"static shared memory", flush=True)
-    if not rows:
-        raise AssertionError("no swag_rows_kernel in ptxas's report")
+        args = ", ".join(f"{k} {r[k]}" for k in ("lanes", "max_threads",
+                                                 "ring") if k in r)
+        print(f"ptxas {r['kernel']}<{r['keys']}, {args}>: "
+              f"{r['registers']} registers, {r['spill_bytes']} spill bytes, "
+              f"{r['stack_bytes']} bytes stack frame, {r['static_smem']} "
+              f"bytes static shared memory", flush=True)
+    for _, kernel, _ in (x for pats in PTXAS_KERNELS.values() for x in pats):
+        if not any(r["kernel"] == kernel for r in rows):
+            raise AssertionError(f"no {kernel} in ptxas's report")
     return rows
 
 
@@ -724,6 +856,7 @@ def main() -> int:
                 "pergroup_scan": sk.pergroup_scan,
                 "pergroup_fused": sk.pergroup_fused,
                 "pergroup_replay": sk.pergroup_replay,
+                "pergroup_replay_ring": sk.pergroup_replay_ring,
                 "twostack_flip": sk.twostack_flip,
                 "bitonic_sort": bk.bitonic_sort,
                 "segmented_scan": ssk.segscan}
@@ -762,7 +895,7 @@ def main() -> int:
          "pergroup32", ("pergroup_scan", "pergroup_fused")),
         ("g", "cuda-panestore", Query(ops=PARTIAL + ("median", "dc"),
                                       window=Window(**PERGROUP)),
-         "pergroup64", ("pergroup_scan", "pergroup_replay")),
+         "pergroup64", ("pergroup_scan", "pergroup_replay_ring")),
         ("h", "cuda", Query(ops=TWOSTACK, group_by=False,
                             window=Window(**TIME_WINDOW)),
          "time", ("twostack_flip",)),
@@ -850,6 +983,7 @@ def main() -> int:
               + ("" if events is None else f" with {events}")
               + f" [{identity}]", flush=True)
 
+    data["replay"] = replay_inputs(torch, sk, ps, data, dev)
     phases += standalone_runs(torch, data, dev, wrappers, run_launches,
                               identity)
 
@@ -960,13 +1094,27 @@ def main() -> int:
     kernels += slice5_kernels(torch, sk, data, dev)
 
     float_checks = float_key_checks(torch, sk, data, dev)
-    ptxas = swag_ptxas(_build)
+    ptxas = kernel_ptxas(_build)
     for row in kernels:
+        # the int32-key instantiation the main path's launch shape runs
+        if row["name"] in ("pergroup_replay", "pergroup_replay_ring"):
+            row["ptxas"] = next(
+                r for r in ptxas if r["kernel"] == "pergroup_replay_kernel"
+                and r["keys"] == "int32"
+                and r["ring"] == (row["name"] == "pergroup_replay_ring"))
+        if row["name"] == "sort_panes":
+            geo = sk.swag_geometry(row["shape"][1])
+            row["ptxas"] = min(
+                (r for r in ptxas if r["kernel"] == "sort_rows_kernel"
+                 and r["keys"] == "int32"
+                 and r["lanes"] == geo["lanes_per_thread"]
+                 and r["max_threads"] >= geo["threads"]),
+                key=lambda r: r["max_threads"])
         if row["name"] in ("swag", "swag_panes"):
             row["geometry"] = geo = sk.swag_geometry(row["shape"][1])
-            # the int32-key instantiation this launch shape runs
             row["ptxas"] = min(
-                (r for r in ptxas if r["keys"] == "int32"
+                (r for r in ptxas if r["kernel"] == "swag_rows_kernel"
+                 and r["keys"] == "int32"
                  and r["lanes"] == geo["lanes_per_thread"]
                  and r["max_threads"] >= geo["threads"]),
                 key=lambda r: r["max_threads"])
@@ -998,6 +1146,9 @@ def main() -> int:
 
     print(json.dumps({"phases": phases}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
+    spilled = [r for r in ptxas if r["spill_bytes"]]
+    if spilled:
+        raise AssertionError(f"register spills: {spilled}")
     print(card_identity(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

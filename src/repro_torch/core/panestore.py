@@ -402,10 +402,9 @@ def _slot_directory(owner: torch.Tensor, base: torch.Tensor):
     occupied-slot count.  Ties of (owner, base) keep slot order."""
     c = owner.shape[-1]
     dev = owner.device
-    by_base = torch.sort(base, dim=-1, stable=True).indices
-    by_owner = torch.sort(torch.gather(owner, -1, by_base), dim=-1,
-                          stable=True).indices
-    perm = torch.gather(by_base, -1, by_owner)
+    # (owner, base) packed into one int64 that orders like the pair
+    key = (owner.to(torch.int64) << 32) | (base.to(torch.int64) - INT32_MIN)
+    perm = torch.sort(key, dim=-1, stable=True).indices
     so = torch.gather(owner, -1, perm)
     occupied = so != PAD_GROUP
     lane = torch.arange(c, dtype=torch.int32, device=dev)

@@ -55,14 +55,23 @@
 // slots (stable, so slot order within a group).  Bound: L2 reads of the
 // runs, every SM busy.
 //
-// pergroup_replay_kernel — one block per replay row of S*WA lanes: dead
-// lanes become the key sentinel, the row is sorted (no merge: every tail
-// depends only on the live multiset, and the live keys are the first cnt
-// lanes of the sorted row), then count, sum, min, max, mean, lower median
-// and distinct count off the sorted live prefix.  Rows with no live lane
-// (free candidate rows, most of them) write zeros and stop.  Bound: shared
-// memory passes of the sort, log2(L)(log2(L)+1)/2 barriers a live row;
-// bytes are 8 per lane read.
+// pergroup_replay_kernel — a row is one live group's window: S runs of WA
+// lanes, each run key-sorted but for the group's open pane.  One warp a
+// row, with no barrier beyond its own: a block holds a few warps, each
+// looping over rows in its own stretch of shared memory, so many rows are
+// in flight on an SM.  The ring form reads a group's runs straight from the
+// scan's ring snapshot through the slot directory (no gathered [NE*C, S*WA]
+// rows; a warp takes its evaluation's live groups only); the row form
+// reads gathered rows with a liveness mask.  Dead lanes become the key
+// sentinel and set no bit of the row's live bitmap; a closed run's live
+// lanes move to the run's front at their rank (a prefix count of the
+// bitmap), which keeps the run sorted; the open pane is sorted in shared
+// memory; merge-path rounds over the runs that can hold live lanes make the
+// row one sorted run, its live keys first; count, sum, min, max, mean,
+// lower median and distinct count come off that prefix.  Keys compare as
+// keys (no packing), so -0.0 and +0.0 keep their bits.  Bound: bytes, 8 a
+// live slot lane of the ring read once (4.5 a lane of the row form); the
+// work is a few shared-memory passes a row.
 #include <cuda_pipeline.h>
 
 #include "tile.cuh"
@@ -723,86 +732,332 @@ pergroup_fused_kernel(FusedArgs a, OpList ops) {
 
 // ------------------------------------------------------ merge-replay tails
 
-template <typename T>
-__device__ T block_sum(T v, T* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int d = 16; d > 0; d >>= 1) v = add_wrap(v, __shfl_xor_sync(FULL_MASK, v, d));
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  T t = T(0);
-  if (threadIdx.x == 0)
-    for (int w = 0; w < static_cast<int>(blockDim.x >> 5); ++w) t = add_wrap(t, scratch[w]);
-  __syncthreads();
-  return t;  // in thread 0
+// Where a replay warp's rows come from.
+//   * Row form (pergroup_replay_pallas's own signature): rows of T lanes,
+//     keys and liveness `live` [nrows, T] (nonzero = live), runs of R lanes
+//     whose live lanes are ascending.
+//   * Ring form: evaluation e's rows are its live groups r < num[e]; row
+//     r's runs are the group's first min(nslots, T / R) slots in base
+//     order, perm[e, offsets[e, r] + j], read straight from the scan's ring
+//     snapshot keys/seqs [NE, C, R] with count/base [NE, C].  A lane is live
+//     when it is filled (lane < count) and inside the group's window (seq
+//     >= lo, lo = the newest slot's base + count - ws[e, r]): the mask
+//     panestore.gather_runs builds.  A closed pane (count == R) is
+//     key-sorted; the open one (count < R, the group's newest) is in
+//     arrival order.
+struct ReplayArgs {
+  const void* keys;    // row form [nrows, T]; ring form [NE, C, R]
+  const int* live;     // row form [nrows, T]
+  const int* seqs;     // ring form [NE, C, R]
+  const int *count, *base, *perm, *offsets, *nslots, *ws;  // [NE, C]
+  const int* num;      // [NE]
+  long long nrows;     // row form
+  int c, T, R, vec;    // vec: 16-byte loads (R % 4 == 0, aligned rows)
+};
+
+// A replay warp's shared memory, in 4-byte words: two row buffers (pad32
+// layout), the row's live-lane bitmap and each bitmap word's exclusive
+// prefix count, and (ring form) each run's slot and count.
+struct ReplayLayout {
+  int row, words, runs;
+  __host__ __device__ ReplayLayout(int T, int R, bool ring)
+      : row(pad32(T)), words((T + 31) / 32), runs(ring ? T / R : 0) {}
+  __host__ __device__ int size() const {
+    return 2 * row + 2 * words + 2 * runs;
+  }
+};
+
+template <typename K> __device__ __forceinline__ K from_bits(int b);
+template <> __device__ __forceinline__ int from_bits<int>(int b) { return b; }
+template <> __device__ __forceinline__ float from_bits<float>(int b) {
+  return __int_as_float(b);
 }
 
+// One warp merges the sorted runs of `len` lanes of src[0, W) pairwise
+// into dst (pad32 layouts): lane l writes outputs [l * per, (l + 1) * per),
+// each stretch inside one pair found by a co-rank binary search, then
+// merged serially.  Keys compare as K values, so -0.0 and +0.0 (equal)
+// keep their bits and the co-ranks of float runs are well defined.
 template <typename K>
-__global__ void __launch_bounds__(1024)
-pergroup_replay_kernel(const K* __restrict__ rk, const int* __restrict__ rv,
-                       int L, OpList ops) {
-  extern __shared__ __align__(16) unsigned char dyn[];
-  K* sk = reinterpret_cast<K*>(dyn);
-  __shared__ int cnt_s;
-  __shared__ K ksum[32];
-  __shared__ int isum[32];
-  const long long row = blockIdx.x;
-  const K* kr = rk + row * L;
-  const int* vr = rv + row * L;
-  const K sent = key_max<K>();
-  if (threadIdx.x == 0) cnt_s = 0;
-  __syncthreads();
-  int live = 0;
-  for (int i = threadIdx.x; i < L; i += blockDim.x) {
-    const bool v = vr[i] != 0;
-    sk[i] = v ? kr[i] : sent;
-    live += v ? 1 : 0;
-  }
-  if (live) atomicAdd(&cnt_s, live);
-  __syncthreads();
-  const int cnt = cnt_s;
-  K sum = K(0);
-  int dc = 0;
-  if (cnt > 0) {
-    for (int kk = 2; kk <= L; kk <<= 1) {
-      for (int j = kk >> 1; j > 0; j >>= 1) {
-        for (int p = threadIdx.x; p < L / 2; p += blockDim.x) {
-          const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-          const int q = i + j;
-          const bool up = (i & kk) == 0;
-          const K a = sk[i], b = sk[q];
-          if (up ? b < a : a < b) { sk[i] = b; sk[q] = a; }
-        }
-        __syncthreads();
+__device__ __forceinline__ void warp_merge_round(const K* src, K* dst,
+                                                 int len, int W) {
+  const int per = (W + 31) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int end = min((lane + 1) * per, W);
+  for (int o = lane * per; o < end;) {
+    const int a0 = o & ~(2 * len - 1), b0 = a0 + len;
+    const int stop = min(end, a0 + 2 * len);
+    const int d = o - a0;
+    // co-rank: the first d outputs of the pair take A[0, i), B[0, d - i)
+    int lo = d > len ? d - len : 0, hi = d < len ? d : len;
+    while (lo < hi) {
+      const int i = (lo + hi) >> 1;
+      if (src[pad32(a0 + i)] <= src[pad32(b0 + d - i - 1)]) lo = i + 1;
+      else hi = i;
+    }
+    int i = lo, j = d - lo;
+    K x = i < len ? src[pad32(a0 + i)] : K(0);
+    K y = j < len ? src[pad32(b0 + j)] : K(0);
+    for (; o < stop; ++o) {
+      const bool take_x = i < len && (j >= len || x <= y);
+      dst[pad32(o)] = take_x ? x : y;
+      if (take_x) {
+        if (++i < len) x = src[pad32(a0 + i)];
+      } else {
+        if (++j < len) y = src[pad32(b0 + j)];
       }
     }
-    K ps = K(0);
-    int pd = 0;
-    for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-      ps = add_wrap(ps, sk[i]);
-      pd += sk[i] != (i == 0 ? sent : sk[i - 1]) ? 1 : 0;
-    }
-    sum = block_sum<K>(ps, ksum);
-    dc = block_sum<int>(pd, isum);
   }
-  if (threadIdx.x != 0) return;
-  for (int o = 0; o < ops.n; ++o) {
-    void* out = ops.out[o];
-    switch (ops.code[o]) {
-      case OP_COUNT: static_cast<int*>(out)[row] = cnt; break;
-      case OP_SUM: static_cast<K*>(out)[row] = sum; break;
-      case OP_MEAN:
-        static_cast<float*>(out)[row] =
-            static_cast<float>(sum) / static_cast<float>(cnt > 1 ? cnt : 1);
-        break;
-      case OP_MIN: static_cast<K*>(out)[row] = cnt > 0 ? sk[0] : K(0); break;
-      case OP_MAX: static_cast<K*>(out)[row] = cnt > 0 ? sk[cnt - 1] : K(0); break;
-      case OP_MEDIAN:
-        static_cast<K*>(out)[row] = cnt > 0 ? sk[(cnt - 1) / 2] : K(0);
-        break;
-      case OP_DC: static_cast<int*>(out)[row] = dc; break;
-      default: break;
+}
+
+// Live lanes of the row before lane x: no lane at or past `limit` is live.
+__device__ __forceinline__ int live_before(const unsigned* bits,
+                                           const int* wpre, int x, int cnt,
+                                           int limit) {
+  if (x >= limit) return cnt;
+  return wpre[x >> 5] + __popc(bits[x >> 5] & ((1u << (x & 31)) - 1u));
+}
+
+// One warp a replay row: blocks of blockDim.x / 32 warps; warp w of block
+// (e, y) replays rows y * warps + w, stepping by gridDim.y * warps, of
+// evaluation e (ring form) or of all rows (row form, e = 0).  A row: load
+// its lanes (dead ones the key sentinel) and its live-lane bitmap; move
+// each closed run's live lanes to the run's front at their rank (a prefix
+// count of the bitmap), sort each open run in shared memory; merge-path
+// rounds over the runs that can hold live lanes; then count, sum, min,
+// max, mean, lower median and distinct count off the sorted live prefix.
+// No barrier beyond the warp's own.  Rows at or past num[e] (ring form)
+// are not written.
+// Warps a replay block: each replays rows of its own, in its own stretch
+// of shared memory (REPLAY_WARPS of them, or as many as fit; small blocks
+// pack the SM's shared memory closely).  Shared memory, not registers,
+// bounds the warps an SM holds, so the kernel may take the registers it
+// needs (without the minimum of one block, ptxas held it to 40-48 and
+// spilled).
+constexpr int REPLAY_WARPS = 2;
+
+template <typename K, bool RING>
+__global__ void __launch_bounds__(REPLAY_WARPS * 32, 1)
+pergroup_replay_kernel(ReplayArgs a, OpList ops) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  // float keys sum in double, so the rounding a float32 sum of a long
+  // window picks up in one order or another stays far below the plain
+  // version's own; int32 keys sum with wrap-around
+  using Acc =
+      typename std::conditional<std::is_same<K, float>::value, double, K>::type;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const int T = a.T, R = a.R, lr = __ffs(R) - 1;
+  const ReplayLayout lay(T, R, RING);
+  K* bufa = reinterpret_cast<K*>(dyn) + static_cast<size_t>(warp) * lay.size();
+  K* bufb = bufa + lay.row;
+  unsigned* bits = reinterpret_cast<unsigned*>(bufb + lay.row);
+  int* wpre = reinterpret_cast<int*>(bits + lay.words);
+  int* s_slot = wpre + lay.words;
+  int* s_cnt = s_slot + lay.runs;
+  const K sent = key_max<K>();
+  const int* kb = static_cast<const int*>(a.keys);  // keys as 32-bit words
+  const long long e = blockIdx.x, ec = e * a.c;
+  const long long rows = RING ? a.num[e] : a.nrows;
+  const long long step = static_cast<long long>(gridDim.y) * nwarps;
+
+  for (long long r = static_cast<long long>(blockIdx.y) * nwarps + warp;
+       r < rows; r += step) {
+    const long long orow = RING ? ec + r : r;
+    // the runs: ring form, the group's first nr slots; row form, all
+    int nr = T >> lr, lo = 0;
+    if (RING) {
+      nr = min(a.nslots[orow], nr);
+      const int off = a.offsets[orow];
+      for (int j = lane; j < nr; j += 32) {
+        const int sl = a.perm[ec + off + j], cs = a.count[ec + sl];
+        s_slot[j] = sl;
+        s_cnt[j] = cs;
+        if (j == nr - 1) lo = a.base[ec + sl] + cs - a.ws[orow];
+      }
+      lo = __shfl_sync(FULL_MASK, lo, (nr - 1) & 31);
+      __syncwarp();
     }
+    const int loaded = nr * R;  // lanes read; the rest are dead
+
+    // load: four lanes a thread a step (16-byte loads where the row
+    // allows; a dead quad's keys are not read), the masked keys to bufa,
+    // the live bits to the bitmap
+    int cnt = 0, last = -1;
+#pragma unroll 8
+    for (int i0 = 4 * lane; i0 - 4 * lane < loaded; i0 += 128) {
+      unsigned qm = 0;
+      if (i0 < loaded && a.vec) {
+        // the quad lies in one run and inside the lanes read
+        long long at;
+        if (RING) {
+          const int j = i0 >> lr, p0 = i0 & (R - 1), cs = s_cnt[j];
+          at = (ec + s_slot[j]) * R + p0;
+          const int4 q4 = __ldg(reinterpret_cast<const int4*>(a.seqs + at));
+          qm = (p0 < cs && q4.x >= lo) | (p0 + 1 < cs && q4.y >= lo) << 1 |
+               (p0 + 2 < cs && q4.z >= lo) << 2 |
+               (p0 + 3 < cs && q4.w >= lo) << 3;
+        } else {
+          at = r * T + i0;
+          const int4 l4 = __ldg(reinterpret_cast<const int4*>(a.live + at));
+          qm = (l4.x != 0) | (l4.y != 0) << 1 | (l4.z != 0) << 2 |
+               (l4.w != 0) << 3;
+        }
+        int4 k4 = make_int4(0, 0, 0, 0);
+        if (qm) k4 = __ldg(reinterpret_cast<const int4*>(kb + at));
+        bufa[pad32(i0)] = qm & 1 ? from_bits<K>(k4.x) : sent;
+        bufa[pad32(i0 + 1)] = qm & 2 ? from_bits<K>(k4.y) : sent;
+        bufa[pad32(i0 + 2)] = qm & 4 ? from_bits<K>(k4.z) : sent;
+        bufa[pad32(i0 + 3)] = qm & 8 ? from_bits<K>(k4.w) : sent;
+      } else if (i0 < loaded) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u;
+          bool live = false;
+          int w = 0;
+          if (i < loaded) {
+            long long at;
+            if (RING) {
+              const int j = i >> lr, p = i & (R - 1);
+              at = (ec + s_slot[j]) * R + p;
+              live = p < s_cnt[j] && a.seqs[at] >= lo;
+            } else {
+              at = r * T + i;
+              live = a.live[at] != 0;
+            }
+            if (live) w = kb[at];
+            bufa[pad32(i)] = live ? from_bits<K>(w) : sent;
+          }
+          qm |= static_cast<unsigned>(live) << u;
+        }
+      }
+      cnt += __popc(qm);
+      if (qm) last = i0 + 31 - __clz(qm);
+      // eight threads' four bits make one bitmap word
+      unsigned w = qm << (4 * (lane & 7));
+      w |= __shfl_xor_sync(FULL_MASK, w, 1);
+      w |= __shfl_xor_sync(FULL_MASK, w, 2);
+      w |= __shfl_xor_sync(FULL_MASK, w, 4);
+      if ((lane & 7) == 0 && i0 < loaded) bits[i0 >> 5] = w;
+    }
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      cnt += __shfl_xor_sync(FULL_MASK, cnt, d);
+      last = max(last, __shfl_xor_sync(FULL_MASK, last, d));
+    }
+    __syncwarp();
+
+    Acc sum = Acc(0);
+    int dc = 0;
+    const K* fin = bufb;  // the merged row
+    if (cnt > 0) {
+      // the runs that can hold live lanes: W lanes, a power of two
+      const int used = RING ? nr : (last >> lr) + 1;
+      int W = R;
+      while (W < used * R) W <<= 1;
+      // each bitmap word's exclusive prefix count: a lane sums its stretch
+      // of words, a warp scan, then the stretch again
+      const int limit = min(loaded, W);
+      const int nw = (limit + 31) >> 5, wper = (nw + 31) >> 5;
+      const int w0 = min(lane * wper, nw), w1 = min(w0 + wper, nw);
+      int tot = 0;
+      for (int w = w0; w < w1; ++w) tot += __popc(bits[w]);
+      int inc = tot;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int o = __shfl_up_sync(FULL_MASK, inc, d);
+        if (lane >= d) inc += o;
+      }
+      for (int w = w0, p = inc - tot; w < w1; ++w) {
+        wpre[w] = p;
+        p += __popc(bits[w]);
+      }
+      __syncwarp();
+      // closed runs: each live lane to its rank among the run's live
+      // lanes, the rest of the run the sentinel; open runs as loaded
+      for (int i = lane; i < W; i += 32) {
+        const int j = i >> lr, rs = j << lr;
+        if (RING && j < nr && s_cnt[j] < R) {
+          bufb[pad32(i)] = bufa[pad32(i)];
+          continue;
+        }
+        const int before = live_before(bits, wpre, rs, cnt, limit);
+        const int in_run = live_before(bits, wpre, rs + R, cnt, limit) - before;
+        if (i < limit && (bits[i >> 5] >> (i & 31)) & 1)
+          bufb[pad32(rs + live_before(bits, wpre, i, cnt, limit) - before)] =
+              bufa[pad32(i)];
+        if (i - rs >= in_run) bufb[pad32(i)] = sent;
+      }
+      __syncwarp();
+      // open runs (the group's open pane): a bitonic sort in place; the
+      // dead lanes, the sentinel, end up last
+      for (int j = 0; RING && j < nr; ++j) {
+        if (s_cnt[j] >= R) continue;
+        for (int kk = 2; kk <= R; kk <<= 1)
+          for (int jj = kk >> 1; jj > 0; jj >>= 1) {
+            for (int p = lane; p < R / 2; p += 32) {
+              const int i = ((p & ~(jj - 1)) << 1) | (p & (jj - 1));
+              const int rb = (j << lr) + i;
+              K x = bufb[pad32(rb)], y = bufb[pad32(rb + jj)];
+              if (kk == R || (i & kk) == 0 ? y < x : x < y) {
+                bufb[pad32(rb)] = y;
+                bufb[pad32(rb + jj)] = x;
+              }
+            }
+            __syncwarp();
+          }
+      }
+      // merge-path rounds, bufb and bufa in turn
+      K* src = bufb;
+      K* dst = bufa;
+      for (int len = R; len < W; len <<= 1) {
+        warp_merge_round<K>(src, dst, len, W);
+        __syncwarp();
+        K* t = src;
+        src = dst;
+        dst = t;
+      }
+      fin = src;
+      // the tails off the sorted live prefix fin[0, cnt)
+      for (int i = lane; i < cnt; i += 32) {
+        const K x = fin[pad32(i)];
+        sum = add_wrap(sum, static_cast<Acc>(x));
+        // lane 0 is held against the sentinel, as the plain version does
+        dc += x != (i == 0 ? sent : fin[pad32(i - 1)]);
+      }
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) {
+        sum = add_wrap(sum, __shfl_xor_sync(FULL_MASK, sum, d));
+        dc += __shfl_xor_sync(FULL_MASK, dc, d);
+      }
+    }
+    if (lane == 0) {
+      for (int o = 0; o < ops.n; ++o) {
+        void* out = ops.out[o];
+        switch (ops.code[o]) {
+          case OP_COUNT: static_cast<int*>(out)[orow] = cnt; break;
+          case OP_SUM: static_cast<K*>(out)[orow] = static_cast<K>(sum); break;
+          case OP_MEAN:  // float32(sum) / float32(max(count, 1))
+            static_cast<float*>(out)[orow] =
+                static_cast<float>(static_cast<K>(sum)) /
+                static_cast<float>(cnt > 1 ? cnt : 1);
+            break;
+          case OP_MIN:
+            static_cast<K*>(out)[orow] = cnt > 0 ? fin[pad32(0)] : K(0);
+            break;
+          case OP_MAX:
+            static_cast<K*>(out)[orow] = cnt > 0 ? fin[pad32(cnt - 1)] : K(0);
+            break;
+          case OP_MEDIAN:  // the lower median
+            static_cast<K*>(out)[orow] =
+                cnt > 0 ? fin[pad32((cnt - 1) / 2)] : K(0);
+            break;
+          case OP_DC: static_cast<int*>(out)[orow] = dc; break;
+          default: break;
+        }
+      }
+    }
+    __syncwarp();  // the row's buffers are reused by the next
   }
 }
 
@@ -889,16 +1144,46 @@ cudaError_t launch_fused(const FusedArgs& a, const OpList& ops,
   return cudaGetLastError();
 }
 
-template <typename K>
-cudaError_t launch_replay(const K* rk, const int* rv, int nrows, int L,
-                          const OpList& ops, cudaStream_t st) {
-  const size_t smem = static_cast<size_t>(L) * sizeof(K);
-  cudaError_t err = opt_in_smem(pergroup_replay_kernel<K>, smem);
+// Warps in flight the replay grid aims at: 132 SMs, about 12 warps each,
+// four times over.
+constexpr int REPLAY_TARGET_WARPS = 132 * 12 * 4;
+
+template <typename K, bool RING>
+cudaError_t launch_replay_kernel(const ReplayArgs& a, const OpList& ops,
+                                 int ne, long long rows_per_e,
+                                 cudaStream_t st) {
+  const size_t per_warp =
+      4 * static_cast<size_t>(ReplayLayout(a.T, a.R, RING).size());
+  long long warps = SMEM_BUDGET / per_warp;
+  if (warps < 1) return cudaErrorInvalidValue;  // a row past shared memory
+  warps = warps < REPLAY_WARPS ? warps : REPLAY_WARPS;
+  // blocks an evaluation: enough warps in all, at most one a row
+  long long nblk = (REPLAY_TARGET_WARPS + ne * warps - 1) / (ne * warps);
+  const long long most = (rows_per_e + warps - 1) / warps;
+  nblk = nblk < most ? nblk : most;
+  nblk = nblk < 1 ? 1 : (nblk < 65535 ? nblk : 65535);
+  auto kern = pergroup_replay_kernel<K, RING>;
+  cudaError_t err = opt_in_smem(kern, warps * per_warp);
   if (err != cudaSuccess) return err;
-  int threads = L / 2;
-  threads = threads < 32 ? 32 : (threads > 1024 ? 1024 : threads);
-  pergroup_replay_kernel<K><<<nrows, threads, smem, st>>>(rk, rv, L, ops);
+  // as much of the SM's 256 KiB for shared memory as it gives, so as many
+  // warps as fit are in flight
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  kern<<<dim3(ne, static_cast<unsigned>(nblk)), static_cast<int>(warps) * 32,
+         warps * per_warp, st>>>(a, ops);
   return cudaGetLastError();
+}
+
+template <bool RING>
+cudaError_t launch_replay(const ReplayArgs& a, int key_type,
+                          const OpList& ops, int ne, long long rows_per_e,
+                          cudaStream_t st) {
+  if (key_type == KEY_INT32)
+    return launch_replay_kernel<int, RING>(a, ops, ne, rows_per_e, st);
+  if (key_type == KEY_FLOAT32)
+    return launch_replay_kernel<float, RING>(a, ops, ne, rows_per_e, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -967,20 +1252,59 @@ extern "C" int rt_pergroup_fused(const void* wk, const int* wq,
   return cudaErrorInvalidValue;
 }
 
-// The replay tails over nrows rows of L lanes (one block a row): keys rk,
-// liveness rv (int32, nonzero = live).  codes/outs: DIRECT ops (sum,
+// The replay tails over nrows rows of T lanes (row form, one block a row):
+// keys rk, liveness rv (int32, nonzero = live), each row T / run runs of
+// `run` lanes whose live lanes are ascending.  codes/outs: DIRECT ops (sum,
 // count, min, max, mean, median, distinct count), each output [nrows].
 extern "C" int rt_pergroup_replay(const void* rk, const int* rv, int key_type,
-                                  int nrows, int L, const int* codes,
+                                  int nrows, int T, int run, const int* codes,
                                   void* const* outs, int nops, void* stream) {
   using namespace rt;
-  if (nrows < 1 || !pow2(L) || L < 2 || L > MAX_ROW || !ops_ok(codes, nops, false))
+  if (nrows < 1 || !pow2(T) || T < 2 || T > MAX_ROW || !pow2(run) ||
+      run > T || !ops_ok(codes, nops, false))
     return cudaErrorInvalidValue;
-  const OpList ops = make_ops(codes, outs, nops);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (key_type == KEY_INT32)
-    return launch_replay<int>(static_cast<const int*>(rk), rv, nrows, L, ops, st);
-  if (key_type == KEY_FLOAT32)
-    return launch_replay<float>(static_cast<const float*>(rk), rv, nrows, L, ops, st);
-  return cudaErrorInvalidValue;
+  ReplayArgs a{};
+  a.keys = rk;
+  a.live = rv;
+  a.nrows = nrows;
+  a.T = T;
+  a.R = run;
+  a.vec = T % 4 == 0 && aligned16(rk) && aligned16(rv);
+  return launch_replay<false>(a, key_type, make_ops(codes, outs, nops), 1,
+                              nrows, static_cast<cudaStream_t>(stream));
+}
+
+// The replay tails straight from the placement scan's ring snapshots (ring
+// form): keys/seqs [ne, c, wa] and count/base [ne, c] the store after every
+// chunk; perm/offsets/nslots [ne, c] and num [ne] its slot directory (the
+// slots sorted by (owner, base), each live group's first position in perm
+// and slot count, the live groups); ws [ne, c] each live group's window.
+// Row r < num[e] of evaluation e replays the group's first min(nslots,
+// runs) slots; outputs [ne, c], rows at or past num[e] not written.
+extern "C" int rt_pergroup_replay_ring(
+    const void* keys, const int* seqs, const int* count, const int* base,
+    const int* perm, const int* offsets, const int* nslots, const int* num,
+    const int* ws, int key_type, int ne, int c, int wa, int runs,
+    const int* codes, void* const* outs, int nops, void* stream) {
+  using namespace rt;
+  if (ne < 1 || c < 1 || !pow2(wa) || !pow2(runs) ||
+      static_cast<long long>(runs) * wa > MAX_ROW ||
+      !ops_ok(codes, nops, false))
+    return cudaErrorInvalidValue;
+  ReplayArgs a{};
+  a.keys = keys;
+  a.seqs = seqs;
+  a.count = count;
+  a.base = base;
+  a.perm = perm;
+  a.offsets = offsets;
+  a.nslots = nslots;
+  a.ws = ws;
+  a.num = num;
+  a.c = c;
+  a.T = runs * wa;
+  a.R = wa;
+  a.vec = wa % 4 == 0 && aligned16(keys) && aligned16(seqs);
+  return launch_replay<true>(a, key_type, make_ops(codes, outs, nops), ne, c,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -11,8 +11,8 @@
 //                           reads WS contiguous lanes at i * WA (where the TPU
 //                           kernel used P overlapping BlockSpecs) and merges
 //                           them instead of sorting;
-//   * sort_panes_pallas  -> sort_rows_kernel: sort each WA-lane pane once
-//                           (the shared-memory network of tile.cuh).
+//   * sort_panes_pallas  -> sort_rows_kernel: sort each WA-lane pane once,
+//                           by the same register sort of packed words.
 //
 // Rows are read with a row stride, so the re-sort path frames its windows
 // as a strided view of the stream (stride WA) and never materialises the
@@ -42,7 +42,11 @@
 // Float keys are packed with -0.0 made +0.0, so the packed order is the
 // float order (NaN excepted, which neither version defines) and the merge
 // of runs sorted by float compare is well defined: outputs differ from the
-// plain version's at most in the sign of a zero.
+// plain version's at most in the sign of a zero.  sort_rows_kernel packs
+// with -0.0 just below +0.0 instead (ExactCode), so a sorted pane holds
+// exactly its input's bit patterns; it differs from the plain network only
+// in the order of a group's -0.0 and +0.0 keys, an order that is sorted
+// under both packings.
 #include "tile.cuh"
 
 namespace rt {
@@ -75,6 +79,26 @@ template <> struct KeyCode<float> {
   }
 };
 
+// The order-keeping bijection of a key's bits (-0.0 below +0.0), and its
+// inverse: sort_rows_kernel returns the bits it was given.
+template <typename K> struct ExactCode;
+template <> struct ExactCode<int> {
+  static __device__ __forceinline__ unsigned enc(unsigned bits) {
+    return bits ^ SIGN;
+  }
+  static __device__ __forceinline__ unsigned dec(unsigned u) {
+    return u ^ SIGN;
+  }
+};
+template <> struct ExactCode<float> {
+  static __device__ __forceinline__ unsigned enc(unsigned bits) {
+    return (bits & SIGN) ? ~bits : (bits | SIGN);
+  }
+  static __device__ __forceinline__ unsigned dec(unsigned u) {
+    return (u & SIGN) ? (u ^ SIGN) : ~u;
+  }
+};
+
 __device__ __forceinline__ u64 pack(int g, unsigned code) {
   return (static_cast<u64>(static_cast<unsigned>(g) ^ SIGN) << 32) | code;
 }
@@ -84,12 +108,6 @@ __device__ __forceinline__ unsigned hi_word(u64 v) {
 __device__ __forceinline__ int group_of(u64 v) {
   return static_cast<int>(hi_word(v) ^ SIGN);
 }
-
-// Shared-memory index with one pad word per 16 (uint64) or 32 (4-byte)
-// words, so a warp storing its threads' L consecutive lanes hits distinct
-// banks.
-__host__ __device__ __forceinline__ int pad64(int i) { return i + (i >> 4); }
-__host__ __device__ __forceinline__ int pad32(int i) { return i + (i >> 5); }
 
 // ------------------------------------------------------------------ sort
 
@@ -589,24 +607,65 @@ swag_rows_kernel(const int* __restrict__ g, const K* __restrict__ k,
   row_tails<K, L>(v, T, ops, row, og, oc, vec_out != 0, dyn, sm);
 }
 
-template <typename K>
-__global__ void __launch_bounds__(1024)
-sort_rows_kernel(const int* __restrict__ g,
-                 const K* __restrict__ k, int T, int* og,
-                 K* ok) {
+// One block a pane row of T lanes: the register sort of swag_rows_kernel
+// over packed (group, ExactCode key) words, padded to blockDim.x * L lanes
+// with PAD_LANE, then unpacked and stored (16 bytes a store where the row
+// allows it).  Equal words are the same (group, key) pair, so any order of
+// ties gives the same row.
+template <typename K, int L, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1024 / MAXT)
+sort_rows_kernel(const int* __restrict__ g, const K* __restrict__ k, int T,
+                 int* __restrict__ og, K* __restrict__ ok, int vec) {
   extern __shared__ __align__(16) unsigned char dyn[];
-  int* sg = reinterpret_cast<int*>(dyn);
-  K* sk = reinterpret_cast<K*>(dyn + static_cast<size_t>(T) * sizeof(int));
-  const long long base = static_cast<long long>(blockIdx.x) * T;
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    sg[i] = g[base + i];
-    sk[i] = k[base + i];
+  u64* s = reinterpret_cast<u64*>(dyn);
+  const long long row = static_cast<long long>(blockIdx.x) * T;
+  const int* gr = g + row;
+  const unsigned* kr = reinterpret_cast<const unsigned*>(k) + row;
+  const int base = threadIdx.x * L;
+  const bool full = vec && base + L <= T;
+  u64 v[L];
+  if (full) {
+#pragma unroll
+    for (int q = 0; q < L / 4; ++q) {
+      const int4 gq = __ldg(reinterpret_cast<const int4*>(gr + base) + q);
+      const int4 kq = __ldg(reinterpret_cast<const int4*>(kr + base) + q);
+      v[4 * q] = pack(gq.x, ExactCode<K>::enc(kq.x));
+      v[4 * q + 1] = pack(gq.y, ExactCode<K>::enc(kq.y));
+      v[4 * q + 2] = pack(gq.z, ExactCode<K>::enc(kq.z));
+      v[4 * q + 3] = pack(gq.w, ExactCode<K>::enc(kq.w));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int i = base + j;
+      v[j] = i < T ? pack(gr[i], ExactCode<K>::enc(kr[i])) : PAD_LANE;
+    }
   }
-  __syncthreads();
-  block_bitonic_sort<K>(sg, sk, T);
-  for (int i = threadIdx.x; i < T; i += blockDim.x) {
-    og[base + i] = sg[i];
-    ok[base + i] = sk[i];
+  block_sort_packed<L>(v, s);
+  int* go = og + row;
+  unsigned* ko = reinterpret_cast<unsigned*>(ok) + row;
+  if (full) {
+#pragma unroll
+    for (int q = 0; q < L / 4; ++q) {
+      const int j = 4 * q;
+      reinterpret_cast<int4*>(go + base)[q] = make_int4(
+          group_of(v[j]), group_of(v[j + 1]), group_of(v[j + 2]),
+          group_of(v[j + 3]));
+      reinterpret_cast<uint4*>(ko + base)[q] = make_uint4(
+          ExactCode<K>::dec(static_cast<unsigned>(v[j])),
+          ExactCode<K>::dec(static_cast<unsigned>(v[j + 1])),
+          ExactCode<K>::dec(static_cast<unsigned>(v[j + 2])),
+          ExactCode<K>::dec(static_cast<unsigned>(v[j + 3])));
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < L; ++j) {
+      const int i = base + j;
+      if (i < T) {
+        go[i] = group_of(v[j]);
+        ko[i] = ExactCode<K>::dec(static_cast<unsigned>(v[j]));
+      }
+    }
   }
 }
 
@@ -633,10 +692,6 @@ RowGeometry row_geometry(int T) {
                        12 * static_cast<size_t>(tp / 4 + 1);
   r.smem = sort > tails ? sort : tails;
   return r;
-}
-
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 template <typename K, int L, int MAXT>
@@ -667,15 +722,28 @@ cudaError_t dispatch_rows(const int* g, const void* k, long long stride,
   return launch_rows<K, 16, 1024>(g, k, stride, nrows, T, run, ops, og, oc, st);
 }
 
-template <typename K>
-cudaError_t launch_sort(const int* g, const void* k, int nrows, int T, int* og,
-                        void* ok, cudaStream_t st) {
-  const size_t smem = static_cast<size_t>(T) * 8;
-  cudaError_t err = allow_smem(sort_rows_kernel<K>, smem);
+template <typename K, int L, int MAXT>
+cudaError_t launch_sort(const int* g, const void* k, int nrows, int T,
+                        int* og, void* ok, cudaStream_t st) {
+  const RowGeometry geo = row_geometry(T);
+  // the sort's padded row only; the tails' staging is not needed
+  const size_t smem = 8 * static_cast<size_t>(pad64(geo.threads * L));
+  auto kern = sort_rows_kernel<K, L, MAXT>;
+  cudaError_t err = allow_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  sort_rows_kernel<K><<<nrows, threads_for(T), smem, st>>>(
-      g, static_cast<const K*>(k), T, og, static_cast<K*>(ok));
+  const int vec = T % 4 == 0 && aligned16(g) && aligned16(k) &&
+                  aligned16(og) && aligned16(ok);
+  kern<<<nrows, geo.threads, smem, st>>>(
+      g, static_cast<const K*>(k), T, og, static_cast<K*>(ok), vec);
   return cudaGetLastError();
+}
+
+template <typename K>
+cudaError_t dispatch_sort(const int* g, const void* k, int nrows, int T,
+                          int* og, void* ok, cudaStream_t st) {
+  if (T <= 1024) return launch_sort<K, 8, 128>(g, k, nrows, T, og, ok, st);
+  if (T <= 4096) return launch_sort<K, 16, 256>(g, k, nrows, T, og, ok, st);
+  return launch_sort<K, 16, 1024>(g, k, nrows, T, og, ok, st);
 }
 
 bool row_ok(int nrows, int T) {
@@ -727,7 +795,8 @@ extern "C" int rt_sort_rows(const int* g, const void* k, int key_type,
   using namespace rt;
   if (!row_ok(nrows, T)) return cudaErrorInvalidValue;
   auto st = static_cast<cudaStream_t>(stream);
-  if (key_type == KEY_INT32) return launch_sort<int>(g, k, nrows, T, og, ok, st);
-  if (key_type == KEY_FLOAT32) return launch_sort<float>(g, k, nrows, T, og, ok, st);
+  if (key_type == KEY_INT32) return dispatch_sort<int>(g, k, nrows, T, og, ok, st);
+  if (key_type == KEY_FLOAT32)
+    return dispatch_sort<float>(g, k, nrows, T, og, ok, st);
   return cudaErrorInvalidValue;
 }

@@ -10,9 +10,8 @@
 //   * a block exclusive prefix sum (the compaction ranks: where the TPU
 //     kernels route lanes through a reverse butterfly because Mosaic has no
 //     scatter, a Hopper block scatters each lane to its rank);
-//   * a bitonic sort of (int32 group, key) pairs in shared memory,
-//     lexicographic (the window kernels' register sort, merge and tails
-//     live in swag.cu).
+//   * the padded shared-memory layouts of the rows that swag.cu and
+//     pergroup.cu sort and merge.
 //
 // Group ids lie strictly between INT32_MIN (the shift fill) and INT32_MAX
 // (PAD_GROUP, the padding sentinel).  Integer sums add as uint32 and
@@ -21,6 +20,7 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 namespace rt {
@@ -44,6 +44,7 @@ __device__ __forceinline__ int add_wrap(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
 }
 __device__ __forceinline__ float add_wrap(float a, float b) { return a + b; }
+__device__ __forceinline__ double add_wrap(double a, double b) { return a + b; }
 __device__ __forceinline__ int sub_wrap(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
@@ -282,37 +283,16 @@ __device__ int block_excl_sum(const int (&v)[L], int (&r)[L], ScanSmem& sm) {
   return total;
 }
 
-// --------------------------------------------------------- sort and merge
+// --------------------------------------------------- shared-memory layouts
 
-template <typename K>
-__device__ __forceinline__ bool lex_less(int ga, K ka, int gb, K kb) {
-  return ga < gb || (ga == gb && ka < kb);
-}
+// Shared-memory index with one pad word per 16 (8-byte) or 32 (4-byte)
+// words, so a warp storing its threads' L consecutive lanes hits distinct
+// banks.
+__host__ __device__ __forceinline__ int pad64(int i) { return i + (i >> 4); }
+__host__ __device__ __forceinline__ int pad32(int i) { return i + (i >> 5); }
 
-template <typename K>
-__device__ __forceinline__ void swap_pair(int* g, K* k, int i, int q) {
-  const int tg = g[i]; g[i] = g[q]; g[q] = tg;
-  const K tk = k[i]; k[i] = k[q]; k[q] = tk;
-}
-
-// Bitonic sort of T (a power of two) pairs in shared memory; the network of
-// bitonic_sort_tile: stage (kk, j) pairs lane i (bit j clear) with i + j,
-// ascending iff bit kk of i is clear, strict compares.
-template <typename K>
-__device__ void block_bitonic_sort(int* g, K* k, int T) {
-  for (int kk = 2; kk <= T; kk <<= 1) {
-    for (int j = kk >> 1; j > 0; j >>= 1) {
-      for (int p = threadIdx.x; p < T / 2; p += blockDim.x) {
-        const int i = ((p & ~(j - 1)) << 1) | (p & (j - 1));
-        const int q = i + j;
-        const bool up = (i & kk) == 0;
-        const bool sw = up ? lex_less(g[q], k[q], g[i], k[i])
-                           : lex_less(g[i], k[i], g[q], k[q]);
-        if (sw) swap_pair(g, k, i, q);
-      }
-      __syncthreads();
-    }
-  }
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
 // ------------------------------------------------- op lists, launch shape

@@ -47,9 +47,13 @@ _SIGNATURES = {
     # codes, outs, nops, stream
     "rt_pergroup_fused": [_P] * 9 + [_I, _I, _I, _I, ctypes.POINTER(_I),
                                      ctypes.POINTER(_P), _I, _P],
-    # rk, rv, key_type, nrows, L, codes, outs, nops, stream
-    "rt_pergroup_replay": [_P, _P, _I, _I, _I, ctypes.POINTER(_I),
+    # rk, rv, key_type, nrows, T, run, codes, outs, nops, stream
+    "rt_pergroup_replay": [_P, _P, _I, _I, _I, _I, ctypes.POINTER(_I),
                            ctypes.POINTER(_P), _I, _P],
+    # keys, seqs, count, base, perm, offsets, nslots, num, ws, key_type, ne,
+    # c, wa, runs, codes, outs, nops, stream
+    "rt_pergroup_replay_ring": [_P] * 9 + [_I] * 5 + [
+        ctypes.POINTER(_I), ctypes.POINTER(_P), _I, _P],
     # keys, okeys, nk, float_keys, pays, opays, psize, np, R, T, stream
     "rt_bitonic_sort": [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I,
                         ctypes.POINTER(_P), ctypes.POINTER(_P),

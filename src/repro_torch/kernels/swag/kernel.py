@@ -14,7 +14,11 @@ per-group placement scan, which the JAX package leaves to an XLA
   stream's WA chunks (optionally keeping the ring buffers).
 * :func:`pergroup_fused` — per chunk: the per-group partial aggregates of
   the ring as the chunk's writes leave it (the chunks in parallel).
-* :func:`pergroup_replay` — per replay row: the live lanes' DIRECT_OPS.
+* :func:`pergroup_replay_ring` — per evaluation and live group: the
+  DIRECT_OPS of the group's window, read straight from the placement
+  scan's ring snapshots.
+* :func:`pergroup_replay` — per gathered replay row: the live lanes'
+  DIRECT_OPS.
 * :func:`twostack_flip` — per epoch row of a two-stack time-window batch:
   the front region's suffix scan and the back region's prefix scan.
 
@@ -586,9 +590,9 @@ def pergroup_replay_plain(run_keys, run_valid, ops, *, run: int):
 def pergroup_replay(run_keys: torch.Tensor, run_valid: torch.Tensor, ops, *,
                     run: int):
     """Replay over gathered per-group pane subsets: ``run_keys`` /
-    ``run_valid`` (int32) ``[R, S*WA]``, each row S key-sorted runs of
-    ``run`` lanes with a liveness mask.  ``ops`` are DIRECT_OPS names.
-    Returns ``{name: [R]}``."""
+    ``run_valid`` (int32) ``[R, S*WA]``, each row S runs of ``run`` lanes
+    whose live lanes are key-sorted, with a liveness mask.  ``ops`` are
+    DIRECT_OPS names.  Returns ``{name: [R]}``."""
     names = (ops,) if isinstance(ops, str) else tuple(ops)
     if run_keys.device.type == "cpu":
         return pergroup_replay_plain(run_keys, run_valid, names, run=run)
@@ -616,11 +620,100 @@ def pergroup_replay(run_keys: torch.Tensor, run_valid: torch.Tensor, ops, *,
     with torch.cuda.device(dev):
         err = lib.rt_pergroup_replay(
             run_keys.data_ptr(), run_valid.data_ptr(),
-            common.KEY_TYPES[run_keys.dtype], r, length, _codes(names),
+            common.KEY_TYPES[run_keys.dtype], r, length, run, _codes(names),
             _ptrs(list(outs.values())), len(names),
             _build.stream_handle(dev))
     _build.check(err, "pergroup_replay")
     pergroup_replay.launches += 1
+    return outs
+
+
+def pergroup_replay_ring_plain(spec, states, ops):
+    """Plain torch version of :func:`pergroup_replay_ring`: the gathered
+    replay rows (:func:`repro_torch.core.panestore.gather_runs`) through
+    :func:`pergroup_replay_plain`."""
+    names = (ops,) if isinstance(ops, str) else tuple(ops)
+    runs = _panestore.gather_runs(spec, states)
+    ne, c = runs.groups.shape
+    length = runs.run_keys.shape[-1]
+    ovs = pergroup_replay_plain(
+        runs.run_keys.reshape(ne * c, length),
+        runs.run_valid.reshape(ne * c, length).to(torch.int32), names,
+        run=spec.wa)
+    return ({nm: v.reshape(ne, c) for nm, v in ovs.items()}, runs.groups,
+            runs.num_groups)
+
+
+def ring_directory(spec, states) -> dict:
+    """The ring-form replay kernel's view of the stores after every chunk
+    (torch): the ring's seqs, each slot's count and base, the slot
+    directory (:func:`repro_torch.core.panestore._slot_directory`: perm,
+    live group ids, offsets, slot counts, num) and each live group's
+    window, all contiguous int32."""
+    perm, ugroups, offsets, nslots, num, _ = _panestore._slot_directory(
+        states.owner, states.base)
+    return {nm: t.contiguous() for nm, t in dict(
+        seqs=states.seqs, count=states.count, base=states.base, perm=perm,
+        offsets=offsets, nslots=nslots, num=num, ws=spec.ws_of(ugroups),
+        ugroups=ugroups).items()}
+
+
+def pergroup_replay_ring(spec, states, ops):
+    """Replay every evaluation's live groups straight from the placement
+    scan's ring snapshots: ``states`` is the ``[NE, ...]``
+    :class:`repro_torch.core.panestore.PaneStoreState` of the store after
+    every chunk that :func:`pergroup_scan` (with keys) returns.  ``ops``
+    are DIRECT_OPS names.  Returns ``({name: [NE, C]}, ugroups [NE, C],
+    num [NE])``: what :func:`repro_torch.core.panestore.gather_runs`
+    followed by :func:`pergroup_replay` gives on the rows below ``num``;
+    on the card the rows at or past ``num[e]`` are left unwritten."""
+    names = (ops,) if isinstance(ops, str) else tuple(ops)
+    if states.owner.device.type == "cpu":
+        return pergroup_replay_ring_plain(spec, states, names)
+    bad = [nm for nm in names if nm not in _panestore.DIRECT_OPS]
+    if bad:
+        raise ValueError(f"pergroup_replay_ring computes "
+                         f"{sorted(_panestore.DIRECT_OPS)}, not {bad}")
+    if states.keys is None or states.owner.dim() != 2:
+        raise ValueError("pergroup_replay_ring takes the [NE, ...] stores "
+                         "of a placement scan that kept the ring")
+    ne, c = states.owner.shape
+    wa, runs = spec.wa, spec.runs
+    keys = states.keys
+    if keys.dtype not in common.KEY_TYPES or not keys.is_contiguous() \
+            or keys.shape != (ne, c, wa):
+        raise ValueError(f"pergroup_replay_ring: contiguous [NE, C, WA] "
+                         f"int32 or float32 keys, got {keys.dtype} "
+                         f"{tuple(keys.shape)}")
+    if ne == 0 or runs * wa > MAX_ROW:
+        raise ValueError(f"pergroup_replay_ring takes at least one "
+                         f"evaluation of rows up to {MAX_ROW} lanes, got "
+                         f"{ne} of {runs} x {wa}")
+    dirs = ring_directory(spec, states)
+    _cuda_int32("pergroup_replay_ring", **dirs)
+    return replay_ring_launch(spec, keys, dirs, names), dirs["ugroups"], \
+        dirs["num"]
+
+
+def replay_ring_launch(spec, keys, dirs: dict, names: tuple) -> dict:
+    """The launch of :func:`pergroup_replay_ring` alone, over the
+    ``[NE, C, WA]`` ring keys and the :func:`ring_directory` of their
+    stores: ``{name: [NE, C]}``, the rows at or past ``num`` unwritten."""
+    ne, c, wa = keys.shape
+    dev = keys.device
+    outs = {nm: torch.empty((ne, c), dtype=out_dtype(nm, keys.dtype),
+                            device=dev) for nm in names}
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.rt_pergroup_replay_ring(
+            keys.data_ptr(), *(dirs[nm].data_ptr() for nm in (
+                "seqs", "count", "base", "perm", "offsets", "nslots", "num",
+                "ws")),
+            common.KEY_TYPES[keys.dtype], ne, c, wa, spec.runs,
+            _codes(names), _ptrs(list(outs.values())), len(names),
+            _build.stream_handle(dev))
+    _build.check(err, "pergroup_replay_ring")
+    pergroup_replay_ring.launches += 1
     return outs
 
 
@@ -632,4 +725,5 @@ pergroup_scan.launches = 0
 pergroup_scan.batch_stats = None
 pergroup_fused.launches = 0
 pergroup_replay.launches = 0
+pergroup_replay_ring.launches = 0
 twostack_flip.launches = 0

@@ -10,7 +10,7 @@ windows: each framed window row through the swag kernel.
 
 :func:`_swag_pergroup_kernel_exec` runs per-group windows on the pane
 store: the placement scan kernel, then either the fused push + partials
-kernel or a gather in torch and the replay kernel.
+kernel or the replay kernel over the scan's ring snapshots.
 """
 from __future__ import annotations
 
@@ -136,8 +136,8 @@ def _swag_pergroup_kernel_exec(groups: torch.Tensor, keys: torch.Tensor, *,
       launch gives the write plan, one fused launch writes the ring and
       evaluates every chunk;
     * merge-replay: the scan also keeps the ring and copies it after every
-      chunk, torch gathers each evaluation's replay rows, and one replay
-      launch runs every row's tails.
+      chunk, and one replay launch reads each evaluation's live groups
+      straight from those snapshots through the slot directory.
 
     Returns ``(og [NE, C], {name: ov}, valid [NE, C], num_groups [NE])``.
     """
@@ -161,15 +161,9 @@ def _swag_pergroup_kernel_exec(groups: torch.Tensor, keys: torch.Tensor, *,
         trace = _k.pergroup_scan(
             spec, _ps.init_store(spec, keys.dtype, device=dev), groups,
             keys.contiguous())
-        runs = _ps.gather_runs(spec, trace.states)
-        length = runs.run_keys.shape[-1]
-        ovs = _k.pergroup_replay(
-            runs.run_keys.reshape(ne * c, length),
-            runs.run_valid.reshape(ne * c, length).to(torch.int32), names,
-            run=spec.wa)
-        ovs = {nm: v.reshape(ne, c) for nm, v in ovs.items()}
-        ugroups, num = runs.groups, runs.num_groups
-        del runs
+        ovs, ugroups, num = _k.pergroup_replay_ring(spec, trace.states,
+                                                     names)
+        del trace
     valid = torch.arange(c, device=dev)[None, :] < num[:, None]
     values = {nm: torch.where(valid, v, 0).to(v.dtype)
               for nm, v in ovs.items()}

@@ -174,6 +174,24 @@ def pergroup_replay(rk, rv, ops, run):
     return _np(sk.pergroup_replay(_t(rk), _t(rv), ops, run=run))
 
 
+def pergroup_replay_ring(spec_kw, g, k, ops):
+    """The placement scan's stores after every chunk (the kernel path's
+    scan), then the ring-form replay of them; with the scan's evictions
+    and retirements and the count of partly filled open panes among the
+    stores' live slots."""
+    from repro_torch.core import panestore as ps
+
+    spec = _spec(spec_kw)
+    trace = sk.pergroup_scan(spec, ps.init_store(spec, _t(k).dtype), _t(g),
+                             _t(k))
+    values, ugroups, num = sk.pergroup_replay_ring(spec, trace.states, ops)
+    st = trace.states
+    open_panes = ((st.count > 0) & (st.count < spec.wa)
+                  & (st.owner != ps.PAD_GROUP)).sum()
+    return {"values": _np(values), "ugroups": _np(ugroups), "num": _np(num),
+            "events": trace.events.tolist(), "open_panes": int(open_panes)}
+
+
 def swag_per_group(spec_kw, g, k, ops, state_arrays=None):
     """``swag_per_group`` (optionally continuing ``state_arrays``); the
     result and the final state in numpy."""

@@ -170,6 +170,79 @@ def test_swag_edge_rows_vs_plain(cuda, case, ws, wa):
             assert bool((got[2] == 0).all()), what
 
 
+def _zero_mapped(x):
+    """``x`` with -0.0 made +0.0, as int32 bits (float32), or ``x``."""
+    import torch
+
+    if not x.dtype.is_floating_point:
+        return x
+    return (x + 0.0).view(torch.int32)
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+@pytest.mark.parametrize("wa", [128, 1024, 4096])
+def test_sort_panes_edge_rows_vs_plain(cuda, case, wa):
+    # int32 keys element-exact; float32 keys equal once -0.0 is +0.0, and
+    # every row holds exactly its input's (group, key bits) pairs
+    import torch
+
+    from repro_torch.kernels.swag import kernel as sk
+
+    g, k = (torch.from_numpy(x).to(cuda)
+            for x in edge_stream(case, 5 * wa, seed=wa))
+    pg, pk = g.reshape(-1, wa), k.reshape(-1, wa)
+    got = sk.sort_panes(pg, pk)
+    want = sk.sort_panes_plain(pg, pk)
+    torch.cuda.synchronize()
+    assert_same(got[0], want[0], what="groups")
+    assert_same(_zero_mapped(got[1]), _zero_mapped(want[1]), what="keys")
+
+    def pairs(gr, kr):
+        words = (gr.to(torch.int64) << 32) | (
+            kr.view(torch.int32).to(torch.int64) & 0xffffffff)
+        return torch.sort(words, dim=-1).values
+
+    assert_same(pairs(*got), pairs(pg, pk), what="bit patterns")
+
+
+@pytest.mark.parametrize("kernel", ["swag", "swag_panes"])
+@pytest.mark.parametrize("keys", ["negative_zero_row", "signed_zeros"])
+def test_swag_signed_zero_contract(cuda, kernel, keys):
+    # the documented contract of swag and swag_panes on float keys: every
+    # output equals the plain version's bit for bit once -0.0 is mapped to
+    # +0.0 (the kernels pack -0.0 as +0.0).  The smallest case: one row,
+    # one group, every key -0.0.
+    import torch
+
+    from repro_torch.kernels.swag import kernel as sk
+
+    ws, wa = 1024, 256
+    if keys == "negative_zero_row":
+        g = torch.zeros((ws,), dtype=torch.int32, device=cuda)
+        k = torch.full((ws,), -0.0, dtype=torch.float32, device=cuda)
+    else:
+        g, k = (torch.from_numpy(x).to(cuda)
+                for x in edge_stream("signed_zeros", ws + 3 * wa, seed=7))
+    if kernel == "swag":
+        fg, fk = g.unfold(0, ws, wa), k.unfold(0, ws, wa)
+        got = sk.swag(fg, fk, ALL_WINDOW_OPS)
+        want = sk.swag_plain(fg, fk, ALL_WINDOW_OPS)
+    else:
+        sg, skk = sk.sort_panes_plain(g.reshape(-1, wa), k.reshape(-1, wa))
+        got = sk.swag_panes(sg, skk, ALL_WINDOW_OPS, p=ws // wa)
+        want = sk.swag_panes_plain(sg, skk, ALL_WINDOW_OPS, p=ws // wa)
+    torch.cuda.synchronize()
+    assert_same(got[0], want[0], what="og")
+    assert_same(got[2], want[2], what="oc")
+    for name in ALL_WINDOW_OPS:
+        a, b = got[1][name], want[1][name]
+        if name in INEXACT and keys == "signed_zeros":
+            # reduced in another order: the stated tolerance
+            assert_same(a, b, inexact=True, what=name)
+        else:
+            assert_same(_zero_mapped(a), _zero_mapped(b), what=name)
+
+
 def test_swag_rejects_rows_past_shared_memory(cuda):
     import torch
 
@@ -232,6 +305,12 @@ PERGROUP_CASES = [(4, 5, 8, ((0, 16), (1, 4)), 200, 6, 0, "empty"),
                    "continued"),
                   (4, 292, 8, ((0, 16),), 2048, 600, 4, "continued")]
 CHURN, MANY_GROUPS = PERGROUP_CASES[3], PERGROUP_CASES[4]
+#: the replay kernels also take panes wider than a warp's 32 x 8 lanes,
+#: whose open pane is sorted through shared memory, and rows of 16384
+#: lanes (16 a thread)
+REPLAY_CASES = PERGROUP_CASES + [(512, 12, 1024, (), 4096, 3, 0, "empty"),
+                                 (1024, 20, 15360, (), 20480, 2, 0,
+                                  "empty")]
 
 
 def _pergroup_stream(case, dtype, device):
@@ -311,7 +390,7 @@ def test_pergroup_fused_kernel_vs_plain(cuda, case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
-@pytest.mark.parametrize("case", PERGROUP_CASES)
+@pytest.mark.parametrize("case", REPLAY_CASES)
 def test_pergroup_replay_kernel_vs_plain(cuda, case, dtype):
     import torch
 
@@ -331,6 +410,82 @@ def test_pergroup_replay_kernel_vs_plain(cuda, case, dtype):
     for name in DIRECT_OPS:
         assert_same(got[name], want[name], inexact=name in INEXACT,
                     what=name)
+
+
+def _assert_ring_same(got, want, c, *, zero_mapped=False):
+    """Ring-form replays: groups and num equal, values equal on the rows
+    below num (the kernel leaves the rest unwritten)."""
+    import torch
+
+    (gv, gg, gn), (wv, wg, wn) = got, want
+    assert_same(gg, wg, what="ugroups")
+    assert_same(gn, wn, what="num")
+    valid = torch.arange(c, device=gn.device)[None, :] < wn[:, None]
+    for name in DIRECT_OPS:
+        a = torch.where(valid, gv[name], 0).to(gv[name].dtype)
+        b = torch.where(valid, wv[name], 0).to(wv[name].dtype)
+        if zero_mapped and name not in INEXACT:
+            a, b = _zero_mapped(a), _zero_mapped(b)
+        assert_same(a, b, inexact=name in INEXACT, what=name)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", REPLAY_CASES)
+def test_pergroup_replay_ring_kernel_vs_plain(cuda, case, dtype):
+    import torch
+
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec, st, g, k = _pergroup_stream(case, dtype, cuda)
+    states = sk.pergroup_scan(spec, st, g, k).states
+    got = sk.pergroup_replay_ring(spec, states, DIRECT_OPS)
+    want = sk.pergroup_replay_ring_plain(spec, states, DIRECT_OPS)
+    torch.cuda.synchronize()
+    _assert_ring_same(got, want, spec.capacity)
+
+
+@pytest.mark.parametrize("keys", [-0.0, "signed_zeros"])
+def test_pergroup_replay_signed_zeros(cuda, keys):
+    # replay keeps the keys' bits: a window whose zeros are all -0.0 gives
+    # -0.0; one that holds both signs may differ from the plain version
+    # only in the sign of a zero.  Both forms.
+    import torch
+
+    from repro_torch.core import panestore as ps
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec = ps.PaneStoreSpec(wa=8, capacity=12, default_ws=24)
+    n = 480
+    g = torch.from_numpy(np.random.default_rng(1).integers(
+        0, 5, n).astype(np.int32)).to(cuda)
+    if keys == "signed_zeros":
+        k = torch.from_numpy(edge_stream("signed_zeros", n)[1]).to(cuda)
+    else:
+        k = torch.full((n,), keys, dtype=torch.float32, device=cuda)
+    states = sk.pergroup_scan(spec, ps.init_store(spec, k.dtype, device=cuda),
+                              g, k).states
+    got = sk.pergroup_replay_ring(spec, states, DIRECT_OPS)
+    want = sk.pergroup_replay_ring_plain(spec, states, DIRECT_OPS)
+    torch.cuda.synchronize()
+    _assert_ring_same(got, want, spec.capacity,
+                      zero_mapped=keys == "signed_zeros")
+    if keys != "signed_zeros":
+        valid = torch.arange(spec.capacity, device=cuda)[None, :] \
+            < want[2][:, None]
+        for name in ("min", "max", "median"):
+            bits = got[0][name][valid].view(torch.int32)
+            assert bool((bits == -2**31).all()), name  # -0.0 itself
+    runs = ps.gather_runs(spec, states)
+    length = runs.run_keys.shape[-1]
+    rk = runs.run_keys.reshape(-1, length).contiguous()
+    rv = runs.run_valid.reshape(-1, length).to(torch.int32)
+    rgot = sk.pergroup_replay(rk, rv, DIRECT_OPS, run=spec.wa)
+    rwant = sk.pergroup_replay_plain(rk, rv, DIRECT_OPS, run=spec.wa)
+    for name in DIRECT_OPS:
+        a, b = rgot[name], rwant[name]
+        if keys == "signed_zeros" or name in INEXACT:
+            a, b = _zero_mapped(a), _zero_mapped(b)
+        assert_same(a, b, what=f"row form {name}")
 
 
 @pytest.mark.parametrize("ops", [PARTIAL_OPS, DIRECT_OPS])

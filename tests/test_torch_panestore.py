@@ -10,7 +10,8 @@ pane store) against the JAX package on the CPU.
   JAX-made state;
 * each ``*_plain`` kernel of ``pergroup_fused`` and ``pergroup_replay``
   against its TPU kernel in interpret mode, on inputs the JAX package
-  built;
+  built, and the ring-form ``pergroup_replay_ring_plain`` against the JAX
+  path it stands for (gather_runs, then ``pergroup_replay_pallas``);
 * what the placement scan kernel assumes of the stores the plain
   placement makes, and its wrapper's preparation of a store;
 * the probes and errors of the planner.
@@ -41,6 +42,8 @@ ALL_DIRECT = PARTIAL + ("median", "distinct_count")
 #: a store small enough to evict (capacity 5 with 4-lane panes)
 SQUEEZE = dict(wa=4, capacity=5, default_ws=8, per_group=((0, 16), (1, 4)))
 AMPLE = dict(SQUEEZE, capacity=40)
+#: 8 slots for 4 groups: the store evicts and retires
+CHURN = dict(SQUEEZE, capacity=8)
 
 
 def _stream(seed, n, dtype=np.int32):
@@ -153,6 +156,35 @@ def test_replay_plain_matches_pallas(port, dtype):
     got = port.pergroup_replay(rk, rv, ALL_DIRECT, spec.wa)
     for name in ALL_DIRECT:
         assert_same(want[name], got[name], name=name,
+                    float_keys=dtype == np.float32)
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_replay_ring_plain_matches_pallas(port, dtype):
+    # the ring-form replay (the port's merge-replay path: the placement
+    # scan's stores after every chunk, replayed per live group) against the
+    # JAX path it stands for: the chunk scan's stores, gather_runs and
+    # pergroup_replay_pallas in interpret mode; over a stream that evicts,
+    # retires and leaves partly filled open panes
+    g, k = make_stream(32, 128, 4, 60, dtype=dtype)
+    spec = _jspec(CHURN)
+    _final, runs = jax.jit(lambda g, k: per_group_chunk_scan(
+        spec, jps.init_store(spec, k.dtype), g, k,
+        lambda st: jps.gather_runs(spec, st)))(jnp.array(g), jnp.array(k))
+    ne, c, length = runs.run_keys.shape
+    want = jk.pergroup_replay_pallas(
+        jnp.array(np.asarray(runs.run_keys).reshape(-1, length)),
+        jnp.array(np.asarray(runs.run_valid).reshape(-1, length)
+                  .astype(np.int32)), ALL_DIRECT, run=spec.wa,
+        interpret=True)
+    got = port.pergroup_replay_ring(CHURN, g, k, ALL_DIRECT)
+    evictions, retirements = got["events"]
+    assert evictions > 0 and retirements > 0 and got["open_panes"] > 0, got
+    assert_same(runs.groups, got["ugroups"], name="ugroups")
+    assert_same(runs.num_groups, got["num"], name="num")
+    for name in ALL_DIRECT:
+        assert_same(np.asarray(want[name]).reshape(ne, c),
+                    got["values"][name], name=name,
                     float_keys=dtype == np.float32)
 
 
