@@ -63,15 +63,15 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    included; the swag kernel at both its row widths, and on float32
    keys swag at (c)'s and swag_panes at (b)'s widths over 4096 rows, every
    window op, sums, means and variances within rtol = atol = 1e-5; the
-   window kernels' launch shapes and ptxas's registers and spills (one
-   more ``nvcc -Xptxas -v`` of ``csrc/swag.cu`` and of
-   ``csrc/pergroup.cu``; a spill in the window, pane-sort or replay
-   kernels fails the script) printed, and swag at
-   (c)'s and swag_panes at (b)'s shape timed with op count alone; the
-   per-group
-   placement scan, with its eviction and retirement counts, on the first
-   2^16 tuples, its plain version being one torch loop step a tuple),
-   timed with CUDA events beside the plain
+   window kernels', the sort's and the flip's launch shapes and ptxas's
+   registers and spills (one more ``nvcc -Xptxas -v`` of ``csrc/swag.cu``,
+   ``csrc/pergroup.cu``, ``csrc/bitonic.cu`` and ``csrc/twostack.cu``; a
+   spill in the window, pane-sort, replay, sort or flip kernels fails the
+   script) printed, swag at (c)'s and swag_panes at (b)'s shape timed
+   with op count alone, and the sort and the flip also timed 20 calls back
+   to back; the per-group placement scan, with its eviction and retirement
+   counts, on the first 2^16 tuples, its plain version being one torch
+   loop step a tuple), timed with CUDA events beside the plain
    version, a library call where one computes the same function, and the
    least time the card could take (H100 SXM data sheet: 3.35 TB/s, 67
    TFLOP/s float32 outside the tensor cores);
@@ -167,6 +167,23 @@ def timed(torch, fn, reps: int = 1, warmup: bool = True):
     """(result, median ms of ``reps`` calls after a warm-up call)."""
     out, times = timed_all(torch, fn, reps, warmup)
     return out, times[len(times) // 2]
+
+
+def back_to_back_ms(torch, fn, reps: int = 20) -> float:
+    """ms a call of ``reps`` calls in a row between one pair of CUDA events
+    (after a warm-up call): each call's host work overlaps the device work
+    of the calls before it, so a kernel that outlasts its wrapper's host
+    work shows its device time."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def plain_once(torch, fn):
@@ -580,6 +597,8 @@ def slice5_kernels(torch, sk, data, dev) -> list:
     kb, vb = t2._region(ks, hi, b_hi - hi, wcap)
     out, ms = timed(torch, lambda: sk.twostack_flip(kf, vf, kb, vb,
                                                     TWOSTACK), 5)
+    b2b_ms = back_to_back_ms(torch, lambda: sk.twostack_flip(
+        kf, vf, kb, vb, TWOSTACK))
     want, plain_ms = timed(torch, lambda: sk.twostack_flip_plain(
         kf, vf, kb, vb, TWOSTACK))
     err = max_abs_err(torch, [x for pair in out.values() for x in pair],
@@ -613,7 +632,8 @@ def slice5_kernels(torch, sk, data, dev) -> list:
     lanes = ne * wcap
     b, by = bound_ms(lanes * 10 + lanes * 8 * len(TWOSTACK),
                      lanes * 2.0 * len(TWOSTACK))
-    rows.append({"name": "twostack_flip", "ms": ms, "plain_ms": plain_ms,
+    rows.append({"name": "twostack_flip", "ms": ms,
+                 "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
                  "library_ms": lib_ms,
                  "library": "every op: torch.cumsum (sum, count), "
                             "torch.cummin, torch.cummax over the masked, "
@@ -645,6 +665,7 @@ def slice5_kernels(torch, sk, data, dev) -> list:
         r * t, dtype=np.float32)).to(dev).reshape(r, t)
     ops3 = (sg[:r * t].reshape(r, t), skk[:r * t].reshape(r, t), pay)
     out, ms = timed(torch, lambda: bk.bitonic_sort(ops3, 2), 5)
+    b2b_ms = back_to_back_ms(torch, lambda: bk.bitonic_sort(ops3, 2))
     want, plain_ms = timed(torch, lambda: bk.bitonic_plain(ops3, 2))
     err = max_abs_err(torch, out, want)
 
@@ -660,7 +681,8 @@ def slice5_kernels(torch, sk, data, dev) -> list:
         raise AssertionError("library sort disagrees with bitonic_sort")
     del out, want, lib
     b, by = bound_ms(r * t * 12 * 2, network_exchanges(r, t) * 4)
-    rows.append({"name": "bitonic_sort", "ms": ms, "plain_ms": plain_ms,
+    rows.append({"name": "bitonic_sort", "ms": ms,
+                 "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
                  "library_ms": lib_ms,
                  "library": "two stable torch.sort passes + gathers of the "
                             "three operands",
@@ -692,25 +714,34 @@ def slice5_kernels(torch, sk, data, dev) -> list:
 
 
 #: the kernels whose ptxas report is printed, by source: mangled name
-#: pattern -> (kernel, names of the template arguments)
+#: pattern -> (kernel, names of the template arguments); "keys" is the key
+#: type (i or f), "float_keys" the sort's mask of float32 keys (-1: read
+#: at run time)
 PTXAS_KERNELS = {
     "swag.cu": [
         (r"swag_rows_kernelI([if])Li(\d+)ELi(\d+)E", "swag_rows_kernel",
-         ("lanes", "max_threads")),
+         ("keys", "lanes", "max_threads")),
         (r"sort_rows_kernelI([if])Li(\d+)ELi(\d+)E", "sort_rows_kernel",
-         ("lanes", "max_threads"))],
+         ("keys", "lanes", "max_threads"))],
     "pergroup.cu": [
         (r"pergroup_replay_kernelI([if])Lb([01])E",
-         "pergroup_replay_kernel", ("ring",))],
+         "pergroup_replay_kernel", ("keys", "ring"))],
+    "bitonic.cu": [
+        (r"bitonic_rows_kernelILi(\d)ELi(n?\d)E", "bitonic_rows_kernel",
+         ("num_keys", "float_keys"))],
+    "twostack.cu": [
+        (r"twostack_flip_kernelI([if])Li(\d+)E", "twostack_flip_kernel",
+         ("keys", "lanes"))],
 }
 
 
 def kernel_ptxas(build) -> list:
     """ptxas's report (``-Xptxas -v``) of every instantiation of the window
-    kernel, the pane sort and the replay kernel, from one more ``nvcc`` of
-    ``csrc/swag.cu`` and of ``csrc/pergroup.cu`` (both at once): kernel,
-    key type, template arguments, registers a thread, spill bytes (stores +
-    loads), stack frame (local arrays) and static shared memory."""
+    kernel, the pane sort, the replay kernel, the standalone sort and the
+    two-stack flip, from one more ``nvcc`` of each of their sources (all
+    at once): kernel, template arguments, registers a thread, spill bytes
+    (stores + loads), stack frame (local arrays) and static shared
+    memory."""
     with tempfile.TemporaryDirectory() as tmp:
         procs = {src: subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
@@ -730,9 +761,10 @@ def kernel_ptxas(build) -> list:
                 for pat, kernel, args in pats:
                     m = re.search(pat, line)
                     if m:
-                        cur = {"kernel": kernel,
-                               "keys": "int32" if m[1] == "i" else "float32",
-                               **{a: int(v) for a, v in zip(args, m.groups()[1:])}}
+                        cur = {"kernel": kernel, **{
+                            a: ({"i": "int32", "f": "float32"}[v]
+                                if a == "keys" else int(v.replace("n", "-")))
+                            for a, v in zip(args, m.groups())}}
                         rows.append(cur)
             elif cur is not None and "spill stores" in line:
                 fr, st, ld = re.search(
@@ -745,10 +777,11 @@ def kernel_ptxas(build) -> list:
                                                  line)[1])
                 sm = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem"] = int(sm[1]) if sm else 0
+    shown = ("keys", "num_keys", "float_keys", "lanes", "max_threads",
+             "ring")
     for r in rows:
-        args = ", ".join(f"{k} {r[k]}" for k in ("lanes", "max_threads",
-                                                 "ring") if k in r)
-        print(f"ptxas {r['kernel']}<{r['keys']}, {args}>: "
+        args = ", ".join(f"{k} {r[k]}" for k in shown if k in r)
+        print(f"ptxas {r['kernel']}<{args}>: "
               f"{r['registers']} registers, {r['spill_bytes']} spill bytes, "
               f"{r['stack_bytes']} bytes stack frame, {r['static_smem']} "
               f"bytes static shared memory", flush=True)
@@ -1110,6 +1143,18 @@ def main() -> int:
                  and r["lanes"] == geo["lanes_per_thread"]
                  and r["max_threads"] >= geo["threads"]),
                 key=lambda r: r["max_threads"])
+        if row["name"] == "bitonic_sort":  # int32 keys, float32 payload
+            row["geometry"] = geo = bk.bitonic_geometry(
+                row["keys"], row["shape"][1], 4)
+            row["ptxas"] = next(
+                r for r in ptxas if r["kernel"] == "bitonic_rows_kernel"
+                and r["num_keys"] == row["keys"] and r["float_keys"] == 0)
+        if row["name"] == "twostack_flip":
+            row["geometry"] = geo = sk.twostack_geometry(row["shape"][1])
+            row["ptxas"] = next(
+                r for r in ptxas if r["kernel"] == "twostack_flip_kernel"
+                and r["keys"] == "int32"
+                and r["lanes"] == geo["lanes_per_thread"])
         if row["name"] in ("swag", "swag_panes"):
             row["geometry"] = geo = sk.swag_geometry(row["shape"][1])
             row["ptxas"] = min(
@@ -1118,6 +1163,10 @@ def main() -> int:
                  and r["lanes"] == geo["lanes_per_thread"]
                  and r["max_threads"] >= geo["threads"]),
                 key=lambda r: r["max_threads"])
+            if row["runs"] in (["c"], ["b", "d"]):  # (c)'s, (b)'s widths
+                row["float32_check"] = float_checks[row["name"]]
+        if "geometry" in row:
+            geo = row["geometry"]
             print(f"{row['name']} {row['shape'][0]} x {row['shape'][1]}: "
                   f"{geo['lanes_per_thread']} lanes a thread, "
                   f"{geo['threads']} threads a block, {geo['smem_bytes']} "
@@ -1125,9 +1174,10 @@ def main() -> int:
                   f"{row['ptxas']['registers']} registers a "
                   f"thread, {row['ms']:.4f} ms"
                   + (f" ({row['one_op_ms']:.4f} ms with op count alone)"
-                     if "one_op_ms" in row else ""), flush=True)
-            if row["runs"] in (["c"], ["b", "d"]):  # (c)'s, (b)'s widths
-                row["float32_check"] = float_checks[row["name"]]
+                     if "one_op_ms" in row else "")
+                  + (f" ({row['ms_back_to_back']:.4f} ms a call back to "
+                     f"back)" if "ms_back_to_back" in row else ""),
+                  flush=True)
 
     for row in kernels:
         if row["max_abs_err"] != 0.0:

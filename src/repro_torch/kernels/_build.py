@@ -58,12 +58,19 @@ _SIGNATURES = {
     "rt_bitonic_sort": [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I,
                         ctypes.POINTER(_P), ctypes.POINTER(_P),
                         ctypes.POINTER(_I), _I, _I, _I, _P],
+    # nk, T, max payload bytes, lanes a thread, threads a block, shared bytes
+    "rt_bitonic_geometry": [_I, _I, _I, ctypes.POINTER(_I),
+                            ctypes.POINTER(_I),
+                            ctypes.POINTER(ctypes.c_longlong)],
     # flags, ins, outs, nleaves, key_type, op, nt, tile, scratch, stream
     "rt_segscan": [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I,
                    _I, _I, _P, _P],
     # kf, vf, kb, vb, key_type, ne, W, codes, outs, nops, stream
     "rt_twostack_flip": [_P, _P, _P, _P, _I, _I, _I, ctypes.POINTER(_I),
                          ctypes.POINTER(_P), _I, _P],
+    # W, lanes a thread, threads a block, dynamic shared memory bytes
+    "rt_twostack_geometry": [_I, ctypes.POINTER(_I), ctypes.POINTER(_I),
+                             ctypes.POINTER(ctypes.c_longlong)],
 }
 
 _lock = threading.Lock()

@@ -4,9 +4,10 @@
 :func:`bitonic_sort` sorts each row of ``[R, T]`` operands (T a power of
 two) by the leading ``num_keys`` operands, lexicographically, and carries
 every other operand along.  On CUDA tensors it launches
-``csrc/bitonic.cu`` (one block a row, the network in shared memory, the
-payloads gathered through the final permutation); on CPU tensors it runs
-the plain version, :func:`bitonic_plain`.
+``csrc/bitonic.cu`` (one block a row; the key words and lane indices in
+registers, strides within a warp by shuffles, shared memory only past a
+warp's span; the payloads gathered through the final permutation); on CPU
+tensors it runs the plain version, :func:`bitonic_plain`.
 """
 from __future__ import annotations
 
@@ -34,6 +35,21 @@ def max_lanes(num_keys: int) -> int:
     while (num_keys + 1) * 4 * t > _SMEM_BYTES:
         t //= 2
     return t
+
+
+def bitonic_geometry(num_keys: int, width: int,
+                     max_payload_bytes: int = 0) -> dict:
+    """The launch shape of :func:`bitonic_sort` for rows of ``width`` lanes
+    by ``num_keys`` keys with payloads of at most ``max_payload_bytes`` an
+    element, as the CUDA library chooses it: lanes a thread, threads a
+    block and dynamic shared memory a block (bytes)."""
+    lanes, threads, smem = ctypes.c_int(), ctypes.c_int(), \
+        ctypes.c_longlong()
+    _build.check(_build.library().rt_bitonic_geometry(
+        num_keys, width, max_payload_bytes, ctypes.byref(lanes),
+        ctypes.byref(threads), ctypes.byref(smem)), "bitonic_geometry")
+    return {"lanes_per_thread": lanes.value, "threads": threads.value,
+            "smem_bytes": smem.value}
 
 
 def bitonic_plain(operands, num_keys: int) -> tuple:

@@ -255,12 +255,25 @@ def swag_panes(panes_g: torch.Tensor, panes_k: torch.Tensor, ops, *,
 
 # ------------------------------------------------- two-stack time windows
 
-#: the widest epoch row the two-stack kernel takes: per op it holds the
-#: front and back regions double-buffered in shared memory, 16 bytes a
-#: lane (csrc/twostack.cu, MAX_WCAP)
+#: the widest epoch row the two-stack kernel takes: its front and back
+#: exchange rows, double-buffered in shared memory, and the row's staged
+#: keys and masks take 26 bytes a lane (csrc/twostack.cu, MAX_WCAP)
 MAX_WCAP = 8192
 #: the ops the two-stack flip scans (single-tensor monoid states)
 TWOSTACK_OPS = ("sum", "count", "min", "max")
+
+
+def twostack_geometry(wcap: int) -> dict:
+    """The launch shape of :func:`twostack_flip` for epoch rows of ``wcap``
+    lanes, as the CUDA library chooses it: lanes a thread, threads a block
+    and dynamic shared memory a block (bytes)."""
+    lanes, threads, smem = ctypes.c_int(), ctypes.c_int(), \
+        ctypes.c_longlong()
+    _build.check(_build.library().rt_twostack_geometry(
+        wcap, ctypes.byref(lanes), ctypes.byref(threads),
+        ctypes.byref(smem)), "twostack_geometry")
+    return {"lanes_per_thread": lanes.value, "threads": threads.value,
+            "smem_bytes": smem.value}
 
 
 def twostack_flip_plain(kf, vf, kb, vb, names):

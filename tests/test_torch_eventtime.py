@@ -116,6 +116,31 @@ def test_flip_scans_match_jax(port, dtype):
                         float_keys=dtype == np.float32)
 
 
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_twostack_flip_arbitrary_masks_match_jax(port, dtype):
+    import jax
+
+    from repro.kernels.swag.kernel import twostack_flip_pallas
+
+    rng = np.random.default_rng(6)
+    ne, wcap = 3, 64
+    if dtype == np.int32:
+        kf, kb = (rng.integers(-2**31, 2**31 - 1, (ne, wcap)).astype(dtype)
+                  for _ in range(2))
+    else:
+        kf, kb = ((rng.normal(size=(ne, wcap)) * 100).astype(dtype)
+                  for _ in range(2))
+    # live lanes anywhere in the row, not a prefix as _region makes them
+    vf, vb = (rng.random((ne, wcap)) < 0.5 for _ in range(2))
+    want = jax.jit(lambda *a: twostack_flip_pallas(
+        *a, TWOSTACK_OPS, interpret=True))(kf, vf, kb, vb)
+    got = port.flip_scans(kf, vf, kb, vb, TWOSTACK_OPS)
+    for name in TWOSTACK_OPS:
+        for side in (0, 1):
+            assert_same(want[name][side], got[name][side], name=name,
+                        float_keys=dtype == np.float32)
+
+
 #: (ops, group_by, key dtype, window): the two-stack (int32 and float32
 #: keys, a sampling slide), and grouped replay with median and dc
 QUERY_CASES = [

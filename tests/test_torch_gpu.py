@@ -560,6 +560,45 @@ def test_twostack_flip_kernel_vs_plain(cuda, dtype, ne, wcap):
     assert got["count"][0].dtype == torch.int32
 
 
+def _bits(x):
+    """A tensor's bit patterns: float32 viewed as int32, so NaNs and the
+    sign of a zero compare too."""
+    import torch
+
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("ne,wcap", [(3, 1), (5, 32), (4, 1024), (3, 8192)])
+def test_twostack_flip_arbitrary_masks_vs_plain(cuda, ne, wcap):
+    import torch
+
+    from repro_torch.kernels.swag import kernel as sk
+
+    rng = np.random.default_rng(wcap)
+
+    def keys():
+        # magnitudes from 1e-3 to 1e6, both signs: a sum's rounding depends
+        # on the order of its additions
+        mag = 10.0 ** rng.uniform(-3, 6, (ne, wcap))
+        return (rng.choice([-1.0, 1.0], (ne, wcap)) * mag).astype(np.float32)
+
+    # live lanes anywhere in the row, not a prefix as _region makes them
+    kf, kb = (torch.from_numpy(keys()).to(cuda) for _ in range(2))
+    vf, vb = (torch.from_numpy(rng.random((ne, wcap)) < 0.5).to(cuda)
+              for _ in range(2))
+    vf[0] = False  # an empty front row
+    vb[-1] = True  # a full back row
+    got = sk.twostack_flip(kf, vf, kb, vb, TWOSTACK_OPS)
+    want = sk.twostack_flip_plain(kf, vf, kb, vb, TWOSTACK_OPS)
+    torch.cuda.synchronize()
+    for name in TWOSTACK_OPS:
+        for side, what in enumerate(("front", "back")):
+            a, b = got[name][side], want[name][side]
+            assert a.dtype == b.dtype, (name, what)
+            assert torch.equal(_bits(a).cpu(), _bits(b).cpu()), \
+                f"{name} {what}"
+
+
 def test_twostack_flip_rejects_rows_past_shared_memory(cuda):
     import torch
 
@@ -695,6 +734,37 @@ def test_bitonic_kernel_limits(cuda):
     with pytest.raises(ValueError, match="at most 8192 lanes"):
         y = torch.zeros((1, bk.MAX_ROW), dtype=torch.int32, device=cuda)
         bk.bitonic_sort((y, y, y), 3)
+
+
+@pytest.mark.parametrize("key_types,t", [
+    (("f", "f", "i", "f"), 64), (("f", "f", "i", "f"), 1024),
+    (("f", "f", "i", "f"), 8192), (("f", "f"), 16384)])
+def test_bitonic_kernel_nan_and_zero_ties_vs_plain(cuda, key_types, t):
+    import torch
+
+    from repro_torch.kernels.bitonic import kernel as bk
+
+    rng = np.random.default_rng(t + len(key_types))
+    rows = 3
+    # float keys from a few values, NaN among them: ties everywhere, -0.0
+    # beside 0.0 (equal, never swapped), NaN in every float key position
+    # (neither less nor equal: it ends the compare)
+    vals = np.array([-1.0, -0.0, 0.0, 0.5, np.nan], np.float32)
+    keys = [vals[rng.integers(0, 5, (rows, t))] if kt == "f"
+            else rng.integers(0, 3, (rows, t)).astype(np.int32)
+            for kt in key_types]
+    keys[0][0, :] = np.where(rng.random(t) < 0.5, -0.0, 0.0)  # zeros only
+    keys[1][1, ::3] = np.nan
+    pays = [np.tile(np.arange(t, dtype=np.int32), (rows, 1)),
+            rng.normal(size=(rows, t)).astype(np.float32),
+            rng.integers(-100, 100, (rows, t)).astype(np.int8)]
+    ops = [torch.from_numpy(x).to(cuda) for x in keys + pays]
+    got = bk.bitonic_sort(ops, len(key_types))
+    want = bk.bitonic_plain(ops, len(key_types))
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert a.dtype == b.dtype, f"operand {i}"
+        assert torch.equal(_bits(a).cpu(), _bits(b).cpu()), f"operand {i}"
 
 
 @pytest.mark.parametrize("full_width", [True, False])

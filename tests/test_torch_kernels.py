@@ -56,6 +56,34 @@ def test_bitonic_one_row_float_keys_match_jax(port):
         assert a.dtype == np.asarray(b).dtype
 
 
+def test_bitonic_nan_and_zero_ties_match_jax(port):
+    import jax.numpy as jnp
+
+    from repro.kernels.bitonic.ops import bitonic_sort_tpu
+
+    rng = np.random.default_rng(3)
+    # two float keys from a few values: ties everywhere, -0.0 beside 0.0
+    # (equal, so never swapped) and NaN in either key position (neither
+    # less nor equal, so it ends the compare); the lane index shows where
+    # the network moved each lane
+    vals = np.array([-1.0, -0.0, 0.0, 0.5, np.nan], np.float32)
+    k1 = vals[rng.integers(0, 5, (2, 128))]
+    k2 = vals[rng.integers(0, 5, (2, 128))]
+    k1[0, :4], k2[0, :4] = np.nan, 0.0   # NaN first key, tied second
+    k2[1, :4], k1[1, :4] = np.nan, -0.0  # NaN second key behind a tie
+    idx = np.tile(np.arange(128, dtype=np.int32), (2, 1))
+    ops = (k1, k2, idx)
+    want = bitonic_sort_tpu(tuple(jnp.asarray(o) for o in ops), num_keys=2,
+                            interpret=True)
+    got = port.bitonic_sort_cuda(ops, 2)
+    for i, (a, b) in enumerate(zip(got, want)):
+        b = np.asarray(b)
+        assert a.dtype == b.dtype
+        # bit patterns: NaN positions and the sign of each zero included
+        np.testing.assert_array_equal(a.view(np.int32), b.view(np.int32),
+                                      err_msg=f"op {i}")
+
+
 @pytest.mark.parametrize("full_width", [True, False])
 def test_sort_pairs_match_jax(port, full_width):
     import jax.numpy as jnp
