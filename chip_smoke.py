@@ -12,7 +12,8 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    after; each run must launch the kernel it is meant to use:
      (a) grouped aggregation, ``cuda``: 2^24 (group, key) tuples, 4096
          uniform groups, sorted by (group, key), the paper's dc operator
-         set (min, max, sum, count, distinct count);
+         set (min, max, sum, count, distinct count), in exactly one
+         groupagg launch for all five ops;
      (b) count-window SWAG, ``cuda-panes``: a fresh unsorted 2^24-tuple
          stream over 64 groups, Window(ws=4096, wa=1024), ops (a) + median;
      (c) the same stream on ``cuda``, Window(ws=1024, wa=256);
@@ -65,11 +66,13 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    window op, sums, means and variances within rtol = atol = 1e-5; the
    window kernels', the sort's and the flip's launch shapes and ptxas's
    registers and spills (one more ``nvcc -Xptxas -v`` of ``csrc/swag.cu``,
-   ``csrc/pergroup.cu``, ``csrc/bitonic.cu`` and ``csrc/twostack.cu``; a
-   spill in the window, pane-sort, replay, sort or flip kernels fails the
+   ``csrc/pergroup.cu``, ``csrc/bitonic.cu``, ``csrc/twostack.cu``,
+   ``csrc/groupagg.cu`` and ``csrc/segscan.cu``; a spill in the window,
+   pane-sort, replay, sort, flip, group-by or scan kernels fails the
    script) printed, swag at (c)'s and swag_panes at (b)'s shape timed
-   with op count alone, and the sort and the flip also timed 20 calls back
-   to back; the per-group placement scan, with its eviction and retirement
+   with op count alone, and the sort, the flip, both groupagg layouts
+   (the flat launch of all (a)'s ops and the per-tile op sum) and the scan
+   also timed 20 calls back to back; the per-group placement scan, with its eviction and retirement
    counts, on the first 2^16 tuples, its plain version being one torch
    loop step a tuple), timed with CUDA events beside the plain
    version, a library call where one computes the same function, and the
@@ -700,6 +703,8 @@ def slice5_kernels(torch, sk, data, dev) -> list:
         leaves = leaves if isinstance(leaves, tuple) else (leaves,)
         out, ms = timed(torch, lambda: ssk.segscan(flags, leaves, comb,
                                                    tile=1024), 5)
+        b2b_ms = back_to_back_ms(torch, lambda: ssk.segscan(
+            flags, leaves, comb, tile=1024))
         want, plain_ms = timed(torch, lambda: ssk.segscan_plain(
             flags, leaves, comb))
         err = max_abs_err(torch, out, want)
@@ -707,6 +712,7 @@ def slice5_kernels(torch, sk, data, dev) -> list:
         leaf_bytes = sum(x.element_size() for x in leaves)
         b, by = bound_ms(n * (1 + 2 * leaf_bytes), n * 2.0 * len(leaves))
         rows.append({"name": "segmented_scan", "op": op, "ms": ms,
+                     "ms_back_to_back": b2b_ms,
                      "plain_ms": plain_ms, "library_ms": None,
                      "max_abs_err": err, "bound_ms": b, "bound_by": by,
                      "shape": [n // 1024, 1024], "runs": ["k"]})
@@ -732,16 +738,22 @@ PTXAS_KERNELS = {
     "twostack.cu": [
         (r"twostack_flip_kernelI([if])Li(\d+)E", "twostack_flip_kernel",
          ("keys", "lanes"))],
+    "groupagg.cu": [
+        (r"groupagg_kernelI([if])Li(\d+)ELb([01])E", "groupagg_kernel",
+         ("keys", "lanes", "flat"))],
+    "segscan.cu": [
+        (r"segscan_kernelILi(\d+)E([if])Li(\d+)E", "segscan_kernel",
+         ("op", "keys", "lanes"))],
 }
 
 
 def kernel_ptxas(build) -> list:
     """ptxas's report (``-Xptxas -v``) of every instantiation of the window
-    kernel, the pane sort, the replay kernel, the standalone sort and the
-    two-stack flip, from one more ``nvcc`` of each of their sources (all
-    at once): kernel, template arguments, registers a thread, spill bytes
-    (stores + loads), stack frame (local arrays) and static shared
-    memory."""
+    kernel, the pane sort, the replay kernel, the standalone sort, the
+    two-stack flip, the group-by kernel and the scan, from one more
+    ``nvcc`` of each of their sources (all at once): kernel, template
+    arguments, registers a thread, spill bytes (stores + loads), stack
+    frame (local arrays) and static shared memory."""
     with tempfile.TemporaryDirectory() as tmp:
         procs = {src: subprocess.Popen(
             [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-c",
@@ -777,8 +789,8 @@ def kernel_ptxas(build) -> list:
                                                  line)[1])
                 sm = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem"] = int(sm[1]) if sm else 0
-    shown = ("keys", "num_keys", "float_keys", "lanes", "max_threads",
-             "ring")
+    shown = ("op", "keys", "num_keys", "float_keys", "lanes", "max_threads",
+             "ring", "flat")
     for r in rows:
         args = ", ".join(f"{k} {r[k]}" for k in shown if k in r)
         print(f"ptxas {r['kernel']}<{args}>: "
@@ -867,7 +879,7 @@ def main() -> int:
 
     from repro_torch.core import panestore as ps
     from repro_torch.interop import from_numpy, make_stream, make_time_stream
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, common
     from repro_torch.kernels.bitonic import kernel as bk
     from repro_torch.kernels.groupagg import kernel as gk
     from repro_torch.kernels.segscan import kernel as ssk
@@ -957,6 +969,10 @@ def main() -> int:
         for name in expect:
             if counts[name] == 0:
                 raise AssertionError(f"run ({tag}) did not launch {name}")
+        if tag == "a" and counts["groupagg"] != 1:
+            raise AssertionError(f"run (a) launched groupagg "
+                                 f"{counts['groupagg']} times, not once for "
+                                 f"all its ops")
         run_launches[tag] = counts
         t1 = time.perf_counter()
         events = None
@@ -1022,16 +1038,39 @@ def main() -> int:
 
     kernels = []
 
-    # groupagg at run (a)'s shape: the padded stream, every op of (a)
+    # groupagg as run (a) launches it: the flat layout, every op of (a) in
+    # one launch over the unpadded stream
     g, k = data["sorted"]
+    names = ("min", "max", "sum", "count", "distinct_count")
+    out, ms = timed(torch, lambda: gk.groupagg_flat(g, k, names, tile=1024),
+                    5)
+    b2b_ms = back_to_back_ms(torch, lambda: gk.groupagg_flat(
+        g, k, names, tile=1024))
+    want, plain_ms = timed(torch, lambda: gk.groupagg_flat_plain(
+        g, k, names, tile=1024))
+    err = max_abs_err(torch, flat(out[:3]) + [out[3]],
+                      flat(want[:3]) + [want[3]])
+    del out, want
+    n = g.numel()
+    # read: group and key; written: group, valid and each op's value
+    b, by = bound_ms(n * 8 + n * (4 + 1 + 4 * len(names)), n * 4.0 * len(names))
+    kernels.append({"name": "groupagg", "layout": "flat", "ops": list(names),
+                    "ms": ms, "ms_back_to_back": b2b_ms,
+                    "plain_ms": plain_ms, "library_ms": None,
+                    "max_abs_err": err, "bound_ms": b, "bound_by": by,
+                    "shape": [n // 1024 + 1, 1024], "runs": ["a"]})
+
+    # the per-tile layout (the TPU kernel's) over the padded stream, op sum
     pad = torch.full((1024,), 2**31 - 1, dtype=torch.int32, device=dev)
     gp = torch.cat([g, pad])
     kp = torch.cat([k, torch.zeros_like(pad)])
     err = 0.0
-    for op in ("min", "max", "sum", "count", "distinct_count"):
+    for op in names:
         err = max(err, max_abs_err(torch, gk.groupagg(gp, kp, op, tile=1024),
                                    gk.groupagg_plain(gp, kp, op, tile=1024)))
     _, ms = timed(torch, lambda: gk.groupagg(gp, kp, "sum", tile=1024), 5)
+    b2b_ms = back_to_back_ms(torch, lambda: gk.groupagg(gp, kp, "sum",
+                                                        tile=1024))
     _, plain_ms = timed(torch, lambda: gk.groupagg_plain(gp, kp, "sum",
                                                          tile=1024))
     g64 = g.long()
@@ -1040,7 +1079,8 @@ def main() -> int:
         0, g64, k, "sum"), 5)
     npad = gp.numel()
     b, by = bound_ms(npad * 8 + npad * 8 + (npad // 1024) * 4, npad * 4)
-    kernels.append({"name": "groupagg", "op": "sum", "ms": ms,
+    kernels.append({"name": "groupagg", "layout": "per tile", "op": "sum",
+                    "ms": ms, "ms_back_to_back": b2b_ms,
                     "plain_ms": plain_ms, "library_ms": lib_ms,
                     "library": "scatter_reduce_(sum) into 4096 groups",
                     "max_abs_err": err, "bound_ms": b, "bound_by": by,
@@ -1149,6 +1189,17 @@ def main() -> int:
             row["ptxas"] = next(
                 r for r in ptxas if r["kernel"] == "bitonic_rows_kernel"
                 and r["num_keys"] == row["keys"] and r["float_keys"] == 0)
+        # int32 keys, tile 1024: the instantiation of several lanes a thread
+        if row["name"] == "groupagg":
+            row["ptxas"] = next(
+                r for r in ptxas if r["kernel"] == "groupagg_kernel"
+                and r["keys"] == "int32" and r["lanes"] > 1
+                and r["flat"] == (row["layout"] == "flat"))
+        if row["name"] == "segmented_scan":
+            row["ptxas"] = next(
+                r for r in ptxas if r["kernel"] == "segscan_kernel"
+                and r["op"] == common.OP_CODES[row["op"]]
+                and r["keys"] == "int32" and r["lanes"] > 1)
         if row["name"] == "twostack_flip":
             row["geometry"] = geo = sk.twostack_geometry(row["shape"][1])
             row["ptxas"] = next(
@@ -1165,6 +1216,13 @@ def main() -> int:
                 key=lambda r: r["max_threads"])
             if row["runs"] in (["c"], ["b", "d"]):  # (c)'s, (b)'s widths
                 row["float32_check"] = float_checks[row["name"]]
+        if row["name"] in ("groupagg", "segmented_scan"):
+            print(f"{row['name']} ({row.get('layout') or row['op']}) "
+                  f"{row['shape'][0]} x {row['shape'][1]}: "
+                  f"{row['ptxas']['registers']} registers a thread, "
+                  f"{row['ms']:.4f} ms ({row['ms_back_to_back']:.4f} ms a "
+                  f"call back to back; bound {row['bound_ms']:.4f}, plain "
+                  f"{row['plain_ms']:.3f})", flush=True)
         if "geometry" in row:
             geo = row["geometry"]
             print(f"{row['name']} {row['shape'][0]} x {row['shape'][1]}: "

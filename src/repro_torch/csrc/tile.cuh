@@ -11,7 +11,10 @@
 //     kernels route lanes through a reverse butterfly because Mosaic has no
 //     scatter, a Hopper block scatters each lane to its rank);
 //   * the padded shared-memory layouts of the rows that swag.cu and
-//     pergroup.cu sort and merge.
+//     pergroup.cu sort and merge;
+//   * a chained tile prefix (decoupled look-back): the carry of groupagg.cu
+//     and segscan.cu from each tile to the next, in the same pass as the
+//     tiles' own work.
 //
 // Group ids lie strictly between INT32_MIN (the shift fill) and INT32_MAX
 // (PAD_GROUP, the padding sentinel).  Integer sums add as uint32 and
@@ -20,6 +23,7 @@
 #pragma once
 
 #include <cstdint>
+#include <cstring>
 #include <type_traits>
 #include <cuda_runtime.h>
 
@@ -47,6 +51,18 @@ __device__ __forceinline__ float add_wrap(float a, float b) { return a + b; }
 __device__ __forceinline__ double add_wrap(double a, double b) { return a + b; }
 __device__ __forceinline__ int sub_wrap(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
+
+template <typename T>
+__device__ __forceinline__ T shfl_down(T v, int d) {
+  static_assert(sizeof(T) % 4 == 0, "states are whole 32-bit words");
+  union U { T t; int w[sizeof(T) / 4]; };
+  U in, out;
+  in.t = v;
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(T) / 4); ++i)
+    out.w[i] = __shfl_down_sync(FULL_MASK, in.w[i], d);
+  return out.t;
 }
 
 template <typename T>
@@ -283,6 +299,166 @@ __device__ int block_excl_sum(const int (&v)[L], int (&r)[L], ScanSmem& sm) {
   return total;
 }
 
+// ------------------------------------------------------ chained tile prefix
+//
+// A single-pass prefix over the tiles of one launch, by decoupled look-back
+// (Merrill and Garland, "Single-pass Parallel Prefix Scan with Decoupled
+// Look-back", 2016).  It carries a value from every tile to all later ones
+// while the tiles' own work runs, where a reduce-then-scan needs a pass of
+// tile summaries, a one-block scan of them and a second pass.
+//
+//   * A block takes its tile from an atomic ticket (chain_ticket), not from
+//     blockIdx: every tile it then waits on belongs to a block that has
+//     already started, and a block publishes its aggregate before it waits
+//     on anything, so no block order or oversubscription can deadlock.
+//   * A tile's descriptor has two payload slots, each written once: its
+//     aggregate (its own range; status CH_AGG) and its inclusive prefix
+//     (tiles 0..t; CH_PREFIX).  A tile whose aggregate already is its
+//     inclusive prefix (tile 0; where nothing but a segmented state is
+//     carried, a tile that restarts the segment) writes the inclusive slot
+//     and publishes CH_PREFIX at once.  A segmented state in an aggregate
+//     carries a restart flag: the fold takes nothing from before it.
+//   * Payload first, then the status: the writer stores the payload,
+//     __threadfence(), then the status with a release store; a reader loads
+//     the status with an acquire load and only then the slot it names, past
+//     L1 (__ldcg).
+//   * One warp looks back 32 tiles a step (lane l: tile hi - l), until the
+//     nearest CH_PREFIX, and folds each window's payloads in tile order: a
+//     higher lane is an earlier tile and goes on the left (distinct count
+//     is not commutative; int32 sums wrap through add_wrap in every combine
+//     of Comb::op).
+//   * The caller zeroes the ticket and the status words on every launch, so
+//     no status of an earlier launch is ever read.
+
+enum ChainStatus : unsigned { CH_NONE = 0, CH_AGG = 1, CH_PREFIX = 2 };
+
+__device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.u32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+__device__ __forceinline__ void st_release(unsigned* p, unsigned v) {
+  asm volatile("st.release.gpu.u32 [%0], %1;"
+               : : "l"(p), "r"(v) : "memory");
+}
+
+// The block's tile: the launch's next ticket (counter zeroed by the caller).
+__device__ __forceinline__ int chain_ticket(unsigned* counter) {
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = static_cast<int>(atomicAdd(counter, 1u));
+  __syncthreads();
+  return ticket;
+}
+
+// Publishes `tile`'s status once the payload this thread stored is out.
+__device__ __forceinline__ void chain_publish(unsigned* status, int tile,
+                                              unsigned st) {
+  __threadfence();
+  st_release(status + tile, st);
+}
+
+// A state in a 16-byte payload slot or shared-memory word.
+template <typename S>
+__device__ __forceinline__ uint4 pack_state(S s) {
+  static_assert(sizeof(S) <= 16, "state too wide for a slot");
+  uint4 u = make_uint4(0u, 0u, 0u, 0u);
+  memcpy(&u, &s, sizeof(S));
+  return u;
+}
+template <typename S>
+__device__ __forceinline__ S unpack_state(uint4 u) {
+  S s;
+  memcpy(&s, &u, sizeof(S));
+  return s;
+}
+
+// The look-back of tile `tile` > 0, run by one whole warp.  For each window
+// of predecessors (lane l: tile j = hi - l), once every tile up to the
+// window's nearest CH_PREFIX (or all 32) has published, every lane calls
+// fold(j, in, inc): `in` whether tile j lies in the fold (lanes 0..last),
+// `inc` whether it is read from its inclusive slot (the last lane, when its
+// tile had published CH_PREFIX).  Windows come latest first; the fold puts
+// each to the left of what it holds.  Each lane's payload read follows its
+// own acquire load.
+template <class Fold>
+__device__ __forceinline__ void chain_lookback(const unsigned* status,
+                                               int tile, Fold& fold) {
+  const int lane = threadIdx.x & 31;
+  for (int hi = tile - 1;; hi -= 32) {
+    const int j = hi - lane;
+    unsigned pref;
+    for (;;) {
+      // tile 0 always publishes CH_PREFIX, so no lane past it is folded
+      const unsigned st = j >= 0 ? ld_acquire(status + j) : CH_AGG;
+      pref = __ballot_sync(FULL_MASK, st == CH_PREFIX);
+      const unsigned none = __ballot_sync(FULL_MASK, st == CH_NONE);
+      // lanes 0..nearest prefix (all 32 without one) must have published
+      const unsigned need =
+          pref ? (((pref & (0u - pref)) << 1) - 1u) : FULL_MASK;
+      if (!(none & need)) break;
+      __nanosleep(32);
+    }
+    const int last = pref ? __ffs(pref) - 1 : 31;
+    fold(j, lane <= last, pref != 0u && lane == last);
+    if (pref) return;
+  }
+}
+
+// The ordered fold of a warp's states: lane l holds tile hi - l (`in` a
+// prefix of the lanes), so the partner d lanes up is earlier and goes on the
+// left; r: the lane's range restarts the run (nothing earlier reaches it).
+// Lane 0 returns the fold of every `in` lane.
+template <class C>
+__device__ __forceinline__ typename C::S warp_fold_left(typename C::S v,
+                                                        bool r, bool in) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const typename C::S o = shfl_down(v, d);
+    const bool orr = __shfl_down_sync(FULL_MASK, r ? 1 : 0, d) != 0;
+    const bool oin = __shfl_down_sync(FULL_MASK, in ? 1 : 0, d) != 0;
+    if (lane + d < 32 && oin) {  // oin implies in: the in lanes are a prefix
+      if (!r) v = C::op(o, v);
+      r = r || orr;
+    }
+  }
+  return v;
+}
+
+// One look-back window of an op's states, folded to the left of acc (the
+// fold of the later windows, `has`: whether there is one; the caller stops
+// folding states once a window held a restart).  r: the lane's tile
+// restarts the run (an inclusive prefix always does).  Lane 0 writes acc.
+template <class C>
+__device__ __forceinline__ void chain_fold_state(const uint4* agg,
+                                                 const uint4* incl, int j,
+                                                 bool in, bool inc, bool r,
+                                                 uint4& acc, bool has) {
+  using S = typename C::S;
+  S v{};
+  if (in) v = unpack_state<S>(__ldcg((inc ? incl : agg) + j));
+  v = warp_fold_left<C>(v, r, in);
+  if ((threadIdx.x & 31) == 0)
+    acc = pack_state(has ? C::op(v, unpack_state<S>(acc)) : v);
+}
+
+// The fold of a chain of one op's states whose aggregates never restart
+// (a restarting tile publishes its inclusive prefix at once): the state
+// pending before the tile, in *acc.
+template <class C>
+struct StateFold {
+  const uint4* agg;
+  const uint4* incl;
+  uint4* acc;
+  bool has;
+  __device__ __forceinline__ void operator()(int j, bool in, bool inc) {
+    chain_fold_state<C>(agg, incl, j, in, inc, inc, *acc, has);
+    has = true;
+  }
+};
+
 // --------------------------------------------------- shared-memory layouts
 
 // Shared-memory index with one pad word per 16 (8-byte) or 32 (4-byte)
@@ -295,20 +471,12 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-// ------------------------------------------------- op lists, launch shape
+// ------------------------------------------------------------- op lists
 
 struct OpList {
   int n;
   int code[MAX_OPS];
   void* out[MAX_OPS];
 };
-
-// Lanes per thread for a row of T lanes: threads = max(32, T / L) <= 1024.
-__host__ __device__ constexpr int lanes_per_thread(int T) {
-  return T <= 128 ? 1 : (T <= 4096 ? 4 : 16);
-}
-__host__ __device__ constexpr int threads_for(int T) {
-  return T / lanes_per_thread(T) < 32 ? 32 : T / lanes_per_thread(T);
-}
 
 }  // namespace rt

@@ -30,8 +30,11 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # g, k, key_type, op, nt, tile, scratch, og, ov, oc, stream
-    "rt_groupagg": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P],
+    # g, k, key_type, n, lim, nvalid, tile, flat, codes, outs, nops, status,
+    # payload, og, valid, oc, num, stream
+    "rt_groupagg": [_P, _P, _I, ctypes.c_longlong, ctypes.c_longlong, _P, _I,
+                    _I, ctypes.POINTER(_I), ctypes.POINTER(_P), _I, _P, _P,
+                    _P, _P, _P, _P, _P],
     # g, k, key_type, stride, nrows, T, run, codes, outs, nops, og, oc, stream
     "rt_swag_rows": [_P, _P, _I, ctypes.c_longlong, _I, _I, _I,
                      ctypes.POINTER(_I), ctypes.POINTER(_P), _I, _P, _P, _P],
@@ -62,9 +65,10 @@ _SIGNATURES = {
     "rt_bitonic_geometry": [_I, _I, _I, ctypes.POINTER(_I),
                             ctypes.POINTER(_I),
                             ctypes.POINTER(ctypes.c_longlong)],
-    # flags, ins, outs, nleaves, key_type, op, nt, tile, scratch, stream
+    # flags, ins, outs, nleaves, key_type, op, n, tile, status, payload,
+    # stream
     "rt_segscan": [_P, ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I, _I,
-                   _I, _I, _P, _P],
+                   ctypes.c_longlong, _I, _P, _P, _P],
     # kf, vf, kb, vb, key_type, ne, W, codes, outs, nops, stream
     "rt_twostack_flip": [_P, _P, _P, _P, _I, _I, _I, ctypes.POINTER(_I),
                          ctypes.POINTER(_P), _I, _P],

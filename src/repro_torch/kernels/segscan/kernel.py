@@ -3,9 +3,10 @@
 
 :func:`segscan` scans a combiner state, given as its leaves, within the
 segments that ``flags`` starts, over a stream of whole tiles.  On CUDA
-tensors it launches ``csrc/segscan.cu`` (a reduce-then-scan over tiles in
-place of the TPU kernel's ordered-grid carry); on CPU tensors it runs the
-plain version, :func:`segscan_plain`, the port's
+tensors it launches ``csrc/segscan.cu`` (one pass, a chained tile prefix
+in place of the TPU kernel's ordered-grid carry; a ragged last tile is
+masked in the kernel); on CPU tensors it runs the plain version,
+:func:`segscan_plain`, the port's
 :func:`repro_torch.core.segscan.segmented_scan`.
 """
 from __future__ import annotations
@@ -53,8 +54,8 @@ def _key_dtype(name: str, leaves: tuple) -> torch.dtype:
 def segscan(flags: torch.Tensor, leaves, op, *, tile: int) -> tuple:
     """Segmented inclusive scan of the state ``leaves`` ([N] each, the
     combiner's state in its tuple order) over segments starting where the
-    bool ``flags`` [N] are set; ``N`` a multiple of ``tile``.  Returns the
-    scanned leaves."""
+    bool ``flags`` [N] are set, in tiles of ``tile`` lanes (the last one
+    may be ragged).  Returns the scanned leaves."""
     combiner = op if isinstance(op, Combiner) else get_combiner(op)
     leaves = tuple(leaves)
     n = flags.shape[-1]
@@ -62,9 +63,8 @@ def segscan(flags: torch.Tensor, leaves, op, *, tile: int) -> tuple:
         raise ValueError(f"segscan takes [N] flags and leaves, got "
                          f"{tuple(flags.shape)} and "
                          f"{[tuple(t.shape) for t in leaves]}")
-    if tile < 1 or n % tile:
-        raise ValueError(f"segscan: the stream ({n}) must be whole tiles of "
-                         f"{tile}")
+    if tile < 1:
+        raise ValueError(f"segscan: tiles of at least one lane, got {tile}")
     if flags.device.type == "cpu":
         return segscan_plain(flags, leaves, combiner)
     if combiner.name not in SEGSCAN_OPS:
@@ -84,16 +84,20 @@ def segscan(flags: torch.Tensor, leaves, op, *, tile: int) -> tuple:
         raise ValueError("segscan: flags and leaves on different devices")
     ins = [t.contiguous() for t in leaves]
     outs = [torch.empty_like(t) for t in ins]
-    nt = n // tile
-    scratch = torch.empty((36 * nt,), dtype=torch.uint8, device=dev)
+    nt = -(-n // tile)
+    # one buffer zeroed for this launch alone: the chain's payload slots
+    # (16-byte aligned), then the ticket and the status words
+    scratch = torch.zeros((32 * nt + 4 * (4 + nt),), dtype=torch.uint8,
+                          device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rt_segscan(
             flags.contiguous().data_ptr(),
             (ctypes.c_void_p * 3)(*(t.data_ptr() for t in ins)),
             (ctypes.c_void_p * 3)(*(t.data_ptr() for t in outs)), len(ins),
-            common.KEY_TYPES[key_dtype], common.OP_CODES[combiner.name], nt,
-            tile, scratch.data_ptr(), _build.stream_handle(dev))
+            common.KEY_TYPES[key_dtype], common.OP_CODES[combiner.name], n,
+            tile, scratch.data_ptr() + 32 * nt, scratch.data_ptr(),
+            _build.stream_handle(dev))
     _build.check(err, "segscan")
     segscan.launches += 1
     return tuple(outs)

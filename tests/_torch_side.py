@@ -54,6 +54,16 @@ def groupagg_exec(g, k, op, tile, n_valid=None):
                            num_groups=num)
 
 
+def groupagg_exec_multi(g, k, ops, tile, n_valid=None):
+    """One multi-op ``_groupagg_kernel_exec`` call; per op, the layout of a
+    single-op call."""
+    og, ovs, valid, num = _np(_groupagg_kernel_exec(_t(g), _t(k), ops,
+                                                    n_valid=n_valid,
+                                                    tile=tile))
+    return {name: SimpleNamespace(groups=og, values=v, valid=valid,
+                                  num_groups=num) for name, v in ovs.items()}
+
+
 def engine_two_chunks(g, k, ops, split, n_valid):
     """``multi_engine_step`` over ``[:split]`` with an open tail, then over
     the rest with the carries folded in and ``n_valid``; each chunk's

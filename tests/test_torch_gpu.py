@@ -11,7 +11,8 @@ file elsewhere loads nothing of it into a process that holds JAX.  Tolerance: in
 keys and the order-free ops (min, max, count, distinct_count, median,
 first, last, argmin, argmax) must match exactly; float sums, means and
 variances are reduced in another order by the kernels (thread-local runs,
-then warp and block scans), so they get rtol = atol = 1e-5.
+then warp and block scans, then the look-back across tiles), so they get
+rtol = atol = 1e-5.
 """
 from __future__ import annotations
 
@@ -97,6 +98,129 @@ def test_groupagg_int32_sum_wraps(cuda):
     want = gk.groupagg_plain(g, k, "sum", tile=1024)
     assert_same(ov, want[1], what="wrapped int32 sum")
     assert int(want[1][-1, 0]) == 0  # 2^32 wraps to 0
+
+
+GROUPAGG_OPS = ("sum", "min", "max", "count", "mean", "distinct_count",
+                "first", "last", "variance")
+#: the op sets of the flat launch: one op at a time, run (a)'s five, all
+FLAT_OP_SETS = [(op,) for op in GROUPAGG_OPS] + [
+    ("min", "max", "sum", "count", "distinct_count"), GROUPAGG_OPS]
+
+
+def _assert_flat(got, want, what):
+    (og, ov, valid, num), (wg, wv, wvalid, wnum) = got, want
+    assert_same(num, wnum, what=f"{what}: num")
+    assert_same(og, wg, what=f"{what}: groups")
+    assert_same(valid, wvalid, what=f"{what}: valid")
+    assert list(ov) == list(wv), what
+    for name, v in wv.items():
+        assert_same(ov[name], v, inexact=name in INEXACT,
+                    what=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("ops", FLAT_OP_SETS,
+                         ids=lambda ops: "+".join(ops))
+@pytest.mark.parametrize("n,tile,groups,n_valid", [
+    (4096, 1024, 3, None), (2000, 128, 40, 1500), (639, 32, 7, None),
+    (8192, 4096, 1, 8000), (95, 1, 5, 60), (1000, 256, 600, 0),
+    (5000, 2048, 9, "device")])
+def test_groupagg_flat_kernel_vs_plain(cuda, ops, dtype, n, tile, groups,
+                                       n_valid):
+    import torch
+
+    from repro_torch.kernels.groupagg import kernel as gk
+
+    g, k = _stream(n + groups, n, groups, dtype, "group_key", cuda)
+    if n_valid == "device":  # read on the card, past n
+        n_valid = torch.tensor(n + 3, device=cuda)
+    want = gk.groupagg_flat_plain(g, k, ops, tile=tile, n_valid=n_valid)
+    got = gk.groupagg_flat(g, k, ops, tile=tile, n_valid=n_valid)
+    torch.cuda.synchronize()
+    _assert_flat(got, want, f"{ops} n={n} tile={tile} n_valid={n_valid}")
+
+
+@pytest.mark.parametrize("tile", [128, 1024])
+def test_groupagg_one_group_over_many_tiles(cuda, tile):
+    # 2^22 lanes of one group at tile 128 are 32,768 tiles, far more than
+    # are resident at once: the pending state rides the whole chain
+    import torch
+
+    from repro_torch.kernels.groupagg import kernel as gk
+
+    n = 1 << 22
+    g = torch.zeros((n,), dtype=torch.int32, device=cuda)
+    k = torch.randint(0, 10, (n,), dtype=torch.int32, device=cuda)
+    kf = k.float()  # partial sums below 2^24: exact in float32 in any order
+    for keys in (k, kf):
+        want = gk.groupagg_flat_plain(g, keys, GROUPAGG_OPS, tile=tile)
+        got = gk.groupagg_flat(g, keys, GROUPAGG_OPS, tile=tile)
+        torch.cuda.synchronize()
+        assert int(got[3]) == 1
+        _assert_flat(got, want, f"one group, tile {tile}, {keys.dtype}")
+    pg = torch.cat([g, torch.full((tile,), PAD_GROUP, dtype=torch.int32,
+                                  device=cuda)])
+    pk = torch.cat([k, torch.zeros((tile,), dtype=torch.int32, device=cuda)])
+    for op in ("sum", "distinct_count"):
+        got = gk.groupagg(pg, pk, op, tile=tile)
+        want = gk.groupagg_plain(pg, pk, op, tile=tile)
+        for a, b, what in zip(got, want, ("og", "ov", "oc")):
+            assert_same(a, b, what=f"per tile {op} {what}")
+
+
+@pytest.mark.parametrize("tile", [1, 32, 1024, 4096])
+def test_groupagg_every_lane_its_own_group(cuda, tile):
+    import torch
+
+    from repro_torch.kernels.groupagg import kernel as gk
+
+    n = 100_003
+    g = torch.arange(n, dtype=torch.int32, device=cuda)
+    k = torch.randint(-50, 50, (n,), dtype=torch.int32, device=cuda)
+    got = gk.groupagg_flat(g, k, GROUPAGG_OPS, tile=tile)
+    torch.cuda.synchronize()
+    assert int(got[3]) == n
+    _assert_flat(got, gk.groupagg_flat_plain(g, k, GROUPAGG_OPS, tile=tile),
+                 f"every lane its own group, tile {tile}")
+
+
+def test_groupagg_repeated_calls_read_no_stale_status(cuda):
+    # the chain's status words are zeroed per call: twenty calls on one
+    # stream size all give the first call's result
+    import torch
+
+    from repro_torch.core.combiners import get_combiner
+    from repro_torch.kernels.groupagg import kernel as gk
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.kernels.segscan.ops import segmented_scan_cuda
+
+    ops = ("min", "max", "sum", "count", "distinct_count")
+    g, k = _stream(11, 1 << 20, 300, np.int32, "group_key", cuda)
+    want = gk.groupagg_flat_plain(g, k, ops, tile=256)
+    flags = torch.cat([torch.ones(1, dtype=torch.bool, device=cuda),
+                       g[1:] != g[:-1]])
+    swant = ssk.segscan_plain(flags, (k,), get_combiner("sum"))[0]
+    for i in range(20):
+        _assert_flat(gk.groupagg_flat(g, k, ops, tile=256), want, f"call {i}")
+        assert_same(segmented_scan_cuda(flags, k, "sum", tile=256), swant,
+                    what=f"segscan call {i}")
+
+
+def test_groupagg_flat_int32_sum_wraps(cuda):
+    # 2^16 keys of 2^16 in one group: 2^32 wraps to 0 through the look-back
+    import torch
+
+    from repro_torch.kernels.groupagg import kernel as gk
+
+    n = 1 << 16
+    g = torch.zeros((n,), dtype=torch.int32, device=cuda)
+    k = torch.full((n,), 1 << 16, dtype=torch.int32, device=cuda)
+    for tile in (32, 1024):
+        og, ov, valid, num = gk.groupagg_flat(g, k, ("sum", "mean"), tile=tile)
+        assert int(num) == 1 and int(og[0]) == 0
+        assert int(ov["sum"][0]) == 0
+        _assert_flat((og, ov, valid, num), gk.groupagg_flat_plain(
+            g, k, ("sum", "mean"), tile=tile), f"wrap, tile {tile}")
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
@@ -827,6 +951,37 @@ def test_segscan_one_segment_over_many_tiles(cuda):
     got = segmented_scan_cuda(flags, k, "sum", tile=1024)
     want = torch.cumsum(k, 0, dtype=torch.int32)
     assert_same(got, want, what="one segment over 1024 tiles")
+
+
+@pytest.mark.parametrize("op", ["sum", "mean", "distinct_count"])
+def test_segscan_chain_over_many_tiles(cuda, op):
+    # 2^22 lanes at tile 128 (32,768 tiles): one segment over the first
+    # 2^21 lanes, whose int32 sum wraps through the look-back (keys near
+    # 2^12: the sum passes 2^31 after about 2^19 lanes), then segments of
+    # 1000 lanes, then one segment over the ragged tail
+    import torch
+
+    from repro_torch.core.combiners import get_combiner
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.kernels.segscan.ops import segmented_scan_cuda
+
+    n = (1 << 22) - 77
+    k = torch.randint(4000, 4096, (n,), dtype=torch.int32, device=cuda)
+    if op == "distinct_count":
+        k = torch.sort(k[: 1 << 21]).values.repeat(2)[:n]
+    flags = torch.zeros(n, dtype=torch.bool, device=cuda)
+    flags[0] = True
+    flags[1 << 21: 3 << 20: 1000] = True
+    flags[3 << 20] = True
+    comb = get_combiner(op)
+    state = comb.lift(k)
+    leaves = state if isinstance(state, tuple) else (state,)
+    got = segmented_scan_cuda(flags, state, op, tile=128)
+    got = got if isinstance(got, tuple) else (got,)
+    want = ssk.segscan_plain(flags, leaves, comb)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert_same(a, b, what=f"{op} leaf {i}")
 
 
 def test_segscan_kernel_rejects(cuda):

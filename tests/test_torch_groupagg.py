@@ -74,6 +74,21 @@ def test_groupagg_exec_matches_pallas_exec(port, op):
         assert_same(getattr(want, field), getattr(got, field), name=field)
 
 
+def test_groupagg_exec_multi_op_matches_single_op_pallas_exec(port):
+    # one call for three ops over a ragged stream (N = 203, tiles of 32)
+    # masked past n_valid: each op as the JAX exec gives it alone
+    ops = ("sum", "distinct_count", "mean")
+    g, k = make_stream(9, 203, 8, 30, sorted_by="group_key")
+    got = port.groupagg_exec_multi(g, k, ops, 32, n_valid=170)
+    assert list(got) == list(ops)
+    for op in ops:
+        want = jax_groupagg_exec(jnp.array(g), jnp.array(k), op, n_valid=170,
+                                 tile=32, interpret=True)
+        for field in FIELDS:
+            assert_same(getattr(want, field), getattr(got[op], field),
+                        name=f"{op} {field}")
+
+
 def test_groupagg_int32_sum_wraps_like_jax(port):
     g = np.zeros(_LEN, np.int32)
     k = np.full(_LEN, 1 << 24, np.int32)  # 256 * 2^24 = 2^32 wraps to 0
