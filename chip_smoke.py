@@ -45,6 +45,14 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
      (l) the row-form replay, ``pergroup_replay`` (the signature of the
          JAX package's ``pergroup_replay_pallas``), over (g)'s 149,504
          gathered replay rows of 2048 lanes, (g)'s ops;
+     (m) a stream without a window through ``execute(state=)`` on
+         ``cuda``: (a)'s stream in 16 pushes of 2^20 tuples, (a)'s ops,
+         one segmented_scan launch an op a push;
+     (n) a windowed stream through ``StreamingAggregator`` on
+         ``cuda-panestore``: (g)'s window and stream in 8 pushes of 8000
+         tuples and one of 1536 (each leaves a ragged chunk), (g)'s ops,
+         then a flush; one placement scan (the final store only, updated
+         in place) and one ring-form replay a push, one replay the flush;
    each result is checked against the ``reference`` backend on the card
    (groups, valid and counts equal, values equal on the valid lanes, int32
    keys): (a)-(e), (h) and (i) over the full stream, (f) and (g) over their
@@ -52,13 +60,19 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    (the reference places tuples one at a time in plain torch); (h) also
    against the replay strategy on the card; (j) against two stable
    ``torch.sort`` passes (keys) and the plain network (payload), (k)
-   against the plain scan, (l) against (g)'s ring-form replay; the
+   against the plain scan, (l) against (g)'s ring-form replay, (m) push by
+   push against the reference backend's stream on the card and, with the
+   open group of its final carries, against (a)'s one-shot result, (n)
+   push by push (outputs with rr_port, and the store) against the plain
+   placement on a host copy and the plain replay, through the first push
+   that evicts, and its flush against the plain replay; the
    per-group runs print the evictions and retirements of that prefix, and
    (f) fails without a retirement, (g) without an eviction; (h) and (i)
    print the share of their time spent in
    the window layout (its sort and searches, read back to the host) and,
    for (h), the host's walk of the epoch schedule; each run is then timed
-   over 7 calls (median, fastest and slowest);
+   over 7 calls (median, fastest and slowest; (m) and (n) over 7 whole
+   streams);
 4. each kernel against its plain torch version on the same card tensors at
    the shapes the main path gives it (int32 keys: exact, padded tails
    included; the swag kernel at both its row widths, and on float32
@@ -72,9 +86,11 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    script) printed, swag at (c)'s and swag_panes at (b)'s shape timed
    with op count alone, and the sort, the flip, both groupagg layouts
    (the flat launch of all (a)'s ops and the per-tile op sum) and the scan
-   also timed 20 calls back to back; the per-group placement scan, with its eviction and retirement
-   counts, on the first 2^16 tuples, its plain version being one torch
-   loop step a tuple), timed with CUDA events beside the plain
+   also timed 20 calls back to back; the per-group placement scan, with
+   its eviction and retirement counts, on the first 2^16 tuples and at
+   (n)'s push, its plain version being one torch loop step a tuple; the
+   scan at (m)'s push, every op; the ring replay at (n)'s one evaluation),
+   timed with CUDA events beside the plain
    version, a library call where one computes the same function, and the
    least time the card could take (H100 SXM data sheet: 3.35 TB/s, 67
    TFLOP/s float32 outside the tensor cores);
@@ -112,6 +128,11 @@ TIME_STREAM = dict(key_max=1 << 20, density=0.875, jitter=64)
 TWOSTACK = ("sum", "count", "min", "max")
 #: run (j): 16384 rows of 1024 lanes
 SORT_ROWS = (16384, 1024)
+#: run (m): (a)'s stream pushed in 16 batches of 2^20 tuples
+STREAM_BATCHES = 16
+#: run (n): (g)'s stream pushed as 8 x 8000 tuples and 1536, each push
+#: leaving a ragged chunk of WA = 128
+WINDOW_PUSHES = (8000,) * 8 + (1536,)
 REPLACES = {
     "groupagg": "src/repro/kernels/groupagg/kernel.py:109",
     "swag": "src/repro/kernels/swag/kernel.py:453",
@@ -187,6 +208,20 @@ def back_to_back_ms(torch, fn, reps: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def counted_call(torch, fn, wrappers):
+    """(result, launches, peak bytes) of ``fn()`` after a warm-up call,
+    every launch count set to 0 just before it and read just after."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {nm: w.launches for nm, w in wrappers.items()},
+            torch.cuda.max_memory_allocated())
 
 
 def plain_once(torch, fn):
@@ -281,6 +316,37 @@ def ring_replay_err(torch, got, want, c: int) -> float:
         [torch.where(valid, v, 0).to(v.dtype) for v in wv.values()])
 
 
+def ring_replay_bound(torch, spec, dirs, counts, n_ops: int) -> dict:
+    """The least time of a ring-form replay over the stores whose
+    :func:`ring_directory` is ``dirs``, with ``counts`` [NE, C] each live
+    row's live lanes: bytes only, the seq of every filled lane of a slot
+    read, the key of every live lane, each slot read's place in perm and
+    count, each live row's offset, slot count, window and newest base,
+    num, and one 4-byte output a live row and op (the rows past num are
+    not written)."""
+    c = spec.capacity
+    num, offsets = dirs["num"], dirs["offsets"].long()
+    ne = num.shape[0]
+    valid = torch.arange(c, device=num.device)[None, :] < num[:, None]
+    live_rows = int(num.sum())
+    # the slots each live group reads (its first min(nslots, runs) in
+    # perm), and the lanes filled in them
+    j = torch.arange(spec.runs, device=num.device)
+    reads = valid[..., None] & (j < dirs["nslots"][..., None])
+    at = torch.clamp(offsets[..., None] + j, max=c - 1).reshape(ne, -1)
+    slot = torch.gather(dirs["perm"].long(), 1, at)
+    filled = torch.gather(dirs["count"], 1, slot).reshape(reads.shape)
+    slots_read = int(reads.sum())
+    filled_lanes = int(torch.where(reads, filled, 0).sum())
+    live_lanes = int(torch.where(valid, counts, 0).sum())
+    b, by = bound_ms(4.0 * filled_lanes + 4.0 * live_lanes + 8.0 * slots_read
+                     + 16.0 * live_rows + 4.0 * ne
+                     + 4.0 * live_rows * n_ops, 0.0)
+    return {"bound_ms": b, "bound_by": by, "live_rows": live_rows,
+            "slots_read": slots_read, "filled_lanes": filled_lanes,
+            "live_lanes": live_lanes}
+
+
 def pergroup_kernels(torch, sk, data, dev) -> list:
     """The per-group kernels at the shapes runs (f) and (g) give them, each
     against its plain version (the scan on the first PREFIX tuples)."""
@@ -298,10 +364,16 @@ def pergroup_kernels(torch, sk, data, dev) -> list:
         n = g.shape[0]
         trace, ms = timed(torch, lambda: sk.pergroup_scan(spec, st, g, k), 3)
         batches, clean = sk.pergroup_scan.batch_stats.tolist()
+        # the same placement as a streaming push (WA divides N here, so
+        # it places the same tuples), which records no store after every
+        # chunk: what the snapshots cost
+        _, push_ms = timed(torch, lambda: sk.pergroup_scan(
+            spec, st, g, k, push=True), 3)
         print(f"run ({tag}) placement scan: {clean} of {batches} batches of "
               f"up to 32 tuples placed at once ({clean / batches:.1%}), the "
-              f"rest up to an allocation or a second retirement of a group",
-              flush=True)
+              f"rest up to an allocation or a second retirement of a group; "
+              f"{ms:.3f} ms, {push_ms:.3f} ms as a push keeping only the "
+              f"final store", flush=True)
         pk = None if k is None else k[:PREFIX]
         got = sk.pergroup_scan(spec, st, g[:PREFIX], pk)
         want, plain_ms = plain_once(torch, lambda: sk.pergroup_scan_plain(
@@ -317,6 +389,7 @@ def pergroup_kernels(torch, sk, data, dev) -> list:
         # oldest pane (the placement needs no pass over the C slots)
         b, by = bound_ms(nbytes, 8.0 * n)
         rows.append({"name": "pergroup_scan", "ms": ms, "plain_ms": plain_ms,
+                     "push_ms": push_ms,
                      "plain_tuples": PREFIX, "evictions": evictions,
                      "retirements": retirements, "batches": batches,
                      "batches_at_once": clean, "library_ms": None,
@@ -362,34 +435,13 @@ def pergroup_kernels(torch, sk, data, dev) -> list:
     _, launch_ms = timed(torch, lambda: sk.replay_ring_launch(
         spec, states.keys, dirs, ops), 5)
     ne = states.owner.shape[0]
-    num, offsets = dirs["num"], dirs["offsets"].long()
-    valid = torch.arange(c, device=dev)[None, :] < num[:, None]
-    live_rows = int(num.sum())
-    # the slots each live group reads (its first min(nslots, runs) in
-    # perm), and the lanes filled in them
-    j = torch.arange(spec.runs, device=dev)
-    reads = valid[..., None] & (j < dirs["nslots"][..., None])
-    at = torch.clamp(offsets[..., None] + j, max=c - 1).reshape(ne, -1)
-    slot = torch.gather(dirs["perm"].long(), 1, at)
-    filled = torch.gather(dirs["count"], 1, slot).reshape(reads.shape)
-    slots_read = int(reads.sum())
-    filled_lanes = int(torch.where(reads, filled, 0).sum())
-    live_lanes = int(torch.where(valid, want[0]["count"], 0).sum())
+    bound = ring_replay_bound(torch, spec, dirs, want[0]["count"], len(ops))
     del out, want, dirs
-    # bytes only: the seq of every filled lane of a slot read, the key of
-    # every live lane, each slot read's place in perm and count, each live
-    # row's offset, slot count, window and newest base, num, and one 4-byte
-    # output a live row and op (the rows past num are not written)
-    b, by = bound_ms(4.0 * filled_lanes + 4.0 * live_lanes + 8.0 * slots_read
-                     + 16.0 * live_rows + 4.0 * ne
-                     + 4.0 * live_rows * len(ops), 0.0)
     rows.append({"name": "pergroup_replay_ring", "ms": ms,
                  "launch_ms": launch_ms, "glue_ms": glue_ms,
                  "plain_ms": plain_ms, "library_ms": None,
-                 "max_abs_err": err, "bound_ms": b, "bound_by": by,
-                 "shape": [ne, c, spec.runs, wa], "live_rows": live_rows,
-                 "slots_read": slots_read, "filled_lanes": filled_lanes,
-                 "live_lanes": live_lanes, "runs": ["g"]})
+                 "max_abs_err": err, **bound,
+                 "shape": [ne, c, spec.runs, wa], "runs": ["g"]})
 
     # the row form at the same evaluations' gathered rows
     out, ms = timed(torch, lambda: sk.pergroup_replay(rk, rv, ops, run=wa),
@@ -546,13 +598,7 @@ def standalone_runs(torch, data, dev, wrappers, run_launches, identity):
              "tuples", "segmented_scan"),
             ("l", "pergroup_replay", replay_run, check_replay,
              int((rv != 0).sum()), "live replay lanes", "pergroup_replay")):
-        fn()  # warm-up
-        torch.cuda.synchronize()
-        for w in wrappers.values():
-            w.launches = 0
-        out = fn()
-        torch.cuda.synchronize()
-        counts = {nm: w.launches for nm, w in wrappers.items()}
+        out, counts, _ = counted_call(torch, fn, wrappers)
         if counts[expect] == 0:
             raise AssertionError(f"run ({tag}) did not launch {expect}")
         run_launches[tag] = counts
@@ -573,6 +619,324 @@ def standalone_runs(torch, data, dev, wrappers, run_launches, identity):
               f"{n / (ms / 1e3):.4g} {unit}/s, launches {counts}, checked "
               f"({check_s:.1f} s) [{identity}]", flush=True)
     return phases
+
+
+def device_busy(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time (host
+    clock, synchronised; the profiler's own cost included), the device
+    time of the kernels and copies it ran on the card (summed; one
+    stream, so nothing overlaps; the host-side ops that launched them are
+    not counted again), their ratio, and the five largest device times by
+    name.  ``device_ms`` is None when the profiler records no device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = [(e.key[:60], e.self_device_time_total / 1e3)
+              for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    dev_ms = sum(t for _, t in events) or None
+    top = sorted(events, key=lambda x: -x[1])[:5]
+    return {"wall_ms": wall_ms, "device_ms": dev_ms,
+            "busy_share": None if dev_ms is None else dev_ms / wall_ms,
+            "top_device_ms": [[k, t] for k, t in top]}
+
+
+def _stream_phase(torch, tag, entry, backend, fn, n, pushes, counts, peak,
+                  check_s, identity, **extra) -> dict:
+    """Time 7 whole streams of ``fn`` (after a warm-up), profile one, and
+    print the run."""
+    times = timed_all(torch, fn, 7)[1]
+    ms = times[len(times) // 2]
+    busy = device_busy(torch, fn)
+    row = {"run": tag, "entry": entry, "backend": backend, "tuples": n,
+           "pushes": pushes, "ms": ms, "ms_min": times[0],
+           "ms_max": times[-1], "calls": len(times),
+           "tuples_per_s": n / (ms / 1e3), "peak_bytes": peak,
+           "launches": counts, "reference_check_s": check_s,
+           "equal_to_reference": True, "profiled": busy, **extra}
+    launched = {nm: c for nm, c in counts.items() if c}
+    print(f"run ({tag}) {entry} on {backend}: {n} tuples in {pushes} pushes "
+          f"in {ms:.3f} ms a stream (median of {len(times)}, "
+          f"{times[0]:.3f}-{times[-1]:.3f}) = {n / (ms / 1e3):.4g} tuples/s, "
+          f"peak {peak / 2**30:.3f} GiB, launches {launched}, checked "
+          f"({check_s:.1f} s) [{identity}]", flush=True)
+    shown = ", ".join(f"{k} {t:.3f}" for k, t in busy["top_device_ms"])
+    print(f"run ({tag}) profiled stream: {busy['wall_ms']:.3f} ms wall, "
+          + ("no device time recorded" if busy["device_ms"] is None else
+             f"{busy['device_ms']:.3f} ms on the device "
+             f"({busy['busy_share']:.1%} busy); largest: {shown}"),
+          flush=True)
+    return row
+
+
+def stream_runs(torch, data, dev, wrappers, run_launches, identity):
+    """Runs (m) and (n): (a)'s stream pushed through ``execute(state=)`` on
+    ``cuda``, and (g)'s window and stream through a ``StreamingAggregator``
+    on ``cuda-panestore``.  Returns (phases, kernel rows at their
+    shapes)."""
+    import numpy as np
+
+    from repro_torch.core import StreamingAggregator
+    from repro_torch.core import panestore as ps
+    from repro_torch.core.combiners import get_combiner
+    from repro_torch.core.engine import PAD_GROUP
+    from repro_torch.core.segscan import segment_starts
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.kernels.swag import kernel as sk
+    from repro_torch.query import Query, Window, execute
+
+    phases, rows = [], []
+
+    # run (m): 16 pushes of 2^20 sorted tuples, (a)'s five ops
+    g, k = data["sorted"]
+    q = Query(ops=OPS, streaming=True)
+    names = q.op_names
+    b = N // STREAM_BATCHES
+    batches = [(g[i * b:(i + 1) * b], k[i * b:(i + 1) * b])
+               for i in range(STREAM_BATCHES)]
+
+    def stream_m(backend="cuda"):
+        state, outs = None, []
+        for bg, bk in batches:
+            res, state = execute(q, bg, bk, state=state, backend=backend)
+            outs.append(res)
+        return outs, state
+
+    (outs, state), counts, peak = counted_call(torch, stream_m, wrappers)
+    want = len(names) * STREAM_BATCHES
+    if counts["segmented_scan"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"run (m) launched {counts}, not one "
+                             f"segmented_scan an op a push ({want})")
+    run_launches["m"] = counts
+    t1 = time.perf_counter()
+    ref_outs, ref_state = stream_m("reference")
+    for i, (a, r) in enumerate(zip(outs, ref_outs)):
+        same = all(torch.equal(getattr(a, f), getattr(r, f))
+                   for f in ("groups", "valid", "num_groups"))
+        if not (same and all(torch.equal(a.values[nm], r.values[nm])
+                             for nm in names)):
+            raise AssertionError(f"run (m) push {i} differs from the "
+                                 f"reference stream")
+
+    def leaves(carry):
+        st = carry.state if isinstance(carry.state, tuple) else (carry.state,)
+        return (carry.group, carry.nonempty, carry.emitted, *st)
+
+    for a, r in zip(state, ref_state):
+        if not all(torch.equal(x, y) for x, y in zip(leaves(a), leaves(r))):
+            raise AssertionError("run (m): the carries differ from the "
+                                 "reference stream's")
+    # the pushes' emissions and the open group of the final carries are
+    # run (a)'s one-shot result
+    one, _ = execute(Query(ops=OPS), g, k, backend="cuda")
+    streamed = torch.cat([r.groups[r.valid] for r in outs]
+                         + [state[0].group[None]])
+    if not torch.equal(streamed, one.groups[one.valid]):
+        raise AssertionError("run (m): the streamed groups differ from run "
+                             "(a)'s one-shot result")
+    for nm, carry in zip(names, state):
+        streamed = torch.cat([r.values[nm][r.valid] for r in outs]
+                             + [get_combiner(nm).finalize(carry.state)[None]])
+        if not torch.equal(streamed, one.values[nm][one.valid]):
+            raise AssertionError(f"run (m): streamed {nm} differs from run "
+                                 f"(a)'s one-shot result")
+    check_s = time.perf_counter() - t1
+    del outs, state, ref_outs, ref_state, one, streamed
+    phases.append(_stream_phase(
+        torch, "m", "execute(state=)", "cuda", stream_m, N, STREAM_BATCHES,
+        counts, peak, check_s, identity, ops=list(names),
+        equal_to_one_shot=True))
+
+    # segmented_scan at (m)'s shape: one push's scans, every op
+    bg, bk = batches[0]
+    flags = segment_starts(bg)
+    lifted = {}
+    for nm in names:
+        st = get_combiner(nm).lift(bk)
+        lifted[nm] = st if isinstance(st, tuple) else (st,)
+
+    def push_scans():
+        return [x for nm in names
+                for x in ssk.segscan(flags, lifted[nm], nm, tile=1024)]
+
+    out, ms = timed(torch, push_scans, 5)
+    b2b_ms = back_to_back_ms(torch, push_scans)
+    ref, plain_ms = timed(torch, lambda: [
+        x for nm in names
+        for x in ssk.segscan_plain(flags, lifted[nm], get_combiner(nm))])
+    err = max_abs_err(torch, out, ref)
+    del out, ref
+    nbytes = sum(b * (1 + 2 * sum(x.element_size() for x in lv))
+                 for lv in lifted.values())
+    nops = sum(b * 2.0 * len(lv) for lv in lifted.values())
+    bnd, by = bound_ms(nbytes, nops)
+    rows.append({"name": "segmented_scan", "ops": list(names), "ms": ms,
+                 "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
+                 "library_ms": None, "max_abs_err": err, "bound_ms": bnd,
+                 "bound_by": by, "shape": [b // 1024, 1024], "runs": ["m"]})
+    del lifted, flags
+
+    # run (n): (g)'s window and stream, 8 pushes of 8000 tuples and one of
+    # 1536 (each leaves a ragged chunk), (g)'s seven ops, then a flush
+    w = Window(**PERGROUP)
+    spec = w.store_spec()
+    c, wa = spec.capacity, spec.wa
+    g, k = data["pergroup64"]
+    edges = np.cumsum((0,) + WINDOW_PUSHES)
+    pushes = [(g[a:b], k[a:b]) for a, b in zip(edges[:-1], edges[1:])]
+
+    def stream_n(keep=False):
+        agg = StreamingAggregator(REPLAY_OPS, window=w)
+        outs, stores = [], []
+        for pg, pk in pushes:
+            outs.append(agg.push(pg, pk))
+            if keep:
+                stores.append(ps.PaneStoreState(*(x.clone()
+                                                   for x in agg.carry)))
+        outs.append(agg.flush())
+        return outs, stores
+
+    (outs, stores), counts, peak = counted_call(
+        torch, lambda: stream_n(keep=True), wrappers)
+    npush = len(pushes)
+    if (counts["pergroup_scan"], counts["pergroup_replay_ring"]) \
+            != (npush, npush + 1) or sum(counts.values()) != 2 * npush + 1:
+        raise AssertionError(f"run (n) launched {counts}, not one "
+                             f"pergroup_scan a push and one "
+                             f"pergroup_replay_ring a push and flush")
+    run_launches["n"] = counts
+    t1 = time.perf_counter()
+    lane = torch.arange(c, dtype=torch.int32)
+
+    def plain_eval(store):
+        """One evaluation of ``store`` by the plain replay, as a push's
+        outputs: groups, valid, num, rr_port, values."""
+        ov, ug, num = sk.pergroup_replay_ring_plain(
+            spec, ps.PaneStoreState(*(x[None] for x in store)), REPLAY_OPS)
+        ln = lane.to(num.device)
+        valid = ln < num[0]
+        return (torch.where(valid, ug[0], PAD_GROUP), valid, num[0],
+                torch.where(valid, ln % 4, -1).to(torch.int32),
+                {nm: torch.where(valid, v[0], 0).to(v.dtype)
+                 for nm, v in ov.items()})
+
+    def check_eval(res, want, what):
+        got = (res.groups, res.valid, res.num_groups, res.rr_port)
+        if not all(torch.equal(a.cpu(), b.cpu())
+                   for a, b in zip(got, want[:4])) or not all(
+                torch.equal(res.values[nm].cpu(), v.cpu())
+                for nm, v in want[4].items()):
+            raise AssertionError(f"run (n) {what} differs from the plain "
+                                 f"versions")
+
+    # every push through the first that evicts: the plain placement on a
+    # host copy of the store, the plain replay of what it leaves; the
+    # kernel's scan of the same push for its evictions
+    host = ps.init_store(spec, torch.int32)
+    before = ps.init_store(spec, torch.int32, device=dev)
+    evictions = kernel_evictions = checked = 0
+    scan_row = None
+    for i, ((pg, pk), res, store) in enumerate(zip(pushes, outs, stores)):
+        trace, p_ms = plain_once(torch, lambda: sk.pergroup_scan_plain(
+            spec, host, pg.cpu(), pk.cpu(), push=True))
+        host = trace.final
+        kernel = sk.pergroup_scan(spec, before, pg, pk, push=True)
+        if not torch.equal(kernel.events.cpu(), trace.events):
+            raise AssertionError(f"run (n) push {i}: the scan's evictions "
+                                 f"and retirements differ from the plain "
+                                 f"placement's")
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(store, host)):
+            raise AssertionError(f"run (n): the store after push {i} "
+                                 f"differs from the plain placement's")
+        check_eval(res, plain_eval(host), f"push {i}")
+        evictions += int(trace.events[0])
+        kernel_evictions += int(kernel.events[0])
+        if i == 1:  # the kernel row: a push onto a store already filled
+            scan_row = (before, pg, pk, trace, p_ms)
+        before = store
+        checked += 1
+        if evictions and i >= 1:
+            break
+    if not evictions:
+        raise AssertionError(f"run (n): no eviction in the {checked} pushes "
+                             f"checked")
+    check_eval(outs[-1], plain_eval(stores[-1]), "flush")
+    check_s = time.perf_counter() - t1
+    print(f"run (n) placement scan: {kernel_evictions} evictions in the "
+          f"{checked} pushes checked (plain placement: {evictions})",
+          flush=True)
+    final = stores[-1]
+    del outs, stores
+    phases.append(_stream_phase(
+        torch, "n", "StreamingAggregator push/flush", "cuda-panestore",
+        stream_n, int(edges[-1]), npush, counts, peak, check_s, identity,
+        ops=list(REPLAY_OPS), window=window_desc(w), checked_pushes=checked,
+        evictions_checked=kernel_evictions))
+
+    # pergroup_scan at a push's shape: push 1 onto push 0's store, the
+    # final store only, the ring kept
+    before, pg, pk, want, p_ms = scan_row
+    got, ms = timed(torch, lambda: sk.pergroup_scan(
+        spec, before, pg, pk, push=True), 5)
+    # the wrapper's torch glue alone (the group index, one read-back)
+    _, glue_ms = timed(torch, lambda: sk._scan_groups(spec, before, pg), 5)
+    err = max_abs_err(torch, [*got.final, got.events],
+                      [*(x.to(dev) for x in want.final),
+                       want.events.to(dev)])
+    n = pg.shape[0]
+    # the panes that close in the push, each read and written once by its
+    # sort: a slot full after the push that was not the same full pane
+    # before (a pane that closes and leaves within the push is not seen,
+    # which can only lower the bound)
+    fin = want.final
+    same = ((before.count == wa) & (before.owner == fin.owner.to(dev))
+            & (before.base == fin.base.to(dev))).cpu()
+    closes = int(((fin.count == wa) & ~same).sum())
+    ng = int(torch.unique(torch.cat(
+        [pg, before.owner[before.owner != PAD_GROUP]])).numel())
+    # read: each tuple's group index and key, the directory and group
+    # table; written: each tuple's lane (key and seq) and the directory
+    # and clock; a closing pane's keys and seqs read and written once; the
+    # rest of the ring is not touched (no snapshot, no plan)
+    nbytes = (8 * n + 8 * n + 16 * wa * closes + 20 * c + 12 * ng + 16 * c
+              + 8)
+    bnd, by = bound_ms(nbytes, 8.0 * n)
+    rows.append({"name": "pergroup_scan", "ms": ms, "glue_ms": glue_ms,
+                 "plain_ms": p_ms,
+                 "plain_tuples": n, "library_ms": None, "max_abs_err": err,
+                 "bound_ms": bnd, "bound_by": by, "closes": closes,
+                 "shape": [n, wa, c], "ring": True, "push": True,
+                 "runs": ["n"]})
+
+    # pergroup_replay_ring at a push's shape: one evaluation of the final
+    # store
+    one = ps.PaneStoreState(*(x[None] for x in final))
+    out, ms = timed(torch, lambda: sk.pergroup_replay_ring(
+        spec, one, REPLAY_OPS), 5)
+    want, plain_ms = timed(torch, lambda: sk.pergroup_replay_ring_plain(
+        spec, one, REPLAY_OPS))
+    err = ring_replay_err(torch, out, want, c)
+    dirs, glue_ms = timed(torch, lambda: sk.ring_directory(spec, one), 5)
+    _, launch_ms = timed(torch, lambda: sk.replay_ring_launch(
+        spec, one.keys, dirs, REPLAY_OPS), 5)
+    bound = ring_replay_bound(torch, spec, dirs, want[0]["count"],
+                              len(REPLAY_OPS))
+    rows.append({"name": "pergroup_replay_ring", "ms": ms,
+                 "launch_ms": launch_ms, "glue_ms": glue_ms,
+                 "plain_ms": plain_ms, "library_ms": None,
+                 "max_abs_err": err, **bound,
+                 "shape": [1, c, spec.runs, wa], "runs": ["n"]})
+    return phases, rows
 
 
 def slice5_kernels(torch, sk, data, dev) -> list:
@@ -957,15 +1321,9 @@ def main() -> int:
         g, k, *ts = data[which]
         g_in = g if q.group_by else None
         extra = {"timestamps": ts[0]} if ts else {}
-        execute(q, g_in, k, backend=backend, **extra)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in wrappers.values():
-            fn.launches = 0
-        res, _ = execute(q, g_in, k, backend=backend, **extra)
-        torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in wrappers.items()}
-        peak = torch.cuda.max_memory_allocated()
+        (res, _), counts, peak = counted_call(
+            torch, lambda: execute(q, g_in, k, backend=backend, **extra),
+            wrappers)
         for name in expect:
             if counts[name] == 0:
                 raise AssertionError(f"run ({tag}) did not launch {name}")
@@ -1035,8 +1393,9 @@ def main() -> int:
     data["replay"] = replay_inputs(torch, sk, ps, data, dev)
     phases += standalone_runs(torch, data, dev, wrappers, run_launches,
                               identity)
-
-    kernels = []
+    stream_phases, kernels = stream_runs(torch, data, dev, wrappers,
+                                         run_launches, identity)
+    phases += stream_phases
 
     # groupagg as run (a) launches it: the flat layout, every op of (a) in
     # one launch over the unpadded stream
@@ -1196,10 +1555,13 @@ def main() -> int:
                 and r["keys"] == "int32" and r["lanes"] > 1
                 and r["flat"] == (row["layout"] == "flat"))
         if row["name"] == "segmented_scan":
-            row["ptxas"] = next(
+            # (k)'s rows scan one op, (m)'s every op of a push
+            found = [next(
                 r for r in ptxas if r["kernel"] == "segscan_kernel"
-                and r["op"] == common.OP_CODES[row["op"]]
+                and r["op"] == common.OP_CODES[op]
                 and r["keys"] == "int32" and r["lanes"] > 1)
+                for op in row.get("ops", [row.get("op")])]
+            row["ptxas"] = found if "ops" in row else found[0]
         if row["name"] == "twostack_flip":
             row["geometry"] = geo = sk.twostack_geometry(row["shape"][1])
             row["ptxas"] = next(
@@ -1216,7 +1578,8 @@ def main() -> int:
                 key=lambda r: r["max_threads"])
             if row["runs"] in (["c"], ["b", "d"]):  # (c)'s, (b)'s widths
                 row["float32_check"] = float_checks[row["name"]]
-        if row["name"] in ("groupagg", "segmented_scan"):
+        if row["name"] == "groupagg" or (row["name"] == "segmented_scan"
+                                         and "op" in row):
             print(f"{row['name']} ({row.get('layout') or row['op']}) "
                   f"{row['shape'][0]} x {row['shape'][1]}: "
                   f"{row['ptxas']['registers']} registers a thread, "

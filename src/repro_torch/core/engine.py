@@ -62,7 +62,8 @@ def _compact_layout(groups: torch.Tensor, emit: torch.Tensor):
 
 
 def multi_engine_step(groups: torch.Tensor, keys: torch.Tensor, ops, *,
-                      carries=None, open_tail: bool = False, n_valid=None):
+                      carries=None, open_tail: bool = False, n_valid=None,
+                      scan=segscan.segmented_scan):
     """One fused engine pass evaluating several combiners over one stream.
 
     The segment structure (start/end marks, the compaction permutation, the
@@ -78,6 +79,8 @@ def multi_engine_step(groups: torch.Tensor, keys: torch.Tensor, ops, *,
       open_tail: if True, the final real group is not emitted.
       n_valid: optional prefix length (scalar or one per row) — only the
         first ``n_valid`` tuples are real.
+      scan: step (c), ``(starts, state, combiner) -> scanned`` (the plain
+        :func:`segscan.segmented_scan`, or a kernel's wrapper).
 
     Returns ``((out_groups, values, out_valid, num), new_carries)``.
     """
@@ -105,8 +108,7 @@ def multi_engine_step(groups: torch.Tensor, keys: torch.Tensor, ops, *,
 
     scanneds = []
     for combiner, carry in zip(combiners, carries):
-        scanned = segscan.segmented_scan(starts, combiner.lift(keys),
-                                         combiner)
+        scanned = scan(starts, combiner.lift(keys), combiner)
         if not fresh:  # a fresh carry is empty: merging it is a no-op
             scanned = segscan.merge_carry(carry, groups, scanned, combiner)
         scanneds.append(scanned)
@@ -168,3 +170,13 @@ def _group_by_aggregate(groups: torch.Tensor, keys: torch.Tensor, op="sum",
     """Single-shot ``SELECT g, f(k) FROM t GROUP BY g ORDER BY g``."""
     result, _ = engine_step(groups, keys, op, n_valid=n_valid)
     return result
+
+
+def rr_ports(result: GroupAggResult, emitted_before, p: int) -> torch.Tensor:
+    """Round-robin output port per emitted group — the PRRA's defining
+    property.  ``emitted_before`` is ``carry.emitted`` *prior* to this batch.
+    """
+    idx = torch.arange(result.groups.shape[-1], dtype=torch.int32,
+                       device=result.groups.device)
+    return torch.where(result.valid, (emitted_before + idx) % p,
+                       -1).to(torch.int32)

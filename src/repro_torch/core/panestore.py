@@ -19,10 +19,10 @@ only the last ``WS_g`` tuples *per group* in a shared buffer of
 
 Placement (:func:`_push_decide`) is inherently sequential: each tuple's
 slot depends on the global eviction order.  The plain loops here
-(:func:`push`, :func:`scan`) are the reference (:func:`scan` loops on the
-host whatever the state's device); on the card the same scan runs as one
-CUDA kernel (``repro_torch.kernels.swag.kernel.pergroup_scan``).
-They update the directory tensors of their own copy of the state in place.
+(:func:`push`, :func:`scan`) are the reference; they loop on a host copy
+of the state whatever its device, updating that copy in place.  On the
+card the same scan runs as one CUDA kernel
+(``repro_torch.kernels.swag.kernel.pergroup_scan``).
 
 Time-mode stores (event-time streaming) come with ROADMAP slice 5b.
 """
@@ -248,13 +248,9 @@ def _push_decide(spec: PaneStoreSpec, owner, count, base, stamp, clock,
             dead.sum(dtype=torch.int32))
 
 
-def _write_lane(keys, seqs, slot, lane, k, seq, closes, live=None):
-    """Write one tuple at (slot, lane) (unless the 0-d ``live`` is False)
-    and sort the pane if it closed (the stable key sort; the seq rides as
-    payload).  In place."""
-    if live is not None:
-        k = torch.where(live, k, keys[slot, lane])
-        seq = torch.where(live, seq, seqs[slot, lane])
+def _write_lane(keys, seqs, slot, lane, k, seq, closes):
+    """Write one tuple at (slot, lane) and sort the pane if it closed (the
+    stable key sort; the seq rides as payload).  In place."""
     keys[slot, lane] = k
     seqs[slot, lane] = seq
     row_k, row_s = keys[slot], seqs[slot]
@@ -263,46 +259,37 @@ def _write_lane(keys, seqs, slot, lane, k, seq, closes, live=None):
     seqs[slot] = torch.where(closes, row_s[order], row_s)
 
 
-def _copy(state: PaneStoreState) -> PaneStoreState:
-    return PaneStoreState(*(x.clone() for x in state))
-
-
 def push(spec: PaneStoreSpec, state: PaneStoreState, groups, keys,
          n_valid=None) -> PaneStoreState:
     """Stream one batch of tuples through the store, one tuple at a time
-    (the first ``n_valid`` only, when given).  Returns the new state; the
-    input state is not modified."""
-    _count_mode(spec)
-    st = _copy(state)
-    dev = st.owner.device
-    groups = torch.as_tensor(groups, device=dev).to(torch.int32)
-    keys = torch.as_tensor(keys, device=dev).to(st.keys.dtype)
+    (the first ``n_valid`` only, when given: a tuple past them changes
+    nothing).  The loop runs on a host copy, as :func:`scan`'s does.
+    Returns the new state on the device of ``state``, which is not
+    modified."""
+    groups = torch.as_tensor(groups)
+    keys = torch.as_tensor(keys)
     n = groups.shape[-1]
-    live = (torch.ones((n,), dtype=torch.bool, device=dev) if n_valid is None
-            else torch.arange(n, device=dev) < n_valid)
-    for i in range(n):
-        slot, lane, m_g, _alloc, closes, _ev, _ret = _push_decide(
-            spec, st.owner, st.count, st.base, st.stamp, st.clock,
-            groups[i], live[i])
-        _write_lane(st.keys, st.seqs, slot, lane, keys[i], m_g, closes,
-                    live[i])
-    return st
+    if n_valid is not None:
+        n = min(max(int(n_valid), 0), n)
+    return scan(spec, state, groups[..., :n], keys[..., :n],
+                push=True).final
 
 
 class ScanTrace(NamedTuple):
-    """What the chunked placement scan records (``NE`` = full WA chunks).
+    """What the chunked placement scan records (``NE`` chunks of WA).
 
     ``slots``/``lanes``/``seqs`` ``[NE, WA]``: where each tuple was written
-    and its within-group seq.  ``states``: the store after every chunk,
-    each field with a leading ``[NE]`` axis (``keys``/``seqs`` are ``None``
-    when the scan kept no ring).  ``abase`` ``[NE, C]``: the arrival rank of
-    each slot's first tuple (``None`` without ranks).  ``final`` and
+    and its within-group seq.  ``states``: the store after every chunk, each field with a leading
+    ``[NE]`` axis (``keys``/``seqs`` are ``None`` when the scan kept no
+    ring).  ``abase`` ``[NE, C]``: the arrival rank of each slot's first
+    tuple (``None`` without ranks).  A push records neither the plan nor
+    the stores after every chunk (``None``).  ``final`` and
     ``final_abase``: the store after the last chunk.  ``events`` ``[2]``
     int32: the evictions and retirements of the scan."""
-    slots: torch.Tensor
-    lanes: torch.Tensor
-    seqs: torch.Tensor
-    states: PaneStoreState
+    slots: torch.Tensor | None
+    lanes: torch.Tensor | None
+    seqs: torch.Tensor | None
+    states: PaneStoreState | None
     abase: torch.Tensor | None
     final: PaneStoreState
     final_abase: torch.Tensor | None
@@ -311,15 +298,18 @@ class ScanTrace(NamedTuple):
 
 def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
          keys: torch.Tensor | None = None,
-         ranks: torch.Tensor | None = None) -> ScanTrace:
-    """The per-tuple placement scan over the ``N // WA`` full chunks of the
-    stream (the trailing remainder stays unpushed), one tuple at a time.
+         ranks: torch.Tensor | None = None, *,
+         push: bool = False) -> ScanTrace:
+    """The per-tuple placement scan, one tuple at a time, over the ``N //
+    WA`` full chunks of the stream (the trailing remainder stays unpushed).
+    A streaming ``push`` places every tuple (the last chunk may be short)
+    and records only the store after the last.
 
     With ``keys`` the ring buffers are written and sorted at close, as
     :func:`push` does; without, only the directory moves.  With ``ranks``
     (each tuple's within-group arrival rank) each slot's ``abase`` records
-    the rank of its first tuple.  This loop is the plain version of the
-    placement scan kernel.
+    the rank of its first tuple.  This loop is the plain version of the placement
+    scan kernel.
 
     One tuple is a few dozen ops on ``[C]`` vectors, microseconds each on
     the host and a kernel launch each on the card, so the loop runs on a
@@ -330,7 +320,8 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
     dev = state.owner.device
     host = torch.device("cpu")
     st = PaneStoreState(*(x.to(host, copy=True) for x in state))
-    ne = groups.shape[-1] // wa
+    n = groups.shape[-1]
+    ne = _ceil_div(n, wa) if push else n // wa
     groups = groups.to(host, torch.int32)
     keys = None if keys is None else keys.to(host, st.keys.dtype)
     ranks = None if ranks is None else ranks.to(host)
@@ -340,7 +331,7 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
     evictions = retirements = 0
     true = torch.ones((), dtype=torch.bool)
     for e in range(ne):
-        for j in range(wa):
+        for j in range(min(wa, n - e * wa)):
             i = e * wa + j
             slot, lane, m_g, alloc, closes, ev, ret = _push_decide(
                 spec, st.owner, st.count, st.base, st.stamp, st.clock,
@@ -355,11 +346,13 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
                             closes)
             if ranks is not None:
                 abase[slot] = torch.where(alloc, ranks[i], abase[slot])
-        snaps.append((st.owner.clone(),
-                      st.keys.clone() if keys is not None else None,
-                      st.seqs.clone() if keys is not None else None,
-                      st.count.clone(), st.base.clone(), st.stamp.clone(),
-                      st.clock.clone(), abase.clone()))
+        if not push:
+            snaps.append((st.owner.clone(),
+                          st.keys.clone() if keys is not None else None,
+                          st.seqs.clone() if keys is not None else None,
+                          st.count.clone(), st.base.clone(),
+                          st.stamp.clone(), st.clock.clone(),
+                          abase.clone()))
 
     def stack(i, shape, dtype):
         if not snaps:
@@ -367,19 +360,23 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
         return torch.stack([s[i] for s in snaps]).to(dev)
 
     ring = keys is not None
+    with_ranks = ranks is not None
+    events = torch.tensor([evictions, retirements], dtype=torch.int32,
+                          device=dev)
+    final = PaneStoreState(*(x.to(dev) for x in st))
+    final_abase = abase.to(dev) if with_ranks else None
+    if push:
+        return ScanTrace(None, None, None, None, None, final, final_abase,
+                         events)
     states = PaneStoreState(
         owner=stack(0, (c,), torch.int32),
         keys=stack(1, (c, wa), st.keys.dtype) if ring else None,
         seqs=stack(2, (c, wa), torch.int32) if ring else None,
         count=stack(3, (c,), torch.int32), base=stack(4, (c,), torch.int32),
         stamp=stack(5, (c,), torch.int32), clock=stack(6, (), torch.int32))
-    with_ranks = ranks is not None
     return ScanTrace(out[0].to(dev), out[1].to(dev), out[2].to(dev), states,
                      stack(7, (c,), torch.int32) if with_ranks else None,
-                     PaneStoreState(*(x.to(dev) for x in st)),
-                     abase.to(dev) if with_ranks else None,
-                     torch.tensor([evictions, retirements], dtype=torch.int32,
-                                  device=dev))
+                     final, final_abase, events)
 
 
 class ReplayRuns(NamedTuple):

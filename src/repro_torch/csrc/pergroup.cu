@@ -30,13 +30,15 @@
 // event tuple then runs the full step (the warp finds the first free slot
 // in the bitmap, else the first minimum stamp, as _push_decide's
 // first-index ties pick; the victim leaves its group's chain; the group's
-// stale heads retire in a loop), and the next batch starts after it.  It
-// records each tuple's (slot, lane, seq), the directory after every WA
-// chunk and the evictions and retirements; given keys it also keeps the
-// [C, WA] ring in device memory (L2): the panes that close in a chunk are
-// sorted by (key, seq) at its end by the block's warps, one pane a warp,
-// before they copy the ring out (a pane reallocated in the chunk it closed
-// is sorted by the scanning warp first).  Bound: the latency of one warp,
+// stale heads retire in a loop), and the next batch starts after it.  A
+// batch scan records each tuple's (slot, lane, seq) and the directory
+// after every WA chunk; a streaming push places every tuple (the last
+// chunk may be short) and keeps only the store after the last.  Both
+// record the evictions and retirements; given keys it also keeps the [C, WA] ring in device
+// memory (L2): the panes that close in a chunk are sorted by (key, seq) at
+// its end by the block's warps, one pane a warp, before they copy the ring
+// out (a pane reallocated in the chunk it closed is sorted by the scanning
+// warp first).  Bound: the latency of one warp,
 // a few dependent shared-memory loads a batch and the full step a WA
 // tuples a group; bytes are ~20 a tuple, so the card's memory is idle.
 //
@@ -140,8 +142,10 @@ constexpr int SCAN_WINDOWS = 4;
 constexpr int SCAN_RING_MASK = SCAN_STAGE * SCAN_WINDOWS - 1;
 
 struct ScanArgs {
-  const int* g;       // [NE*WA] dense group index of every tuple
-  const void* k;      // [NE*WA] keys, or null: no ring
+  const int* g;       // [N] dense group index of every tuple
+  const void* k;      // [N] keys, or null: no ring
+  long long n;        // tuples in NE = ceil(N / WA) chunks, the last one
+                      // short only in a push
   int ne, wa, c, ng;
   const int* gid;     // [ng] group id of each dense index
   const int* slots0;  // [5, C] owner (dense, -1 free), count, base, stamp,
@@ -155,7 +159,8 @@ struct ScanArgs {
   void* ring_k;       // [C, WA] (in/out) when k
   int* ring_s;        // [C, WA] (in/out) when k
   int* plan;          // [3, NE, WA] slot, lane, seq of every tuple
-  int* snaps;         // [4, NE, C] the directory after every chunk
+  int* snaps;         // [4, NE, C] the directory after every chunk (both
+                      // null in a push)
   int* clock_s;       // [NE]
   void* rk_s;         // [NE, C, WA] the ring after every chunk, when k
   int* rs_s;          // [NE, C, WA]
@@ -237,35 +242,14 @@ __device__ void sort_pane(K* ring_k, int* ring_s, int s, int wa, int* buf,
   __syncwarp();
 }
 
-// End of chunk e, run by every thread of the block: the panes that closed
-// in the chunk sorted (ring), the ring copied out, the directory and clock
-// recorded.
-template <typename K, bool RING>
-__device__ __forceinline__ void chunk_end(const ScanArgs& a,
-                                          const ScanSmem<K>& m, int e,
-                                          const int* s_clock, int* s_npend) {
-  const int C = a.c, WA = a.wa;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+// The directory after chunk e into its snapshot, by every thread of the
+// block.
+template <typename K>
+__device__ __forceinline__ void snap_directory(const ScanArgs& a,
+                                               const ScanSmem<K>& m, int e) {
+  const int C = a.c, tid = threadIdx.x, nt = blockDim.x;
   const long long nc = static_cast<long long>(a.ne) * C;
   const long long ec = static_cast<long long>(e) * C;
-  __syncthreads();
-  if (RING) {
-    K* ring_k = static_cast<K*>(a.ring_k);
-    const int np = *s_npend;
-    if (warp < a.nbuf) {
-      for (int p = warp; p < np; p += a.nbuf) {
-        const int s = m.plist[p];
-        if (m.pend[s])
-          sort_pane<K>(ring_k, a.ring_s, s, WA, m.sbuf + 2 * warp * WA, lane);
-      }
-    }
-    __syncthreads();
-    for (int p = tid; p < np; p += blockDim.x) m.pend[m.plist[p]] = 0;
-    const long long cw = static_cast<long long>(C) * WA;
-    copy_ring<K>(ring_k, a.ring_s, static_cast<K*>(a.rk_s) + e * cw,
-                 a.rs_s + e * cw, cw);
-  }
-  const int nt = blockDim.x;
   if ((C & 3) == 0) {  // 16 bytes a load and a store
     const int c4 = C >> 2;
     const int4* cols[4] = {reinterpret_cast<const int4*>(m.oid),
@@ -288,8 +272,39 @@ __device__ __forceinline__ void chunk_end(const ScanArgs& a,
       a.snaps[3 * nc + ec + x] = m.stamp[x];
     }
   }
+}
+
+// End of chunk e, run by every thread of the block: the panes that closed
+// in the chunk sorted (ring); in a batch scan (SNAP), the ring copied out
+// and the directory and clock recorded.
+template <typename K, bool RING, bool SNAP>
+__device__ __forceinline__ void chunk_end(const ScanArgs& a,
+                                          const ScanSmem<K>& m, int e,
+                                          const int* s_clock, int* s_npend) {
+  const int WA = a.wa;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  __syncthreads();
+  if (RING) {
+    K* ring_k = static_cast<K*>(a.ring_k);
+    const int np = *s_npend;
+    if (warp < a.nbuf) {
+      for (int p = warp; p < np; p += a.nbuf) {
+        const int s = m.plist[p];
+        if (m.pend[s])
+          sort_pane<K>(ring_k, a.ring_s, s, WA, m.sbuf + 2 * warp * WA, lane);
+      }
+    }
+    __syncthreads();
+    for (int p = tid; p < np; p += blockDim.x) m.pend[m.plist[p]] = 0;
+    if (SNAP) {
+      const long long cw = static_cast<long long>(a.c) * WA;
+      copy_ring<K>(ring_k, a.ring_s, static_cast<K*>(a.rk_s) + e * cw,
+                   a.rs_s + e * cw, cw);
+    }
+  }
+  if (SNAP) snap_directory<K>(a, m, e);
   if (tid == 0) {
-    a.clock_s[e] = *s_clock;
+    if (SNAP) a.clock_s[e] = *s_clock;
     *s_npend = 0;
   }
   __syncthreads();
@@ -314,8 +329,10 @@ __device__ __forceinline__ void stage_window(const ScanArgs& a,
   __pipeline_commit();
 }
 
-// RING: keys given, the ring kept; GS: the group tables in shared memory.
-template <typename K, bool RING, bool GS>
+// RING: keys given, the ring kept; GS: the group tables in shared memory;
+// SNAP: a batch scan, the plan and the store after every chunk recorded
+// (else a push: only the store after the last tuple).
+template <typename K, bool RING, bool GS, bool SNAP>
 __global__ void __launch_bounds__(RING ? SCAN_RING_THREADS : 32)
 pergroup_scan_kernel(ScanArgs a) {
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -370,13 +387,13 @@ pergroup_scan_kernel(ScanArgs a) {
 
   if (tid >= 32) {  // helpers: the chunk ends
     for (int e = 0; e < a.ne; ++e)
-      chunk_end<K, RING>(a, m, e, &s_clock, &s_npend);
+      chunk_end<K, RING, SNAP>(a, m, e, &s_clock, &s_npend);
     return;
   }
 
   const K* keys = static_cast<const K*>(a.k);
   K* ring_k = static_cast<K*>(a.ring_k);
-  const long long n = static_cast<long long>(a.ne) * WA;
+  const long long n = a.n;
   const unsigned below = (1u << lane) - 1;
   int clock = s_clock;
   int evictions = 0, retired = 0, batches = 0, clean = 0, npend = 0;
@@ -388,7 +405,7 @@ pergroup_scan_kernel(ScanArgs a) {
   __pipeline_wait_prior(nwin > 2 ? 1 : 0);
   __syncwarp();
   long long cur = 0;    // the window batches start in
-  long long stop = WA;  // batches stay in a chunk
+  long long stop = WA < n ? WA : n;  // batches stay in a chunk
   int e = 0;
   while (i < n) {
     const int nb = static_cast<int>(stop - i < 32 ? stop - i : 32);
@@ -435,9 +452,11 @@ pergroup_scan_kernel(ScanArgs a) {
     clean += evm == 0 ? 1 : 0;
     if (lane < f) {
       const long long at = i + lane;
-      a.plan[at] = t;
-      a.plan[n + at] = c;
-      a.plan[2 * n + at] = b + c;
+      if (SNAP) {
+        a.plan[at] = t;
+        a.plan[n + at] = c;
+        a.plan[2 * n + at] = b + c;
+      }
       if (lane == 31 - __clz(peers & before)) m.cnt[t] = c + 1;
       if (retires) {
         m.own[h] = -1;
@@ -537,9 +556,11 @@ pergroup_scan_kernel(ScanArgs a) {
         ++clock;
       }
       if (lane == 0) {
-        a.plan[at] = slot;
-        a.plan[n + at] = ln;
-        a.plan[2 * n + at] = mg;
+        if (SNAP) {
+          a.plan[at] = slot;
+          a.plan[n + at] = ln;
+          a.plan[2 * n + at] = mg;
+        }
         if (ring) {
           const long long at_r = static_cast<long long>(slot) * WA + ln;
           ring_k[at_r] = kg;
@@ -578,10 +599,10 @@ pergroup_scan_kernel(ScanArgs a) {
         s_clock = clock;
         s_npend = npend;
       }
-      chunk_end<K, RING>(a, m, e, &s_clock, &s_npend);
+      chunk_end<K, RING, SNAP>(a, m, e, &s_clock, &s_npend);
       npend = 0;
       ++e;
-      stop += WA;
+      stop = stop + WA < n ? stop + WA : n;
     }
   }
   for (int s = lane; s < C; s += 32) {
@@ -1115,20 +1136,27 @@ size_t scan_smem(int c, int wa, int ng, bool ring, int* gsmem, int* nbuf) {
   return base + per * nb;
 }
 
-template <typename K, bool RING, bool GS>
+template <typename K, bool RING, bool GS, bool SNAP>
 cudaError_t launch_scan_kernel(const ScanArgs& a, size_t smem,
                                cudaStream_t st) {
-  cudaError_t err = opt_in_smem(pergroup_scan_kernel<K, RING, GS>, smem);
+  auto kern = pergroup_scan_kernel<K, RING, GS, SNAP>;
+  cudaError_t err = opt_in_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  pergroup_scan_kernel<K, RING, GS>
-      <<<1, RING ? SCAN_RING_THREADS : 32, smem, st>>>(a);
+  kern<<<1, RING ? SCAN_RING_THREADS : 32, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <typename K, bool RING, bool GS>
+cudaError_t launch_scan_snap(const ScanArgs& a, size_t smem,
+                             cudaStream_t st) {
+  return a.snaps ? launch_scan_kernel<K, RING, GS, true>(a, smem, st)
+                 : launch_scan_kernel<K, RING, GS, false>(a, smem, st);
 }
 
 template <typename K, bool RING>
 cudaError_t launch_scan(const ScanArgs& a, size_t smem, cudaStream_t st) {
-  return a.gsmem ? launch_scan_kernel<K, RING, true>(a, smem, st)
-                 : launch_scan_kernel<K, RING, false>(a, smem, st);
+  return a.gsmem ? launch_scan_snap<K, RING, true>(a, smem, st)
+                 : launch_scan_snap<K, RING, false>(a, smem, st);
 }
 
 // Shared memory of the fused kernel: seven [C] columns.
@@ -1189,7 +1217,8 @@ cudaError_t launch_replay(const ReplayArgs& a, int key_type,
 }  // namespace
 }  // namespace rt
 
-// The placement scan over ne chunks of wa tuples (one warp).  g holds each
+// The placement scan over n tuples in ne = ceil(n / wa) chunks of wa (one
+// warp).  g holds each
 // tuple's dense group index in [0, ng), gid the group id of each index;
 // k may be null (no ring: ring_k, ring_s, rk_s and rs_s are then unused).
 // slots0 [5, C]: each slot's owner (dense index, -1 free), count, base,
@@ -1197,13 +1226,16 @@ cudaError_t launch_replay(const ReplayArgs& a, int key_type,
 // end); gtab [3, ng] each group's newest and oldest pane (-1: none) and
 // window size, scratch the kernel may update.  dir [4, C] (owner id,
 // count, base, stamp) gets the store after the scan; clock [1] is read and
-// written back; plan [3, ne, wa] gets each tuple's slot, lane and seq;
-// snaps [4, ne, C] and clock_s [ne] the directory after every chunk,
-// rk_s/rs_s [ne, C, wa] the ring after every chunk; events [2] the
+// written back; ring_k/ring_s [C, wa] are read and written in place.  A
+// batch scan (wa divides n): plan [3, ne, wa] gets each tuple's slot, lane
+// and seq, snaps [4, ne, C] and clock_s [ne] the directory after every
+// chunk, and rk_s/rs_s [ne, C, wa] the ring after every chunk.  A
+// streaming push passes plan and snaps null: the last chunk may be short
+// and only the store after the last tuple is kept.  events [2] gets the
 // evictions and retirements; stats [2] the batches and the batches that
 // committed all their tuples at once.
 extern "C" int rt_pergroup_scan(const int* g, const void* k, int key_type,
-                                int ne, int wa, int c, int ng,
+                                int n, int wa, int c, int ng,
                                 const int* gid, const int* slots0, int* gtab,
                                 int* dir, int* clock, void* ring_k,
                                 int* ring_s, int* plan, int* snaps,
@@ -1212,13 +1244,16 @@ extern "C" int rt_pergroup_scan(const int* g, const void* k, int key_type,
   using namespace rt;
   int gsmem = 0, nbuf = 0;
   const bool ring = k != nullptr;
-  if (ne < 1 || !pow2(wa) || wa > MAX_ROW || c < 1 || c > MAX_SCAN_SLOTS ||
-      ng < 1 || static_cast<long long>(ne) * wa > 0x7fffffffLL)
+  if (n < 1 || !pow2(wa) || wa > MAX_ROW || c < 1 || c > MAX_SCAN_SLOTS ||
+      ng < 1 || (plan == nullptr) != (snaps == nullptr) ||
+      (plan != nullptr && n % wa != 0))
     return cudaErrorInvalidValue;
+  const int ne = static_cast<int>((static_cast<long long>(n) + wa - 1) / wa);
   const size_t smem = scan_smem(c, wa, ng, ring, &gsmem, &nbuf);
   if (smem == 0) return cudaErrorInvalidValue;
-  ScanArgs a{g, k, ne, wa, c, ng, gid, slots0, gtab, gsmem, nbuf, dir, clock,
-             ring_k, ring_s, plan, snaps, clock_s, rk_s, rs_s, events, stats};
+  ScanArgs a{g, k, n, ne, wa, c, ng, gid, slots0, gtab, gsmem, nbuf, dir,
+             clock, ring_k, ring_s, plan, snaps, clock_s, rk_s, rs_s, events,
+             stats};
   auto st = static_cast<cudaStream_t>(stream);
   if (!ring) return launch_scan<int, false>(a, smem, st);
   if (key_type == KEY_INT32) return launch_scan<int, true>(a, smem, st);

@@ -1,9 +1,10 @@
 """Data in and results out: seeded streams in numpy, tensors on a device,
-results in the numpy layout of ``repro.query.AggResult``, and pane-store
-states in the field order of ``repro.core.panestore.PaneStoreState`` — so
-the same inputs can go through both packages, their full outputs (padded
-tails included) be compared, and a stream begun in one continue in the
-other.  :func:`make_stream` needs only numpy (torch is
+results in the numpy layout of ``repro.query.AggResult``, pane-store
+states in the field order of ``repro.core.panestore.PaneStoreState``, and
+streaming carries (one ``repro.core.segscan.Carry`` an op) in the field
+order of the JAX package's — so the same inputs can go through both
+packages, their full outputs (padded tails included) be compared, and a
+stream begun in one continue in the other.  :func:`make_stream` needs only numpy (torch is
 imported by the functions that use it), so a process that holds JAX alone
 can make the same inputs."""
 from __future__ import annotations
@@ -19,6 +20,9 @@ if TYPE_CHECKING:
 #: the fields of a pane-store state, in order
 PANE_STATE_FIELDS = ("owner", "keys", "seqs", "count", "base", "stamp",
                      "clock")
+#: the fields of a rolling carry, in order; ``state`` is one array or the
+#: tuple of the combiner's state arrays (the JAX treedef's order)
+CARRY_FIELDS = ("group", "state", "nonempty", "emitted")
 
 
 def make_stream(seed: int, n: int, n_groups: int, key_max: int,
@@ -102,7 +106,53 @@ def pane_state_from_numpy(state_arrays, device="cuda") -> PaneStoreState:
                             for a in arrays))
 
 
+def _np_copy(t):
+    """A tensor as a numpy array of its own (a stream updates its pane
+    store in place)."""
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 def pane_state_to_numpy(state: PaneStoreState) -> dict:
-    """A pane-store state as ``{field: numpy array}``."""
-    return {f: getattr(state, f).detach().cpu().numpy()
-            for f in PANE_STATE_FIELDS}
+    """A pane-store state as ``{field: numpy array}`` (copies)."""
+    return {f: _np_copy(getattr(state, f)) for f in PANE_STATE_FIELDS}
+
+
+def carries_from_numpy(carries, device="cuda") -> tuple:
+    """A streaming state of rolling carries from numpy: one carry an op,
+    each a mapping of :data:`CARRY_FIELDS` or a sequence in that order (a
+    JAX ``Carry`` converted with ``np.asarray`` leaf by leaf), its
+    ``state`` one array or a tuple of arrays.  Returns the tuple of
+    :class:`repro_torch.core.segscan.Carry` on ``device`` that
+    ``execute(..., state=...)`` continues."""
+    import torch
+
+    from repro_torch.core.segscan import Carry
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    out = []
+    for carry in carries:
+        if hasattr(carry, "keys") and callable(carry.keys):
+            fields = [carry[f] for f in CARRY_FIELDS]
+        else:
+            fields = list(carry)
+        if len(fields) != len(CARRY_FIELDS):
+            raise ValueError(f"a carry has {len(CARRY_FIELDS)} fields "
+                             f"{CARRY_FIELDS}, got {len(fields)}")
+        group, state, nonempty, emitted = fields
+        state = (tuple(t(x) for x in state)
+                 if isinstance(state, (tuple, list)) else t(state))
+        out.append(Carry(t(group), state, t(nonempty), t(emitted)))
+    return tuple(out)
+
+
+def carries_to_numpy(carries) -> tuple:
+    """A streaming state of rolling carries as one ``{field: numpy}`` an op
+    (a multi-array ``state`` as a tuple of arrays; copies)."""
+    return tuple({"group": _np_copy(c.group),
+                  "state": (tuple(_np_copy(x) for x in c.state)
+                            if isinstance(c.state, tuple)
+                            else _np_copy(c.state)),
+                  "nonempty": _np_copy(c.nonempty),
+                  "emitted": _np_copy(c.emitted)} for c in carries)

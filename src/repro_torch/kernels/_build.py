@@ -43,7 +43,7 @@ _SIGNATURES = {
                          ctypes.POINTER(ctypes.c_longlong)],
     # g, k, key_type, nrows, T, og, ok, stream
     "rt_sort_rows": [_P, _P, _I, _I, _I, _P, _P, _P],
-    # g, k, key_type, ne, wa, c, ng, gid, slots0, gtab, dir, clock, ring_k,
+    # g, k, key_type, n, wa, c, ng, gid, slots0, gtab, dir, clock, ring_k,
     # ring_s, plan, snaps, clock_s, rk_s, rs_s, events, stats, stream
     "rt_pergroup_scan": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 15,
     # wk, wq, start, endp, own, cnt, lo, ug, perm, key_type, ne, wa, c,

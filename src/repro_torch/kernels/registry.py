@@ -6,18 +6,21 @@ package's registry).
   * ``cuda``        — the hand-written kernels, each window re-sorted
                       (group-by via the tiled groupagg kernel; time-range
                       windows via the two-stack flip kernel or the swag
-                      kernel over framed windows); the counterpart of
-                      ``pallas``
+                      kernel over framed windows; non-windowed streams via
+                      the segmented-scan kernel, one launch an op a push);
+                      the counterpart of ``pallas``
   * ``cuda-panes``  — WA-panes sorted once, windows merged from presorted
                       panes; the counterpart of ``pallas-panes``
   * ``cuda-panestore`` — per-group windows (``Window(ws_per_group=...)``):
                       the placement scan kernel, then the fused push +
                       partials kernel or the replay kernel; the counterpart
-                      of ``pallas-panestore``
-  * ``auto``        — ``cuda-panestore`` for per-group windows, else
-                      ``cuda-panes`` when the window shape allows, else
-                      ``cuda``, for tensors on the card; ``reference`` on
-                      the CPU
+                      of ``pallas-panestore``.  Streaming count windows
+                      too: a push is one placement scan from the carried
+                      store and one replay of the store it leaves
+  * ``auto``        — ``cuda-panestore`` for per-group and streaming count
+                      windows, else ``cuda-panes`` when the window shape
+                      allows, else ``cuda``, else ``reference``, for
+                      tensors on the card; ``reference`` on the CPU
 
 On CPU tensors the kernel backends run each kernel's plain torch version,
 which is how the tests reach them without a card.  Capability probes and
@@ -32,6 +35,11 @@ import torch
 
 from repro_torch.core.panestore import DIRECT_OPS, partial_path_names
 from repro_torch.core.swag import pane_compatible
+from repro_torch.kernels.segscan.kernel import SEGSCAN_OPS
+
+#: the reason every global-window kernel backend gives a streaming window
+STREAM_WINDOW = ("streaming windows thread a pane store as their carry — "
+                 "use the cuda-panestore backend")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +69,15 @@ def _cuda_window_common(q) -> str | None:
 
 
 def _cuda_supports(q) -> str | None:
+    if q.streaming:
+        if q.window is not None:
+            return STREAM_WINDOW
+        bad = sorted(set(q.op_names) - set(SEGSCAN_OPS))
+        if bad:
+            return (f"a streaming push scans each op with the segmented-scan "
+                    f"kernel, which scans {list(SEGSCAN_OPS)}; {bad} need "
+                    f"the reference backend")
+        return None
     if q.window is not None and q.window.is_time:
         # both time strategies have kernels: replay frames run the swag
         # kernel, the two-stack the twostack_flip kernel — which strategy a
@@ -91,6 +108,8 @@ def _cuda_panes_supports(q) -> str | None:
         return ("time-range windows re-frame by timestamp (no shared "
                 "count-panes to sort once); use the cuda or reference "
                 "backend")
+    if q.streaming:
+        return STREAM_WINDOW
     reason = _cuda_window_common(q)
     if reason is not None:
         return reason
@@ -104,11 +123,11 @@ def _cuda_panes_supports(q) -> str | None:
 
 
 def _cuda_panestore_supports(q) -> str | None:
-    if q.window is None or not q.window.per_group:
+    w = q.window
+    if w is None or w.is_time or not (w.per_group or q.streaming):
         return ("the pane-store kernel serves per-group windows "
-                "(Window(ws_per_group=...)) only")
-    if q.streaming:
-        return "streaming pane-store carries are a reference-backend feature"
+                "(Window(ws_per_group=...)) and streaming count windows "
+                "only")
     if q.interpolate:
         return "cuda median is lower-median only (interpolate=False)"
     bad = sorted(op for op in q.op_names if op not in DIRECT_OPS)
@@ -160,8 +179,8 @@ def unsupported_error(name: str, reason: str) -> ValueError:
 
 def choose_backend(query, device: torch.device) -> str:
     """Resolve ``auto`` for one query on ``device``: the kernels on the
-    card (the pane store for per-group windows, panes when the window shape
-    allows), the reference on the CPU.  Routing by measured cost comes with
+    card (the pane store for per-group and streaming windows, panes when
+    the window shape allows), the reference on the CPU.  Routing by measured cost comes with
     the port's observability slice."""
     if device.type != "cuda":
         return "reference"

@@ -11,7 +11,8 @@ per-group placement scan, which the JAX package leaves to an XLA
 * :func:`swag_panes` — window ``i`` merges the presorted panes
   ``i .. i+P-1`` instead of re-sorting, then the same tails.
 * :func:`pergroup_scan` — the per-tuple pane-store placement over a
-  stream's WA chunks (optionally keeping the ring buffers).
+  stream's WA chunks (optionally keeping the ring buffers; for a
+  streaming push, every tuple and only the store it leaves).
 * :func:`pergroup_fused` — per chunk: the per-group partial aggregates of
   the ring as the chunk's writes leave it (the chunks in parallel).
 * :func:`pergroup_replay_ring` — per evaluation and live group: the
@@ -351,9 +352,21 @@ def _cuda_int32(name: str, **tensors) -> None:
                              f"{t.device}")
 
 
-def pergroup_scan_plain(spec, state, groups, keys=None):
+def _store_into(state, new) -> None:
+    """Copy the store ``new`` into the tensors of ``state``."""
+    for dst, src in zip(state, new):
+        if dst is not src:
+            dst.copy_(src)
+
+
+def pergroup_scan_plain(spec, state, groups, keys=None, *, push=False,
+                        inplace=False):
     """Plain torch version of :func:`pergroup_scan`: the per-tuple loop."""
-    return _panestore.scan(spec, state, groups, keys)
+    trace = _panestore.scan(spec, state, groups, keys, push=push)
+    if inplace:
+        _store_into(state, trace.final)
+        trace = trace._replace(final=state)
+    return trace
 
 
 #: the scan keeps its group tables in shared memory up to this many groups,
@@ -368,80 +381,110 @@ def _scan_groups(spec, state, groups: torch.Tensor):
     [G], slots [5, C], gtab [3, G])``, all int32: each tuple's index; the
     id of each index (ascending); per slot its owner's index (-1: free),
     count, base, stamp and the next pane of its group (-1: none); per group
-    its newest and oldest pane (-1: none) and its window."""
+    its newest and oldest pane (-1: none) and its window.  Reads one pair
+    of numbers back to the host (the count of ids and the largest)."""
     n, c = groups.shape[0], state.owner.shape[0]
+    dev = groups.device
     free = state.owner == PAD_GROUP
-    ids, inv = torch.unique(torch.cat([groups, torch.where(
-        free, groups[:1], state.owner)]), return_inverse=True)
-    inv = inv.to(torch.int32)
+    every = torch.cat([groups, torch.where(free, groups[:1], state.owner)])
+    srt, order = torch.sort(every)
+    new = torch.ones_like(srt, dtype=torch.bool)
+    new[1:] = srt[1:] != srt[:-1]
+    rank = torch.cumsum(new, 0, dtype=torch.int32) - 1
+    ng, top = torch.stack([rank[-1] + 1, srt[-1]]).tolist()
+    if top == PAD_GROUP:
+        raise ValueError(f"pergroup_scan: group id {PAD_GROUP} marks a free "
+                         f"slot and cannot be a tuple's group")
+    inv = torch.empty_like(rank).scatter_(0, order, rank)
+    # equal ids scatter to one index with one value
+    ids = torch.empty_like(srt).scatter_(0, rank.long(), srt)[:ng]
     own = torch.where(free, -1, inv[n:])
-    ng = ids.shape[0]
     by_base = torch.sort(state.base, stable=True).indices
     order = by_base[torch.sort(own[by_base], stable=True).indices]
     od = own[order]
     step = od[1:] != od[:-1]
-    true = torch.ones((1,), dtype=torch.bool, device=groups.device)
+    true = torch.ones((1,), dtype=torch.bool, device=dev)
     first = (od >= 0) & torch.cat([true, step])
     last = (od >= 0) & torch.cat([step, true])
     order32 = order.to(torch.int32)
-    nxt = torch.full((c,), -1, dtype=torch.int32, device=groups.device)
+    nxt = torch.full((c,), -1, dtype=torch.int32, device=dev)
     nxt[order[:-1]] = torch.where(last[:-1] | (od[:-1] < 0), -1,
                                   order32[1:])
     # free slots scatter into a dropped column
-    gtab = torch.full((3, ng + 1), -1, dtype=torch.int32,
-                      device=groups.device)
+    gtab = torch.full((3, ng + 1), -1, dtype=torch.int32, device=dev)
     gtab[0].scatter_(0, torch.where(last, od, ng).long(), order32)
     gtab[1].scatter_(0, torch.where(first, od, ng).long(), order32)
     gtab[2, :ng] = spec.ws_of(ids)
     slots = torch.stack([own, state.count, state.base, state.stamp, nxt])
-    return (inv[:n].contiguous(), ids.to(torch.int32),
-            slots.to(torch.int32).contiguous(), gtab[:, :ng].contiguous())
+    return (inv[:n].contiguous(), ids, slots.to(torch.int32).contiguous(),
+            gtab[:, :ng].contiguous())
 
 
 def pergroup_scan(spec, state, groups: torch.Tensor,
-                  keys: torch.Tensor | None = None):
-    """Place the ``N // WA`` full chunks of ``groups`` into the pane store
-    ``state`` (a :class:`repro_torch.core.panestore.PaneStoreState` the
-    scan made, or an empty one), in one warp, 32 tuples at a time where no
-    pane is allocated or retired.  With ``keys`` the ring buffers are kept
-    too.  Returns a :class:`repro_torch.core.panestore.ScanTrace` (without
-    arrival ranks); ``state`` is not modified.  The kernel's batches, and
-    how many of them placed all their tuples at once, are left in
-    ``pergroup_scan.batch_stats`` ([2] int32 on the card)."""
+                  keys: torch.Tensor | None = None, *, push: bool = False,
+                  inplace: bool = False):
+    """Place the ``N // WA`` full chunks of ``groups`` into the pane
+    store ``state`` (a :class:`repro_torch.core.panestore.PaneStoreState`
+    the scan or a push made, or an empty one), in one warp, 32 tuples at a
+    time where no pane is allocated or retired.  With ``keys`` the ring
+    buffers are kept too.  Returns a
+    :class:`repro_torch.core.panestore.ScanTrace` (without arrival ranks).
+    A streaming ``push`` places every tuple (the last chunk may be short)
+    and records only the store after the last (no plan, no store after
+    every chunk).  ``state`` is not modified, unless ``inplace``: then the
+    kernel updates its ring and clock where they lie, its directory is
+    copied in, and the trace's ``final`` is ``state``.  One host sync (:func:`_scan_groups`).  The
+    kernel's batches, and how many of them placed all their tuples at
+    once, are left in ``pergroup_scan.batch_stats`` ([2] int32 on the
+    card)."""
     if groups.device.type == "cpu":
-        return pergroup_scan_plain(spec, state, groups, keys)
+        return pergroup_scan_plain(spec, state, groups, keys, push=push,
+                                   inplace=inplace)
     wa, c = spec.wa, spec.capacity
-    ne = groups.shape[-1] // wa
+    n = groups.shape[-1] if push else groups.shape[-1] // wa * wa
+    ne = -(-n // wa)
     _cuda_int32("pergroup_scan", groups=groups, owner=state.owner,
-                count=state.count, base=state.base, stamp=state.stamp)
-    if groups.dim() != 1 or ne == 0:
-        raise ValueError(f"pergroup_scan takes a [N] stream of at least one "
-                         f"chunk of {wa}, got {tuple(groups.shape)}")
+                count=state.count, base=state.base, stamp=state.stamp,
+                clock=state.clock)
+    if groups.dim() != 1 or n == 0:
+        raise ValueError(f"pergroup_scan takes a [N] stream of at least "
+                         f"{1 if push else wa} tuples, got "
+                         f"{tuple(groups.shape)}")
     if keys is not None and (keys.dtype != state.keys.dtype
                              or keys.dtype not in common.KEY_TYPES
                              or keys.device != groups.device
+                             or keys.shape != groups.shape
                              or not keys.is_contiguous()):
         raise ValueError(f"pergroup_scan: keys must be contiguous int32 or "
-                         f"float32 of the store's dtype on the card, got "
-                         f"{keys.dtype} (store {state.keys.dtype})")
+                         f"float32 of the store's dtype on the card, one a "
+                         f"tuple, got {keys.dtype} {tuple(keys.shape)} "
+                         f"(store {state.keys.dtype})")
+    ring = keys is not None
+    if inplace and ring:
+        _cuda_int32("pergroup_scan", seqs=state.seqs)
+        if not state.keys.is_contiguous():
+            raise ValueError("pergroup_scan: an in-place ring must be "
+                             "contiguous")
     dev = groups.device
     kt = state.keys.dtype
-    gidx, ids, slots0, gtab = _scan_groups(spec, state, groups[:ne * wa])
-    if int(ids[-1]) == PAD_GROUP:
-        raise ValueError(f"pergroup_scan: group id {PAD_GROUP} marks a free "
-                         f"slot and cannot be a tuple's group")
+    gidx, ids, slots0, gtab = _scan_groups(spec, state, groups[:n])
     direc = torch.empty((4, c), dtype=torch.int32, device=dev)
-    clock = state.clock.reshape(1).to(torch.int32).clone()
-    ring = keys is not None
-    ring_k = state.keys.contiguous().clone() if ring else None
-    ring_s = state.seqs.to(torch.int32).contiguous().clone() if ring \
-        else None
-    plan = torch.empty((3, ne, wa), dtype=torch.int32, device=dev)
-    snaps = torch.empty((4, ne, c), dtype=torch.int32, device=dev)
-    clock_s = torch.empty((ne,), dtype=torch.int32, device=dev)
-    rk_s = torch.empty((ne, c, wa), dtype=kt, device=dev) if ring else None
-    rs_s = torch.empty((ne, c, wa), dtype=torch.int32, device=dev) \
-        if ring else None
+    clock = state.clock.reshape(1)
+    if not inplace:
+        clock = clock.clone()
+    ring_k = ring_s = None
+    if ring:
+        ring_k = state.keys if inplace else state.keys.contiguous().clone()
+        ring_s = state.seqs if inplace else \
+            state.seqs.to(torch.int32).contiguous().clone()
+    plan = snaps = clock_s = rk_s = rs_s = None
+    if not push:
+        plan = torch.empty((3, ne, wa), dtype=torch.int32, device=dev)
+        snaps = torch.empty((4, ne, c), dtype=torch.int32, device=dev)
+        clock_s = torch.empty((ne,), dtype=torch.int32, device=dev)
+        if ring:
+            rk_s = torch.empty((ne, c, wa), dtype=kt, device=dev)
+            rs_s = torch.empty((ne, c, wa), dtype=torch.int32, device=dev)
     events = torch.empty((2,), dtype=torch.int32, device=dev)
     stats = torch.empty((2,), dtype=torch.int32, device=dev)
 
@@ -452,21 +495,27 @@ def pergroup_scan(spec, state, groups: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.rt_pergroup_scan(
             gidx.data_ptr(), ptr(keys), common.KEY_TYPES[kt] if ring else 0,
-            ne, wa, c, ids.shape[0], ids.data_ptr(), slots0.data_ptr(),
+            n, wa, c, ids.shape[0], ids.data_ptr(), slots0.data_ptr(),
             gtab.data_ptr(), direc.data_ptr(), clock.data_ptr(), ptr(ring_k),
-            ptr(ring_s), plan.data_ptr(), snaps.data_ptr(),
-            clock_s.data_ptr(), ptr(rk_s), ptr(rs_s), events.data_ptr(),
-            stats.data_ptr(), _build.stream_handle(dev))
+            ptr(ring_s), ptr(plan), ptr(snaps), ptr(clock_s), ptr(rk_s),
+            ptr(rs_s), events.data_ptr(), stats.data_ptr(),
+            _build.stream_handle(dev))
     _build.check(err, "pergroup_scan")
     pergroup_scan.launches += 1
     pergroup_scan.batch_stats = stats
-    states = _panestore.PaneStoreState(
-        owner=snaps[0], keys=rk_s, seqs=rs_s, count=snaps[1], base=snaps[2],
-        stamp=snaps[3], clock=clock_s)
     final = _panestore.PaneStoreState(
         owner=direc[0], keys=ring_k if ring else state.keys,
         seqs=ring_s if ring else state.seqs, count=direc[1], base=direc[2],
         stamp=direc[3], clock=clock[0])
+    if inplace:
+        _store_into(state, final)
+        final = state
+    if push:
+        return _panestore.ScanTrace(None, None, None, None, None, final,
+                                    None, events)
+    states = _panestore.PaneStoreState(
+        owner=snaps[0], keys=rk_s, seqs=rs_s, count=snaps[1], base=snaps[2],
+        stamp=snaps[3], clock=clock_s)
     return _panestore.ScanTrace(plan[0], plan[1], plan[2], states, None,
                                 final, None, events)
 

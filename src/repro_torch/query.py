@@ -25,13 +25,25 @@ Contracts (as in the paper): non-windowed queries need the input sorted by
 group id; ``distinct_count`` and ``median`` also need keys sorted within
 groups.  Windowed queries sort internally.
 
-Streaming (event-time streaming included), execution statistics and
-sharded execution belong to later slices of the port and raise
-``NotImplementedError`` naming the ROADMAP slice that brings them.
+Streaming queries (``Query(streaming=True)``) take one batch a call and
+thread a state between calls (``execute(..., state=...)`` returns the
+next), or run through :class:`repro_torch.core.StreamingAggregator`:
+without a window the state is one rolling carry an op and each push emits
+the groups it proves closed; with a count window it is the pane store and
+each push emits every live group's window:
+
+    >>> q = Query(ops=("sum", "dc"), streaming=True)
+    >>> res, state = execute(q, g1, k1)                # first batch
+    >>> res, state = execute(q, g2, k2, state=state)   # the next
+
+Event-time streaming, execution statistics and sharded execution belong
+to later slices of the port and raise ``NotImplementedError`` naming the
+ROADMAP slice that brings them.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -40,6 +52,8 @@ import torch
 from repro_torch.core import engine as _engine
 from repro_torch.core import eventtime as _eventtime
 from repro_torch.core import panestore as _panestore
+from repro_torch.core import segscan as _segscan
+from repro_torch.core import streaming as _streaming
 from repro_torch.core import twostack as _twostack
 from repro_torch.core.combiners import Combiner, get_combiner, out_dtype
 from repro_torch.core.sorter import next_pow2, sort_pairs_xla
@@ -48,6 +62,8 @@ from repro_torch.core.swag import (PARTIAL_OPS, _median_sorted_window, _swag,
 from repro_torch.kernels import common as _common
 from repro_torch.kernels import registry as _registry
 from repro_torch.kernels.groupagg.ops import _groupagg_kernel_exec
+from repro_torch.kernels.segscan.ops import segmented_scan_cuda
+from repro_torch.kernels.swag import kernel as _swag_kernel
 from repro_torch.kernels.swag.ops import (_engine_median_kernel_exec,
                                           _swag_kernel_exec,
                                           _swag_pergroup_kernel_exec,
@@ -250,8 +266,10 @@ class Query:
     allowed; aliases normalised), ``group_by`` (False: the whole stream is
     one group), ``window`` (:class:`Window`), ``interpolate`` (median only:
     the float midpoint), ``n_valid`` (static real-prefix length),
-    ``streaming`` (a later slice), ``presorted`` (windowed queries promise
-    each window is already (group, key)-sorted; reference backend)."""
+    ``streaming`` (one batch a call, a state threaded between calls; a
+    plain ``Window(ws, wa)`` then runs on the pane store, ``ws`` being each
+    group's window), ``presorted`` (windowed queries promise each window
+    is already (group, key)-sorted; reference backend)."""
     ops: Any
     group_by: bool = True
     window: Window | None = None
@@ -296,7 +314,7 @@ class Plan:
     """A Query lowered onto a concrete backend for one device."""
     query: Query
     backend: str            # concrete registry name (never "auto")
-    path: str               # "engine" | "window"
+    path: str               # "engine" | "window" | "stream"
     device: str
     note: str = ""
 
@@ -305,14 +323,19 @@ def plan(query: Query, *, backend: str | None = None,
          device="cuda") -> Plan:
     """Validate ``query`` and choose a backend (``None`` means ``auto``).
     Raises ``ValueError`` when an explicitly requested backend cannot run
-    the query (never a silent fallback)."""
+    the query (never a silent fallback).
+
+    Streaming windowed queries run on the per-group pane store: with a
+    plain ``Window(ws)`` the window counts each group's *own* last ``ws``
+    tuples (the paper's approximation — other numbers than the same window
+    executed batch-at-a-time, which frames the raw stream); the plan's
+    ``note`` records the reinterpretation."""
     if not isinstance(query, Query):
         raise TypeError(f"expected a Query, got {type(query).__name__}")
-    if query.streaming:
-        if query.window is not None and query.window.is_time:
-            raise _later_slice("Query(streaming=True) with Window(range=...)",
-                               "5b", "event-time streaming")
-        raise _later_slice("Query(streaming=True)", 3, "streaming")
+    if query.streaming and query.window is not None \
+            and query.window.is_time:
+        raise _later_slice("Query(streaming=True) with Window(range=...)",
+                           "5b", "event-time streaming")
     device = _common.require_cuda(device)
     if query.window is not None and query.window.is_time:
         if query.presorted:
@@ -320,14 +343,18 @@ def plan(query: Query, *, backend: str | None = None,
                              "windows — they frame by timestamp")
         resolve_time_strategy(query)  # explicit strategy validated now
         query.window.store_spec()     # wa/capacity validated now
-    elif query.window is not None and query.window.per_group:
+    elif query.window is not None and (query.window.per_group
+                                       or query.streaming):
+        # both the per-group batch path and every streaming windowed query
+        # run on the shared pane store (streaming global windows are the
+        # paper's approximation: ws becomes each group's default window)
         if query.presorted:
             raise ValueError("presorted is meaningless with the pane "
                              "store — it frames and sorts panes itself")
         if query.window.panes is False:
             raise ValueError("Window(panes=False) conflicts with "
-                             "ws_per_group: the pane store *is* the pane "
-                             "path")
+                             "ws_per_group / streaming windows: the pane "
+                             "store *is* the pane path")
         query.window.store_spec()  # validate wa/capacity/ws_per_group now
     names = query.op_names
     if query.interpolate and "median" not in names:
@@ -338,6 +365,10 @@ def plan(query: Query, *, backend: str | None = None,
     for op in query.ops:
         if isinstance(op, str) and op != "median":
             get_combiner(op)  # raises on unknown names
+    if query.streaming and query.window is None and "median" in names:
+        # the JAX package's words (its sharded path); its single-device
+        # stream fails on the missing carry
+        raise ValueError("streaming median has no mergeable carry")
 
     name = "auto" if backend is None else backend
     note = ""
@@ -347,9 +378,136 @@ def plan(query: Query, *, backend: str | None = None,
     reason = _registry.get_backend(name).supports(query)
     if reason is not None:
         raise _registry.unsupported_error(name, reason)
-    path = "window" if query.window is not None else "engine"
+    path = ("stream" if query.streaming
+            else "window" if query.window is not None
+            else "engine")
+    if path == "stream" and query.window is not None \
+            and not query.window.per_group:
+        # NOT the batch semantics: a streamed global window runs on the
+        # pane store, where ws becomes each group's default per-group
+        # window (the paper's approximation) — flag it on the plan
+        note = (note + "; " if note else "") + \
+            "stream-window: ws serves as each group's per-group window"
+    if path == "stream" and query.window is not None \
+            and name == "reference" and device.type == "cuda":
+        # no kernel places this push: the reference's loop runs on a host
+        # copy of the store, off the card
+        why = _registry.BACKENDS["cuda-panestore"].supports(query)
+        note = (note + "; " if note else "") + \
+            "reference: per-tuple placement on the host" + \
+            (f" (cuda-panestore: {why})" if why else "")
     return Plan(query=query, backend=name, path=path, device=str(device),
                 note=note)
+
+
+def _combiners(query: Query) -> tuple:
+    """Resolved combiners aligned with ``query.ops`` (a streaming query
+    without a window has no median)."""
+    return tuple(op if isinstance(op, Combiner) else get_combiner(op)
+                 for op in query.ops)
+
+
+def init_stream_state(p: Plan, key_dtype=torch.int32,
+                      collect_stats: bool = False):
+    """Fresh state for a streaming plan, on its device: one
+    :class:`repro_torch.core.segscan.Carry` an op, or a pane store when the
+    query is windowed."""
+    if collect_stats:
+        raise _later_slice("init_stream_state(collect_stats=True)", 6,
+                           "observability")
+    if p.path != "stream":
+        raise ValueError("init_stream_state needs a streaming plan")
+    dev = torch.device(p.device)
+    if p.query.window is not None:
+        return _panestore.init_store(p.query.window.store_spec(), key_dtype,
+                                     device=dev)
+    return tuple(_segscan.init_carry(c, key_dtype, dev)
+                 for c in _combiners(p.query))
+
+
+def _store_push(p: Plan, state, groups, keys, n_valid, inplace: bool):
+    """Place a batch (its first ``n_valid`` tuples) into the pane store:
+    on ``cuda-panestore`` one placement scan launch from the carried store
+    (``inplace``: the store's own ring and directory are updated); on the
+    reference the per-tuple loop on a host copy."""
+    spec = p.query.window.store_spec()
+    if p.backend != "cuda-panestore":
+        return _panestore.push(spec, state, groups, keys, n_valid=n_valid)
+    n = groups.shape[-1]
+    if n_valid is not None:
+        n = min(max(int(n_valid), 0), n)
+    if n == 0:
+        return state
+    keys = keys[:n].to(state.keys.dtype).contiguous()
+    return _swag_kernel.pergroup_scan(
+        spec, state, groups[:n].to(torch.int32).contiguous(), keys,
+        push=True, inplace=inplace).final
+
+
+def _store_eval(p: Plan, state):
+    """One evaluation of every live group's window in the pane store:
+    ``(groups [C], {name: values [C]}, valid [C], num)``.  On
+    ``cuda-panestore`` one launch of the ring-form replay over the store
+    as a one-snapshot ``[1, ...]`` state."""
+    q = p.query
+    spec = q.window.store_spec()
+    if p.backend != "cuda-panestore":
+        return _panestore.replay(spec, state, q.ops,
+                                 interpolate=q.interpolate)
+    one = _panestore.PaneStoreState(*(x[None] for x in state))
+    ovs, ugroups, num = _swag_kernel.pergroup_replay_ring(spec, one,
+                                                          q.op_names)
+    valid = torch.arange(spec.capacity, device=num.device) < num
+    values = {nm: torch.where(valid, v[0], 0).to(v.dtype)
+              for nm, v in ovs.items()}
+    return (torch.where(valid, ugroups[0], _engine.PAD_GROUP), values,
+            valid, num[0])
+
+
+def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
+              collect_stats: bool = False, tile: int = 1024,
+              inplace: bool = False):
+    """The raw streaming step of a planned streaming query: ``(groups,
+    keys, state, n_valid) -> ((groups, values, valid, num, rr), state)``.
+
+    Non-windowed streams thread one :class:`segscan.Carry` an op (on
+    ``cuda`` each op's segmented scan is one kernel launch at ``tile``);
+    windowed streams thread a
+    :class:`repro_torch.core.panestore.PaneStoreState` (place the batch,
+    then one per-group evaluation).  The given state is left as it was,
+    unless ``inplace``, which lets a ``cuda-panestore`` push update the
+    store where it lies."""
+    if p.path != "stream":
+        raise ValueError("stream_fn needs a streaming plan")
+    if mesh is not None:
+        raise _later_slice("stream_fn(mesh=)", 7, "multi-device")
+    if collect_stats:
+        raise _later_slice("stream_fn(collect_stats=True)", 6,
+                           "observability")
+    q = p.query
+    if q.window is not None:
+        c = q.window.store_spec().capacity
+
+        def store_step(groups, keys, state, n_valid=None):
+            state = _store_push(p, state, groups, keys, n_valid, inplace)
+            g, values, valid, num = _store_eval(p, state)
+            lane = torch.arange(c, dtype=torch.int32, device=valid.device)
+            rr = torch.where(valid, lane % p_ports, -1).to(torch.int32)
+            return (g, values, valid, num, rr), state
+
+        return store_step
+
+    combiners = _combiners(q)
+    # step (c) on the segmented-scan kernel, one launch an op
+    scan = functools.partial(segmented_scan_cuda, tile=tile) \
+        if p.backend == "cuda" else _segscan.segmented_scan
+
+    def step(groups, keys, carries, n_valid=None):
+        return _streaming.stream_push(groups, keys, carries, combiners,
+                                      n_valid=n_valid, p_ports=p_ports,
+                                      scan=scan)
+
+    return step
 
 
 def _as_tensor(x, device) -> torch.Tensor:
@@ -512,26 +670,30 @@ def _execute_time_window(p: Plan, groups, keys, timestamps):
     return AggResult(shared[0], values, shared[1], shared[2])
 
 
-def execute(plan_or_query, groups, keys=None, *, backend: str | None = None,
-            device="cuda", tile: int = 1024, n_valid=None, timestamps=None,
-            mesh=None, num_shards: int | None = None,
-            collect_stats: bool = False):
+def execute(plan_or_query, groups, keys=None, *, state=None,
+            backend: str | None = None, device="cuda", tile: int = 1024,
+            n_valid=None, timestamps=None, mesh=None,
+            num_shards: int | None = None, collect_stats: bool = False):
     """Run a :class:`Query` (planned on the fly) or a prebuilt :class:`Plan`.
 
     Args:
       groups: [N] group-id column (``None`` for ``Query(group_by=False)``);
         numpy or torch, moved to ``device``.
       keys: [N] value column.
+      state: streaming queries only — the state the previous call
+        returned (``None`` starts a fresh stream); it is not modified.
       backend: override the plan's backend (re-plans when it differs).
       device: where to run — ``"cuda"`` (the default) or ``"cpu"``, where
         the kernel backends run their kernels' plain torch versions.
-      tile: kernel tile length of the ``cuda`` group-by path.
+      tile: kernel tile length of the ``cuda`` group-by path and of a
+        ``cuda`` streaming push's scans.
       n_valid: prefix-length override of ``query.n_valid``.
       timestamps: [N] integer event times of a ``Window(range=...)``
         query (numpy or torch; required by it, refused by the others).
       mesh, num_shards, collect_stats: later slices of the port.
 
-    Returns ``(AggResult, None)``.
+    Returns ``(AggResult, new_state)``; ``new_state`` is ``None`` unless
+    the query streams.
     """
     if mesh is not None or num_shards not in (None, 1):
         raise _later_slice("sharded execution (mesh=, num_shards=)", 7,
@@ -557,6 +719,15 @@ def execute(plan_or_query, groups, keys=None, *, backend: str | None = None,
     if not is_time and timestamps is not None:
         raise ValueError("timestamps apply to time-range windows "
                          "(Window(range=...)) only")
+    if p.path == "stream":
+        if state is None:
+            state = init_stream_state(p, keys.dtype)
+        (g, values, valid, num, _rr), new_state = stream_fn(p, tile=tile)(
+            groups, keys, state, n_valid)
+        return AggResult(g, values, valid, num), new_state
+    if state is not None:
+        raise ValueError("state= applies to streaming queries "
+                         "(Query(streaming=True))")
     if p.path == "window":
         if n_valid is not None:
             raise ValueError("n_valid applies to non-windowed queries")

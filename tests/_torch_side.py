@@ -327,6 +327,130 @@ def swag_per_group_counters():
         counters={})
 
 
+# --------------------------------------------------------------- streaming
+
+def _stream_plan(ops, window, query, backend):
+    return tq.plan(_query(ops, window, dict(query or {}, streaming=True)),
+                   backend=backend, device="cpu")
+
+
+def _stream_state(p, state, key_dtype):
+    """A stream's state from numpy (carries or a pane store), or a fresh
+    one."""
+    from repro_torch.interop import carries_from_numpy, pane_state_from_numpy
+
+    if state is None:
+        return tq.init_stream_state(p, key_dtype)
+    if p.query.window is not None:
+        return pane_state_from_numpy(state, "cpu")
+    return carries_from_numpy(state, "cpu")
+
+
+def _state_np(state):
+    from repro_torch.core.panestore import PaneStoreState
+    from repro_torch.interop import carries_to_numpy, pane_state_to_numpy
+
+    if isinstance(state, PaneStoreState):
+        return pane_state_to_numpy(state)
+    return carries_to_numpy(state)
+
+
+def stream_steps(ops, batches, *, backend, window=None, query=None,
+                 state=None, n_valids=None):
+    """Push ``batches`` ([(groups, keys)]) through the streaming step of
+    the plan (``stream_fn``), from ``state`` (numpy) or a fresh one; per
+    push, its full outputs (with ``rr_port``) and the state it left, in
+    numpy."""
+    p = _stream_plan(ops, window, query, backend)
+    st = _stream_state(p, state, _t(batches[0][1]).dtype)
+    step = tq.stream_fn(p)
+    n_valids = n_valids or [None] * len(batches)
+    out = []
+    for (g, k), nv in zip(batches, n_valids):
+        (og, ov, valid, num, rr), st = step(_t(g), _t(k), st, nv)
+        out.append({"groups": og.numpy(), "values": _np(ov),
+                    "valid": valid.numpy(), "num": num.numpy(),
+                    "rr": rr.numpy(), "state": _state_np(st)})
+    return out
+
+
+def aggregator_stream(op, batches, *, backend, window=None,
+                      float_keys=False, n_valids=None):
+    """``StreamingAggregator``'s pushes and flush on the CPU: per push its
+    result and carry, then the flush's result, in numpy."""
+    from repro_torch.core import StreamingAggregator
+
+    agg = StreamingAggregator(
+        op, window=None if window is None else tq.Window(**window),
+        key_dtype=torch.float32 if float_keys else torch.int32,
+        device="cpu", backend=backend)
+    n_valids = n_valids or [None] * len(batches)
+    out = []
+    for (g, k), nv in zip(batches, n_valids):
+        r = agg.push(g, k, n_valid=nv)
+        out.append({**_np(r._asdict()), "state": _state_np(agg.carry)})
+    return out, _np(agg.flush()._asdict())
+
+
+def execute_twice(ops, g, k, *, backend, window=None, state=None):
+    """``execute(state=...)`` twice on one state: both results, and the
+    state before and after (numpy)."""
+    p = _stream_plan(ops, window, None, backend)
+    st = _stream_state(p, state, _t(k).dtype)
+    before = _state_np(st)
+    r1, s1 = tq.execute(p, g, k, state=st, device="cpu")
+    r2, s2 = tq.execute(p, g, k, state=st, device="cpu")
+    return (_np(tuple(result_to_numpy(r1)[:4])),
+            _np(tuple(result_to_numpy(r2)[:4])), _state_np(s1),
+            _state_np(s2), before, _state_np(st))
+
+
+def rr_ports(groups, valid, emitted_before, p):
+    """``repro_torch.core.rr_ports`` of a result's groups and valid mask."""
+    from repro_torch.core import rr_ports as run
+
+    res = core_engine.GroupAggResult(_t(groups), _t(groups), _t(valid),
+                                     _t(valid).sum())
+    return run(res, torch.tensor(emitted_before, dtype=torch.int32),
+               p).numpy()
+
+
+def stream_evictions(window, batches) -> int:
+    """The evictions of the plain placement over a windowed stream's
+    pushes."""
+    from repro_torch.core import panestore as ps
+
+    spec = tq.Window(**window).store_spec()
+    st = ps.init_store(spec)
+    total = 0
+    for g, _ in batches:
+        trace = ps.scan(spec, st, _t(g), push=True)
+        total += int(trace.events[0])
+        st = trace.final
+    return total
+
+
+def aggregator_later_slice(what):
+    """The pieces of streaming that wait for later slices."""
+    from repro_torch.core import StreamingAggregator
+    from repro_torch.core.streaming import stream_push_table
+
+    if what == "shards":
+        StreamingAggregator("sum", num_shards=2, device="cpu")
+    elif what == "mesh":
+        StreamingAggregator("sum", mesh=object(), device="cpu")
+    elif what == "stats":
+        StreamingAggregator("sum", collect_stats=True, device="cpu")
+    elif what == "timestamps":
+        agg = StreamingAggregator("sum", device="cpu")
+        agg.push(np.zeros(4, np.int32), np.zeros(4, np.int32),
+                 timestamps=np.zeros(4, np.int32))
+    elif what == "time window":
+        StreamingAggregator("sum", window=tq.Window(range=10), device="cpu")
+    elif what == "table":
+        stream_push_table(None, (), ("sum",), first_group=0, any_real=True)
+
+
 # ------------------------------------------------------ time-range windows
 
 def time_layout(ts, time_range, slide):

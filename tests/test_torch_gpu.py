@@ -494,6 +494,170 @@ def test_pergroup_scan_kernel_vs_plain(cuda, case, dtype, ring):
         assert torch.unique(g).numel() > sk.SCAN_GROUP_SMEM_MAX
 
 
+@pytest.mark.parametrize("mode", ["push", "push_no_ring", "inplace"])
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", PERGROUP_CASES)
+def test_pergroup_scan_push_modes_vs_plain(cuda, case, dtype, mode):
+    # a streaming push's placement: every tuple (the stream cut 3 short of
+    # the case's chunks, so the last chunk is ragged) and only the store
+    # after the last, from an empty or a continued store; inplace updates
+    # the given store where it lies
+    import torch
+
+    from repro_torch.core import panestore as ps
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec, st, g, k = _pergroup_stream(case, dtype, cuda)
+    g, k = g[:-3].contiguous(), k[:-3].contiguous()
+    keys = None if mode == "push_no_ring" else k
+    want = sk.pergroup_scan_plain(spec, st, g, keys, push=True)
+    mine = ps.PaneStoreState(*(x.clone() for x in st))
+    got = sk.pergroup_scan(spec, mine, g, keys, push=True,
+                           inplace=mode == "inplace")
+    torch.cuda.synchronize()
+    _assert_trees(got, want, "scan")
+    if mode == "inplace":
+        assert got.final is mine
+        assert got.final.keys.data_ptr() == mine.keys.data_ptr()
+    else:
+        _assert_trees(mine, st, "the given store")
+    assert got.slots is None and got.states is None
+
+
+def test_pergroup_scan_rejects_the_free_slot_id(cuda):
+    # PAD_GROUP marks a free slot: a push that carries it raises
+    import torch
+
+    from repro_torch.core import panestore as ps
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec = ps.PaneStoreSpec(wa=4, capacity=8, default_ws=8)
+    g = torch.tensor([0, 1, PAD_GROUP], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="free slot"):
+        sk.pergroup_scan(spec, ps.init_store(spec, device=cuda), g, g,
+                         push=True)
+
+
+def _card_streams(cuda, windowed, dtype):
+    """A stream on the card cut into pushes of uneven lengths (the
+    windowed ones leave ragged chunks): ``(query ops, window, batches,
+    n_valids)``."""
+    import torch
+
+    from repro_torch.query import Window
+
+    if windowed:
+        g, k = _stream(41, 9000, 70, dtype, None, cuda)
+        sizes = [1000, 1, 2999, 127, 4873]
+        window = Window(ws=256, wa=32, ws_per_group={0: 1024, 1: 32},
+                        capacity=300)
+        ops = DIRECT_OPS
+    else:
+        g, k = _stream(42, 12000, 300, dtype, "group_key", cuda)
+        sizes = [3000, 1, 5000, 999, 3000]
+        window = None
+        ops = SEGSCAN_OPS
+    edges = np.cumsum([0] + sizes)
+    batches = [(g[a:b], k[a:b]) for a, b in zip(edges[:-1], edges[1:])]
+    # the last push padded past its real tuples
+    last_g, last_k = batches[-1]
+    batches[-1] = (torch.cat([last_g, torch.zeros_like(last_g[:77])]),
+                   torch.cat([last_k, torch.zeros_like(last_k[:77])]))
+    return ops, window, batches, [None] * (len(sizes) - 1) + [sizes[-1]]
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("windowed", [False, True],
+                         ids=["carries", "pane_store"])
+def test_streams_on_card_match_reference(cuda, windowed, dtype):
+    # cuda (non-windowed) and cuda-panestore (count windows) streams
+    # against the reference backend on the card, push by push: outputs,
+    # rr_port and the state after each push; one segscan launch an op a
+    # push, or one placement scan and one ring replay a push
+    import torch
+
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.kernels.swag import kernel as sk
+    from repro_torch.query import Query, init_stream_state, plan, stream_fn
+
+    ops, window, batches, n_valids = _card_streams(cuda, windowed, dtype)
+    q = Query(ops=ops, window=window, streaming=True)
+    p = plan(q, backend="cuda-panestore" if windowed else "cuda",
+             device=cuda)
+    assert plan(q, device=cuda).backend == p.backend  # auto on the card
+    pr = plan(q, backend="reference", device=cuda)
+    assert ("per-tuple placement on the host" in pr.note) == windowed, \
+        pr.note
+    kdt = batches[0][1].dtype
+    step, ref = stream_fn(p, tile=256), stream_fn(pr)
+    st, rst = init_stream_state(p, kdt), init_stream_state(pr, kdt)
+    for i, ((g, k), nv) in enumerate(zip(batches, n_valids)):
+        sk.pergroup_scan.launches = 0
+        sk.pergroup_replay_ring.launches = 0
+        ssk.segscan.launches = 0
+        got, st = step(g, k, st, nv)
+        counts = (sk.pergroup_scan.launches, sk.pergroup_replay_ring.launches,
+                  ssk.segscan.launches)
+        assert counts == ((1, 1, 0) if windowed else (0, 0, len(ops))), \
+            counts
+        want, rst = ref(g, k, rst, nv)
+        torch.cuda.synchronize()
+        tag = f"push {i}"
+        for a, b, what in zip(got[:1] + got[2:], want[:1] + want[2:],
+                              ("groups", "valid", "num", "rr_port")):
+            assert_same(a, b, what=f"{tag} {what}")
+        for name in ops:
+            assert_same(got[1][name], want[1][name],
+                        inexact=name in INEXACT, what=f"{tag} {name}")
+        if windowed:
+            _assert_trees(st, rst, f"{tag} store")
+        else:
+            for name, c, r in zip(ops, st, rst):
+                _assert_trees((c.group, c.nonempty, c.emitted),
+                              (r.group, r.nonempty, r.emitted), tag)
+                cs = c.state if isinstance(c.state, tuple) else (c.state,)
+                rs = r.state if isinstance(r.state, tuple) else (r.state,)
+                for a, b in zip(cs, rs):
+                    assert_same(a, b, inexact=name in INEXACT,
+                                what=f"{tag} carry {name}")
+
+
+def test_stream_auto_reference_on_card_says_so(cuda):
+    # a windowed stream that no kernel backend serves resolves to the
+    # reference on the card, and its plan says that the placement runs on
+    # the host and why cuda-panestore refused
+    from repro_torch.query import Query, Window, plan
+
+    q = Query(ops=("median",), window=Window(ws=64, wa=16, capacity=40),
+              streaming=True, interpolate=True)
+    p = plan(q, device=cuda)
+    assert p.backend == "reference", p
+    assert "per-tuple placement on the host (cuda-panestore: " in p.note, \
+        p.note
+
+
+def test_aggregator_on_card_updates_its_store_in_place(cuda):
+    # a windowed StreamingAggregator's pushes keep the store's ring where
+    # it lies, and its flush equals the reference's
+    import torch
+
+    from repro_torch.core import StreamingAggregator
+    from repro_torch.query import Window
+
+    w = Window(ws=64, wa=16, capacity=40)
+    g, k = _stream(43, 3000, 12, np.int32, None, cuda)
+    agg = StreamingAggregator("distinct_count", window=w, device=cuda)
+    ref = StreamingAggregator("distinct_count", window=w,
+                              backend="reference", device=cuda)
+    ring = agg.carry.keys.data_ptr()
+    for a, b in ((0, 999), (999, 1000), (1000, 3000)):
+        got, want = agg.push(g[a:b], k[a:b]), ref.push(g[a:b], k[a:b])
+        assert agg.carry.keys.data_ptr() == ring
+        _assert_trees(got[:5], want[:5], f"push {a}")
+    _assert_trees(agg.flush()[:5], ref.flush()[:5], "flush")
+    torch.cuda.synchronize()
+
+
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
 @pytest.mark.parametrize("case", PERGROUP_CASES)
 def test_pergroup_fused_kernel_vs_plain(cuda, case, dtype):

@@ -254,8 +254,10 @@ def test_probe_rejections(port):
     assert "per-group windows" in reason("cuda-panestore", ("sum",))
     assert "per-group windows" in reason("cuda-panestore", ("sum",),
                                          {"ws": 16})
-    assert "streaming" in reason("cuda-panestore", ("sum",), w,
-                                 {"streaming": True})
+    # streaming count windows run on the pane-store kernels (slice 3)
+    assert reason("cuda-panestore", ("sum",), w, {"streaming": True}) is None
+    assert "use the cuda-panestore backend" in reason(
+        "cuda", ("sum",), w, {"streaming": True})
     assert "lower-median" in reason("cuda-panestore", ("median",), w,
                                     {"interpolate": True})
     assert "variance" in reason("cuda-panestore", ("variance",), w)
