@@ -53,6 +53,13 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
          tuples and one of 1536 (each leaves a ragged chunk), (g)'s ops,
          then a flush; one placement scan (the final store only, updated
          in place) and one ring-form replay a push, one replay the flush;
+     (o) an event-time stream through ``StreamingAggregator`` on
+         ``cuda-panestore`` (``auto``): (h)'s generator (2^16 tuples, 64
+         groups) and window, Window(range=4096, slide=1024, wa=16,
+         capacity=1024, max_lateness=64, reorder_capacity=128), in 64
+         pushes of 1024 tuples, (g)'s ops, then a flush; one reorder, one
+         time-mode placement and one time-form ring replay a push and for
+         the flush, the buffers updated in place;
    each result is checked against the ``reference`` backend on the card
    (groups, valid and counts equal, values equal on the valid lanes, int32
    keys): (a)-(e), (h) and (i) over the full stream, (f) and (g) over their
@@ -65,14 +72,19 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    open group of its final carries, against (a)'s one-shot result, (n)
    push by push (outputs with rr_port, and the store) against the plain
    placement on a host copy and the plain replay, through the first push
-   that evicts, and its flush against the plain replay; the
+   that evicts, and its flush against the plain replay, (o) push by push
+   (outputs with rr_port and late_dropped, which must stay 0, and the
+   carried reorder buffer and store) against the plain reorder, placement
+   and replay chained on the host, through the first push whose placement
+   retires a pane, and its flush against the plain flush of a host copy of
+   the carry before it; the
    per-group runs print the evictions and retirements of that prefix, and
    (f) fails without a retirement, (g) without an eviction; (h) and (i)
    print the share of their time spent in
    the window layout (its sort and searches, read back to the host) and,
    for (h), the host's walk of the epoch schedule; each run is then timed
-   over 7 calls (median, fastest and slowest; (m) and (n) over 7 whole
-   streams);
+   over 7 calls (median, fastest and slowest; (m), (n) and (o) over 7
+   whole streams);
 4. each kernel against its plain torch version on the same card tensors at
    the shapes the main path gives it (int32 keys: exact, padded tails
    included; the swag kernel at both its row widths, and on float32
@@ -81,15 +93,20 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    window kernels', the sort's and the flip's launch shapes and ptxas's
    registers and spills (one more ``nvcc -Xptxas -v`` of ``csrc/swag.cu``,
    ``csrc/pergroup.cu``, ``csrc/bitonic.cu``, ``csrc/twostack.cu``,
-   ``csrc/groupagg.cu`` and ``csrc/segscan.cu``; a spill in the window,
-   pane-sort, replay, sort, flip, group-by or scan kernels fails the
-   script) printed, swag at (c)'s and swag_panes at (b)'s shape timed
-   with op count alone, and the sort, the flip, both groupagg layouts
+   ``csrc/groupagg.cu``, ``csrc/segscan.cu`` and ``csrc/reorder.cu``; a
+   spill in the window, pane-sort, replay, sort, flip, group-by, scan,
+   reorder or time-mode placement kernels fails the script) printed,
+   swag at (c)'s and swag_panes at (b)'s shape timed with op count alone, and the sort, the flip, both groupagg layouts
    (the flat launch of all (a)'s ops and the per-tile op sum) and the scan
    also timed 20 calls back to back; the per-group placement scan, with
    its eviction and retirement counts, on the first 2^16 tuples and at
    (n)'s push, its plain version being one torch loop step a tuple; the
-   scan at (m)'s push, every op; the ring replay at (n)'s one evaluation),
+   scan at (m)'s push, every op; the ring replay at (n)'s one evaluation;
+   at (o)'s push the reorder kernel and the time-mode placement, each also
+   on float32 keys with -0.0 and NaN and on an edge push — forced pops
+   and late tuples (a 32-slot buffer), chaining, evictions and negative
+   timestamps (32 slots, four groups) — and the time-form replay of (o)'s
+   last store, on float32 keys too),
    timed with CUDA events beside the plain
    version, a library call where one computes the same function, and the
    least time the card could take (H100 SXM data sheet: 3.35 TB/s, 67
@@ -133,6 +150,15 @@ STREAM_BATCHES = 16
 #: run (n): (g)'s stream pushed as 8 x 8000 tuples and 1536, each push
 #: leaving a ragged chunk of WA = 128
 WINDOW_PUSHES = (8000,) * 8 + (1536,)
+#: run (o): (h)'s stream generator and window, streamed: 2^16 tuples over 64
+#: groups in 64 pushes of 1024, a time-mode store of 1024 slots of 16 (a
+#: replay row of 1024 x 16 = 16384 lanes), a reorder buffer of 128 slots
+#: (jitter 64 < lateness 64 + 1: nothing late)
+EVENT_WINDOW = dict(range=4096, slide=1024, wa=16, capacity=1024,
+                    max_lateness=64, reorder_capacity=128)
+EVENT_STREAM = dict(n=1 << 16, n_groups=64, key_max=1 << 20, density=0.875,
+                    jitter=64)
+EVENT_PUSH = 1024
 REPLACES = {
     "groupagg": "src/repro/kernels/groupagg/kernel.py:109",
     "swag": "src/repro/kernels/swag/kernel.py:453",
@@ -143,6 +169,10 @@ REPLACES = {
     "pergroup_fused": "src/repro/kernels/swag/kernel.py:365",
     # no TPU kernel: the XLA lax.scan of _push_decide
     "pergroup_scan": "src/repro/core/panestore.py:238",
+    # no TPU kernel: the lax.scans of _reorder_cycle (and _reorder_drain)
+    # and of _push_one_time
+    "reorder": "src/repro/core/eventtime.py:168",
+    "pergroup_scan_time": "src/repro/core/panestore.py:379",
     "twostack_flip": "src/repro/kernels/swag/kernel.py:428",
     "bitonic_sort": "src/repro/kernels/bitonic/kernel.py:36",
     "segmented_scan": "src/repro/kernels/segscan/kernel.py:76",
@@ -153,6 +183,8 @@ SOURCES = {
     "sort_panes": "src/repro_torch/csrc/swag.cu",
     "swag_panes": "src/repro_torch/csrc/swag.cu",
     "pergroup_scan": "src/repro_torch/csrc/pergroup.cu",
+    "pergroup_scan_time": "src/repro_torch/csrc/pergroup.cu",
+    "reorder": "src/repro_torch/csrc/reorder.cu",
     "pergroup_fused": "src/repro_torch/csrc/pergroup.cu",
     "pergroup_replay": "src/repro_torch/csrc/pergroup.cu",
     "pergroup_replay_ring": "src/repro_torch/csrc/pergroup.cu",
@@ -939,6 +971,358 @@ def stream_runs(torch, data, dev, wrappers, run_launches, identity):
     return phases, rows
 
 
+def _bits(torch, t):
+    """A tensor's bits: float32 viewed as int32 (NaN payloads, signed
+    zeros); anything else as int64 (bool included), for max_abs_err."""
+    return (t.view(torch.int32) if t.dtype == torch.float32 else t).long()
+
+
+def _emit_err(torch, got, want, n_in: int) -> float:
+    """Hold reorder emissions to the plain version's: live and late flags
+    on every lane, ts, group and key bits on the live lanes (a dead
+    lane's fields are whatever its cycle read), ts 0 on the dead drain
+    lanes past the ``n_in`` cycle lanes.  The largest |difference|."""
+    dev = got.ts.device
+    lv = want.live.to(dev)
+    pick = [torch.where(lv, _bits(torch, getattr(x, f).to(dev)), 0)
+            for x in (got, want) for f in ("ts", "groups", "keys")]
+    flags = [_bits(torch, getattr(x, f).to(dev))
+             for x in (got, want) for f in ("live", "late")]
+    if not bool((got.ts[n_in:][~got.live[n_in:]] == 0).all()):
+        raise AssertionError("reorder: a dead drain lane's ts is not 0")
+    return max_abs_err(torch, pick[:3] + flags[:2], pick[3:] + flags[2:])
+
+
+def _state_err(torch, got, want) -> float:
+    """|difference| of two stores or buffers, bit for bit."""
+    dev = got[0].device
+    return max_abs_err(torch, [_bits(torch, x) for x in got],
+                       [_bits(torch, x.to(dev)) for x in want])
+
+
+def _specials(torch, keys):
+    """``keys`` as float32 with -0.0 at every 5th lane and NaN at every
+    11th from lane 3."""
+    k = keys.to(torch.float32).clone()
+    k[::5] = -0.0
+    k[3::11] = float("nan")
+    return k
+
+
+def event_time_run(torch, dev, wrappers, run_launches, identity):
+    """Run (o): an event-time stream through ``StreamingAggregator`` on
+    ``cuda-panestore`` — (h)'s generator and window streamed as 64 pushes
+    of 1024 tuples, (g)'s seven ops, then a flush; each push one reorder,
+    one time-mode placement and one ring replay launch — checked push by
+    push against the plain versions on a host copy through the first push
+    whose placement retires a pane, and its flush against the plain flush;
+    then the three kernels at its shapes.  Returns (phases, kernel
+    rows)."""
+    import numpy as np
+
+    from repro_torch.core import StreamingAggregator
+    from repro_torch.core import eventtime as et
+    from repro_torch.core import panestore as ps
+    from repro_torch.core.engine import PAD_GROUP
+    from repro_torch.interop import make_time_stream
+    from repro_torch.kernels.eventtime import kernel as ek
+    from repro_torch.kernels.swag import kernel as sk
+    from repro_torch.query import Window
+
+    w = Window(**EVENT_WINDOW)
+    spec, rspec = w.store_spec(), w.reorder_spec()
+    c, wa, lat = spec.capacity, spec.wa, w.max_lateness
+    es = EVENT_STREAM
+    n = es["n"]
+    g, k, ts = (torch.from_numpy(x).to(dev) for x in make_time_stream(
+        SEED, n, es["n_groups"], es["key_max"], es["density"],
+        es["jitter"]))
+    pushes = [(g[i:i + EVENT_PUSH], k[i:i + EVENT_PUSH],
+               ts[i:i + EVENT_PUSH]) for i in range(0, n, EVENT_PUSH)]
+    npush = len(pushes)
+
+    def copy(carry):
+        return (et.ReorderState(*(x.clone() for x in carry[0])),
+                ps.PaneStoreState(*(x.clone() for x in carry[1])))
+
+    def stream_o(keep=False):
+        agg = StreamingAggregator(REPLAY_OPS, window=w)
+        if agg.plan.backend != "cuda-panestore":
+            raise AssertionError(f"run (o) planned {agg.plan}")
+        outs, carries = [], []
+        for pg, pk, pt in pushes:
+            if keep:
+                carries.append(copy(agg.carry))
+            outs.append(agg.push(pg, pk, timestamps=pt))
+        if keep:
+            carries.append(copy(agg.carry))
+        outs.append(agg.flush())
+        return outs, carries
+
+    (outs, carries), counts, peak = counted_call(
+        torch, lambda: stream_o(keep=True), wrappers)
+    want = {"reorder": npush + 1, "pergroup_scan_time": npush + 1,
+            "pergroup_replay_ring": npush + 1}
+    if any(counts[nm] != v for nm, v in want.items()) \
+            or sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"run (o) launched {counts}, not one reorder, "
+                             f"one time-mode placement and one ring replay "
+                             f"a push and for the flush")
+    run_launches["o"] = counts
+    t1 = time.perf_counter()
+    lane = torch.arange(c, dtype=torch.int32)
+
+    def plain_eval(pstate, eval_time):
+        ovs, ug, num = sk.pergroup_replay_ring_plain(
+            spec, ps.PaneStoreState(*(x[None] for x in pstate)),
+            REPLAY_OPS, eval_time=eval_time.reshape(1))
+        valid = lane < num[0]
+        return (torch.where(valid, ug[0], PAD_GROUP), valid, num[0],
+                torch.where(valid, lane % 4, -1).to(torch.int32),
+                {nm: v[0] for nm, v in ovs.items()})
+
+    def check_eval(res, want, what):
+        got = (res.groups, res.valid, res.num_groups, res.rr_port)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want[:4])) \
+                or not all(torch.equal(res.values[nm].cpu(), v)
+                           for nm, v in want[4].items()):
+            raise AssertionError(f"run (o) {what} differs from the plain "
+                                 f"versions")
+
+    # push by push, the plain chain from a fresh carry on the host, through
+    # the first push whose placement retires a pane
+    host = torch.device("cpu")
+    rst = et.init_reorder(rspec, torch.int32, host)
+    pst = ps.init_store(spec, torch.int32, device=host)
+    checked = retirements = evictions = 0
+    at = None
+    for i, ((pg, pk, pt), res) in enumerate(zip(pushes, outs)):
+        before = (rst, pst)
+        (emit, rst), r_ms = plain_once(torch, lambda: et.reorder_push(
+            rspec, before[0], pt.cpu(), pg.cpu(), pk.cpu()))
+        wm = rst.max_ts - lat
+        (pst, events), p_ms = plain_once(torch, lambda: ps.push_time_events(
+            spec, before[1], emit.groups, emit.keys, emit.ts, emit.live,
+            wm - w.range))
+        check_eval(res, plain_eval(pst, wm), f"push {i}")
+        if int(res.stats["late_dropped"]) != 0 or int(rst.dropped) != 0:
+            raise AssertionError(f"run (o) push {i} dropped late tuples")
+        kr, kp = carries[i + 1]
+        if _state_err(torch, kr, rst) or _state_err(torch, kp, pst):
+            raise AssertionError(f"run (o): the carry after push {i} "
+                                 f"differs from the plain versions'")
+        checked += 1
+        evictions += int(events[0])
+        retirements += int(events[1])
+        at = (i, emit, wm, r_ms, p_ms, events)
+        if retirements:
+            break
+    if not retirements:
+        raise AssertionError(f"run (o): no retirement in the {checked} "
+                             f"pushes checked")
+    # the flush against the plain flush on a host copy of the carry
+    rst, pst = (type(x)(*(y.cpu() for y in x)) for x in carries[-1])
+    emit_f, rst = et.reorder_flush(rspec, rst)
+    pst, _ = ps.push_time_events(spec, pst, emit_f.groups, emit_f.keys,
+                                 emit_f.ts, emit_f.live)
+    check_eval(outs[-1], plain_eval(pst, rst.max_ts + 1), "flush")
+    check_s = time.perf_counter() - t1
+    print(f"run (o) checked {checked} pushes (through the first that "
+          f"retires: {retirements} retirements, {evictions} evictions) and "
+          f"the flush against the plain versions", flush=True)
+    final, (r_before, p_before) = carries[-1], carries[at[0]]
+    del outs, carries
+    phases = [_stream_phase(
+        torch, "o", "StreamingAggregator push/flush (event time)",
+        "cuda-panestore", stream_o, n, npush, counts, peak, check_s,
+        identity, ops=list(REPLAY_OPS), window=dict(EVENT_WINDOW),
+        checked_pushes=checked, retirements_checked=retirements,
+        evictions_checked=evictions, late_dropped=0)]
+    rows = []
+    j, emit, wm, r_ms, p_ms, events = at
+
+    # reorder at a push's shape: push j onto the buffer before it
+    pg, pk, pt = pushes[j]
+    got, ms = timed(torch, lambda: ek.reorder_push(rspec, r_before, pt, pg,
+                                                   pk), 5)
+    want = ek.reorder_push_plain(rspec, r_before, pt, pg, pk)
+    err = max(_emit_err(torch, got[0], want[0], EVENT_PUSH),
+              _state_err(torch, got[1], want[1]))
+    fk = _specials(torch, pk)
+    r_float = r_before._replace(val=r_before.val.to(torch.float32))
+    gf = ek.reorder_push(rspec, r_float, pt, pg, fk)
+    wf = ek.reorder_push_plain(rspec, r_float, pt, pg, fk)
+    float_err = max(_emit_err(torch, gf[0], wf[0], EVENT_PUSH),
+                    _state_err(torch, gf[1], wf[1]))
+    # forced pops and late tuples: a 32-slot buffer (about 60 tuples are in
+    # flight) and eight lanes 500 units behind, from an empty buffer
+    spec32 = et.ReorderSpec(32, lat)
+    lt = pt.clone()
+    lt[100::113] -= 500
+    empty = et.init_reorder(spec32, torch.int32, dev)
+    ge = ek.reorder_push(spec32, empty, lt, pg, pk)
+    we = ek.reorder_push_plain(spec32, empty, lt, pg, pk)
+    edge_err = max(_emit_err(torch, ge[0], we[0], EVENT_PUSH),
+                   _state_err(torch, ge[1], we[1]))
+    m = lt.shape[0]
+    gate = torch.cummax(lt.cpu(), 0).values - lat
+    forced = int((we[0].live[:m].cpu() & (we[0].ts[:m].cpu() > gate)).sum())
+    late = int(we[1].dropped)
+    if forced == 0 or late == 0:
+        raise AssertionError(f"reorder edge check: {forced} forced pops, "
+                             f"{late} late tuples")
+    if float_err or edge_err:
+        raise AssertionError(f"reorder: float32 keys differ by {float_err}, "
+                             f"the forced-pop push by {edge_err}")
+    nb = (12 * m + 14 * (m + rspec.capacity) + 2 * 17 * rspec.capacity + 32)
+    bnd, by = bound_ms(nb, 0.0)
+    rows.append({"name": "reorder", "ms": ms, "ns_a_tuple": ms * 1e6 / m,
+                 "plain_ms": r_ms, "library_ms": None, "max_abs_err": err,
+                 "bound_ms": bnd, "bound_by": by,
+                 "shape": [m, rspec.capacity], "runs": ["o"],
+                 "float32_check": {"max_abs_err": float_err,
+                                   "keys": "-0.0 and NaN"},
+                 "edge_check": {"capacity": 32, "forced_pops": forced,
+                                "late": late, "max_abs_err": edge_err}})
+
+    # the time-mode placement at a push's shape: push j's emission onto
+    # the store before it
+    em = type(emit)(*(x.to(dev) for x in emit))
+    rb = (wm - w.range).to(dev)
+    got, ms = timed(torch, lambda: sk.pergroup_scan_time(
+        spec, p_before, em.groups, em.keys, em.ts, em.live, rb), 5)
+    want = sk.pergroup_scan_time_plain(spec, p_before, em.groups, em.keys,
+                                       em.ts, em.live, rb)
+    err = max(_state_err(torch, got[0], want[0]),
+              max_abs_err(torch, [got[1]], [want[1].to(dev)]))
+    p_float = p_before._replace(keys=p_before.keys.to(torch.float32))
+    fkeys = _specials(torch, em.keys)
+    gf = sk.pergroup_scan_time(spec, p_float, em.groups, fkeys, em.ts,
+                               em.live, rb)
+    wf = sk.pergroup_scan_time_plain(spec, p_float, em.groups, fkeys, em.ts,
+                                     em.live, rb)
+    float_err = max(_state_err(torch, gf[0], wf[0]),
+                    max_abs_err(torch, [gf[1]], [wf[1].to(dev)]))
+    # chaining, evictions and negative timestamps: four groups (about 128
+    # tuples a pane of 16), 32 slots, the stream a million units back
+    spec_e = ps.PaneStoreSpec(wa=wa, capacity=32, default_ws=1,
+                              slide=w.slide, time_range=w.range)
+    st_e = wt_e = ps.init_store(spec_e, torch.int32, device=dev)
+    ev_e = np.zeros(2, np.int64)
+    edge_err = 0.0
+    for q in range(2):
+        qg, qk, qt = pushes[q]
+        qg = (qg % 4).contiguous()
+        qt = qt - 1_000_000
+        live = torch.ones_like(qg, dtype=torch.bool)
+        qrb = qt.max() - lat - w.range
+        st_e, kev = sk.pergroup_scan_time(spec_e, st_e, qg, qk, qt, live,
+                                          qrb)
+        wt_e, pev = sk.pergroup_scan_time_plain(spec_e, wt_e, qg, qk, qt,
+                                                live, qrb)
+        edge_err = max(edge_err, _state_err(torch, st_e, wt_e),
+                       max_abs_err(torch, [kev], [pev.to(dev)]))
+        ev_e += pev.cpu().numpy()
+    occ = (wt_e.owner != PAD_GROUP).cpu()
+    pairs = list(zip(wt_e.owner.cpu()[occ].tolist(),
+                     wt_e.base.cpu()[occ].tolist()))
+    chained = len(pairs) - len(set(pairs))
+    if ev_e[0] == 0 or chained == 0 or int(wt_e.base.cpu()[occ].max()) >= 0:
+        raise AssertionError(f"time placement edge check: {ev_e.tolist()} "
+                             f"events, {chained} chained slots")
+    if float_err or edge_err:
+        raise AssertionError(f"pergroup_scan_time: float32 keys differ by "
+                             f"{float_err}, the edge pushes by {edge_err}")
+    fin = want[0]
+    same = ((p_before.count == wa) & (p_before.owner == fin.owner)
+            & (p_before.base == fin.base) & (p_before.stamp == fin.stamp))
+    closes = int(((fin.count == wa) & ~same).sum())
+    m = em.ts.shape[0]
+    live_lanes = int(em.live.sum())
+    # read: the emission (group, key, ts, live), the directory; written:
+    # each live lane's key and timestamp, the directory and clock; a
+    # closing pane's keys and timestamps read and written once
+    nb = 13 * m + 8 * live_lanes + 16 * wa * closes + 32 * c + 16
+    bnd, by = bound_ms(nb, 0.0)
+    rows.append({"name": "pergroup_scan_time", "ms": ms,
+                 "ns_a_tuple": ms * 1e6 / live_lanes, "plain_ms": p_ms,
+                 "library_ms": None, "max_abs_err": err, "bound_ms": bnd,
+                 "bound_by": by, "shape": [m, c, wa], "live_lanes":
+                 live_lanes, "closes": closes, "events": events.tolist(),
+                 "runs": ["o"],
+                 "float32_check": {"max_abs_err": float_err,
+                                   "keys": "-0.0 and NaN"},
+                 "edge_check": {"capacity": 32, "groups": 4,
+                                "evictions": int(ev_e[0]),
+                                "retirements": int(ev_e[1]),
+                                "chained_slots": chained,
+                                "max_abs_err": edge_err}})
+
+    # the ring replay's time form at a push's shape: one evaluation of the
+    # store before the flush, at its watermark
+    one = ps.PaneStoreState(*(x[None] for x in final[1]))
+    et_t = (final[0].max_ts - lat).reshape(1)
+    out, ms = timed(torch, lambda: sk.pergroup_replay_ring(
+        spec, one, REPLAY_OPS, eval_time=et_t), 5)
+    want, plain_ms = plain_once(torch, lambda: sk.pergroup_replay_ring_plain(
+        spec, one, REPLAY_OPS, eval_time=et_t))
+    err = max_abs_err(torch, [out[1], out[2], *out[0].values()],
+                      [want[1], want[2], *(want[0][nm] for nm in out[0])])
+    dirs, glue_ms = timed(torch, lambda: sk.ring_directory(spec, one, et_t),
+                          5)
+    cnt = torch.empty((1, c), dtype=torch.int32, device=dev)
+    _, launch_ms = timed(torch, lambda: sk.replay_ring_launch(
+        spec, one.keys, dirs, REPLAY_OPS, live_out=cnt), 5)
+    bound = ring_replay_bound(torch, spec, dirs, cnt, len(REPLAY_OPS))
+    # float32 keys: the placement's float store (-0.0 and NaN) on the ops
+    # that do not order the window, and with NaN made +inf (panes stay
+    # sorted) on every op, zeros compared without their sign
+    fone = ps.PaneStoreState(*(x[None] for x in gf[0]))
+    ft = (rb + w.range).reshape(1)
+    free_ops = ("count", "sum", "mean")
+    a = sk.pergroup_replay_ring(spec, fone, free_ops, eval_time=ft)
+    b = sk.pergroup_replay_ring_plain(spec, fone, free_ops, eval_time=ft)
+    if not (torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+            and torch.equal(a[0]["count"], b[0]["count"])):
+        raise AssertionError("pergroup_replay_ring (time, float32, NaN): "
+                             "groups or counts differ")
+    for nm in ("sum", "mean"):
+        torch.testing.assert_close(a[0][nm], b[0][nm], rtol=1e-5, atol=1e-5,
+                                   equal_nan=True, msg=nm)
+    inf_keys = torch.where(torch.isnan(fone.keys), float("inf"), fone.keys)
+    fone = fone._replace(keys=inf_keys)
+    a = sk.pergroup_replay_ring(spec, fone, REPLAY_OPS, eval_time=ft)
+    b = sk.pergroup_replay_ring_plain(spec, fone, REPLAY_OPS, eval_time=ft)
+    float_err = max_abs_err(torch, [a[1], a[2]], [b[1], b[2]])
+    for nm in REPLAY_OPS:
+        x, y = a[0][nm], b[0][nm]
+        if nm in INEXACT:
+            torch.testing.assert_close(x, y, rtol=1e-5, atol=1e-5, msg=nm)
+        else:
+            x, y = (v + 0.0 if v.dtype.is_floating_point else v
+                    for v in (x, y))
+            if not torch.equal(x, y):
+                raise AssertionError(f"pergroup_replay_ring (time, float32):"
+                                     f" {nm} differs from plain")
+        float_err = max(float_err, max_abs_err(torch, [x], [y]))
+    rows.append({"name": "pergroup_replay_ring", "form": "time", "ms": ms,
+                 "launch_ms": launch_ms, "glue_ms": glue_ms,
+                 "plain_ms": plain_ms, "library_ms": None,
+                 "max_abs_err": err, **bound, "shape": [1, c, spec.runs, wa],
+                 "runs": ["o"],
+                 "float32_check": {"max_abs_err": float_err,
+                                   "keys": "-0.0 (all ops, zeros unsigned), "
+                                           "NaN (count, sum, mean)"}})
+    for row in rows:
+        print(f"{row['name']} at run (o)'s shape {row['shape']}: "
+              f"{row['ms']:.4f} ms"
+              + (f" ({row['ns_a_tuple']:.1f} ns a tuple)"
+                 if "ns_a_tuple" in row else "")
+              + f", bound {row['bound_ms']:.6f} ({row['bound_by']}), plain "
+              f"{row['plain_ms']:.2f} ms [{identity}]", flush=True)
+    return phases, rows
+
+
 def slice5_kernels(torch, sk, data, dev) -> list:
     """twostack_flip at (h)'s shape, swag at (i)'s, bitonic_sort at (j)'s
     and segmented_scan at (k)'s, each against its plain version."""
@@ -1094,8 +1478,11 @@ PTXAS_KERNELS = {
         (r"sort_rows_kernelI([if])Li(\d+)ELi(\d+)E", "sort_rows_kernel",
          ("keys", "lanes", "max_threads"))],
     "pergroup.cu": [
-        (r"pergroup_replay_kernelI([if])Lb([01])E",
-         "pergroup_replay_kernel", ("keys", "ring"))],
+        (r"pergroup_replay_kernelI([if])Lb([01])ELb([01])E",
+         "pergroup_replay_kernel", ("keys", "ring", "time")),
+        (r"pergroup_scan_time_kernelI([if])E", "pergroup_scan_time_kernel",
+         ("keys",))],
+    "reorder.cu": [(r"reorder_kernel", "reorder_kernel", ())],
     "bitonic.cu": [
         (r"bitonic_rows_kernelILi(\d)ELi(n?\d)E", "bitonic_rows_kernel",
          ("num_keys", "float_keys"))],
@@ -1154,7 +1541,7 @@ def kernel_ptxas(build) -> list:
                 sm = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem"] = int(sm[1]) if sm else 0
     shown = ("op", "keys", "num_keys", "float_keys", "lanes", "max_threads",
-             "ring", "flat")
+             "ring", "time", "flat")
     for r in rows:
         args = ", ".join(f"{k} {r[k]}" for k in shown if k in r)
         print(f"ptxas {r['kernel']}<{args}>: "
@@ -1245,6 +1632,7 @@ def main() -> int:
     from repro_torch.interop import from_numpy, make_stream, make_time_stream
     from repro_torch.kernels import _build, common
     from repro_torch.kernels.bitonic import kernel as bk
+    from repro_torch.kernels.eventtime import kernel as ek
     from repro_torch.kernels.groupagg import kernel as gk
     from repro_torch.kernels.segscan import kernel as ssk
     from repro_torch.kernels.swag import kernel as sk
@@ -1263,6 +1651,8 @@ def main() -> int:
     wrappers = {"groupagg": gk.groupagg, "swag": sk.swag,
                 "sort_panes": sk.sort_panes, "swag_panes": sk.swag_panes,
                 "pergroup_scan": sk.pergroup_scan,
+                "pergroup_scan_time": sk.pergroup_scan_time,
+                "reorder": ek.reorder_push,
                 "pergroup_fused": sk.pergroup_fused,
                 "pergroup_replay": sk.pergroup_replay,
                 "pergroup_replay_ring": sk.pergroup_replay_ring,
@@ -1396,6 +1786,10 @@ def main() -> int:
     stream_phases, kernels = stream_runs(torch, data, dev, wrappers,
                                          run_launches, identity)
     phases += stream_phases
+    stream_phases, rows = event_time_run(torch, dev, wrappers, run_launches,
+                                         identity)
+    phases += stream_phases
+    kernels += rows
 
     # groupagg as run (a) launches it: the flat layout, every op of (a) in
     # one launch over the unpadded stream
@@ -1533,7 +1927,12 @@ def main() -> int:
             row["ptxas"] = next(
                 r for r in ptxas if r["kernel"] == "pergroup_replay_kernel"
                 and r["keys"] == "int32"
-                and r["ring"] == (row["name"] == "pergroup_replay_ring"))
+                and r["ring"] == (row["name"] == "pergroup_replay_ring")
+                and r["time"] == (row.get("form") == "time"))
+        if row["name"] in ("reorder", "pergroup_scan_time"):
+            row["ptxas"] = next(
+                r for r in ptxas if r["kernel"] == row["name"] + "_kernel"
+                and r.get("keys", "int32") == "int32")
         if row["name"] == "sort_panes":
             geo = sk.swag_geometry(row["shape"][1])
             row["ptxas"] = min(

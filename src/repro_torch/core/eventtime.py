@@ -13,11 +13,28 @@ the device (a few scalars); the sort and the boundary searches run where
 the timestamps are.  Window ends use floor division (``ts // slide``), so
 negative timestamps frame as they do in numpy.
 
-Watermarks and the bounded-lateness reorder buffer serve event-time
-streaming, which comes with a later slice (ROADMAP slice 5b).
+Event-time streaming rests on the other half of the module:
+
+  * :class:`WatermarkTracker` — the low-watermark of a stream: with every
+    tuple within ``max_lateness`` of the largest timestamp seen, ``wm =
+    max_ts - max_lateness`` promises that no later tuple is earlier;
+    shards merge by the minimum (:func:`merge_watermarks`);
+  * the bounded-lateness **reorder buffer** (:class:`ReorderSpec`,
+    :func:`reorder_push`): one tuple in and at most one out a cycle, the
+    buffered minimum released once the watermark passes it (or forced out
+    when the buffer is full), tuples later than the contract flagged and
+    dropped, then a drain of everything the final gate has passed, sorted
+    by (ts, seq) — so the released set after a push does not depend on
+    the arrival order.
+
+:func:`reorder_push` and :func:`reorder_flush` here are the plain versions:
+a loop of the cycle on a host copy of the buffer, the result on the
+buffer's device.  On the card the same cycle runs as one CUDA kernel
+(``repro_torch.kernels.eventtime.kernel.reorder_push``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -28,6 +45,11 @@ from repro_torch.core import sorter
 #: hard ceiling on the number of time windows one batch may frame (a sparse
 #: stream with a tiny slide would otherwise explode the window axis)
 MAX_TIME_WINDOWS = 65536
+
+#: initial "no tuple seen" timestamp: low enough that wm = TS_MIN - L never
+#: releases anything, high enough that int32 arithmetic cannot wrap
+TS_MIN = -(2 ** 30)
+INT32_MAX = torch.iinfo(torch.int32).max
 
 
 def concrete_timestamps(timestamps, device=None) -> torch.Tensor:
@@ -105,3 +127,251 @@ def frame_time_windows(layout: TimeLayout, groups_sorted: torch.Tensor,
     fk = torch.where(live, keys_sorted[idx],
                      torch.zeros((), dtype=keys_sorted.dtype, device=dev))
     return fg, fk, cnt
+
+
+# --------------------------------------------------------------- watermarks
+
+class WatermarkTracker(NamedTuple):
+    """Low-watermark state of one stream shard: the largest timestamp seen
+    so far (0-d int32)."""
+    max_ts: torch.Tensor
+
+
+def _i32(x, device=None) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.int32, device=device)
+
+
+def init_tracker(device="cpu") -> WatermarkTracker:
+    return WatermarkTracker(max_ts=_i32(TS_MIN, device))
+
+
+def observe(tracker: WatermarkTracker, ts,
+            live=None) -> WatermarkTracker:
+    """Fold a batch of timestamps into the tracker (``live`` masks lanes)."""
+    ts = _i32(ts, tracker.max_ts.device)
+    if live is not None:
+        ts = torch.where(torch.as_tensor(live, device=ts.device), ts,
+                         TS_MIN)
+    top = ts.max() if ts.numel() else _i32(TS_MIN, ts.device)
+    return WatermarkTracker(torch.maximum(tracker.max_ts, top))
+
+
+def watermark(tracker: WatermarkTracker, max_lateness: int) -> torch.Tensor:
+    """``wm = max_ts - max_lateness``: no later in-contract tuple is
+    earlier than this."""
+    return tracker.max_ts - max_lateness
+
+
+def merge_watermarks(wms) -> torch.Tensor:
+    """The cross-shard merge rule: a stream's watermark is the minimum of
+    its shards' (a tuple may still arrive on the slowest).  ``wms`` is a
+    sequence of scalars or a stacked tensor."""
+    if not isinstance(wms, torch.Tensor):
+        wms = torch.stack([_i32(w) for w in wms])
+    return wms.min()
+
+
+# ------------------------------------------- bounded-lateness reorder buffer
+
+@dataclasses.dataclass(frozen=True)
+class ReorderSpec:
+    """One reorder buffer: ``capacity`` slots (a power of two) and the
+    lateness contract ``max_lateness`` (a tuple more than this many time
+    units behind the largest timestamp seen is dropped and counted)."""
+    capacity: int
+    max_lateness: int
+
+    def __post_init__(self):
+        if self.capacity <= 0 or self.capacity & (self.capacity - 1):
+            raise ValueError(f"reorder capacity must be a positive power of "
+                             f"two, got {self.capacity}")
+        if self.max_lateness < 0:
+            raise ValueError(f"max_lateness must be >= 0, "
+                             f"got {self.max_lateness}")
+
+
+class ReorderState(NamedTuple):
+    """The reorder buffer, part of an event-time stream's state.  ``seq``
+    is each slot's arrival number (equal timestamps leave in arrival
+    order); ``max_ts`` is the embedded watermark tracker; ``last_emit``
+    keeps emissions nondecreasing across forced releases; ``dropped``
+    counts the late tuples of the stream's lifetime."""
+    ts: torch.Tensor         # [C] int32
+    grp: torch.Tensor        # [C] int32
+    val: torch.Tensor        # [C] key dtype
+    seq: torch.Tensor        # [C] int32
+    occ: torch.Tensor        # [C] bool
+    max_ts: torch.Tensor     # [] int32
+    last_emit: torch.Tensor  # [] int32
+    seq_clock: torch.Tensor  # [] int32
+    dropped: torch.Tensor    # [] int32
+
+
+class ReorderEmit(NamedTuple):
+    """What one push releases: ``N`` lanes, one a cycle, then ``capacity``
+    drain lanes.  ``late`` flags input lanes dropped as too late; ``live``
+    flags the lanes that carry a released tuple (a dead lane's other
+    fields carry whatever the cycle read)."""
+    ts: torch.Tensor      # [N + C] int32
+    groups: torch.Tensor  # [N + C] int32
+    keys: torch.Tensor    # [N + C]
+    live: torch.Tensor    # [N + C] bool
+    late: torch.Tensor    # [N + C] bool
+
+
+def init_reorder(spec: ReorderSpec, key_dtype=torch.int32,
+                 device="cpu") -> ReorderState:
+    c = spec.capacity
+
+    def zeros(dt=torch.int32):
+        return torch.zeros((c,), dtype=dt, device=device)
+
+    return ReorderState(
+        ts=zeros(), grp=zeros(), val=zeros(key_dtype), seq=zeros(),
+        occ=zeros(torch.bool), max_ts=_i32(TS_MIN, device),
+        last_emit=_i32(TS_MIN, device), seq_clock=_i32(0, device),
+        dropped=_i32(0, device))
+
+
+def _reorder_cycle(spec: ReorderSpec, st: ReorderState, lanes, t, g, k, lv,
+                   release_wm, late_wm):
+    """One tuple in, at most one out — the JAX package's cycle, updating
+    the host copy ``st`` in place (its 0-d scalars included).  The incoming
+    tuple (dead when ``lv`` is False) first advances the watermark; the
+    buffered (or the incoming) minimum by (ts, seq) is released once the
+    gate passes it, or when the buffer would overflow; a tuple earlier than
+    the lateness floor or than the last emission is dropped.  Returns the
+    cycle's emission ``(ts, group, key, live, late)`` as 0-d tensors."""
+    c = spec.capacity
+    max_ts = torch.maximum(st.max_ts, torch.where(lv, t, TS_MIN))
+    wm = max_ts - spec.max_lateness
+    release = wm if release_wm is None else release_wm
+    late_floor = wm if late_wm is None else late_wm
+    late = lv & ((t < late_floor) | (t < st.last_emit))
+    insert = lv & ~late
+
+    # the buffered minimum by (ts, seq), in two int32 steps; with nothing
+    # buffered the argmin is slot 0
+    mts = torch.where(st.occ, st.ts, INT32_MAX).min()
+    any_occ = st.occ.any()
+    lane = torch.argmin(torch.where(st.occ & (st.ts == mts), st.seq,
+                                    INT32_MAX))
+    full = st.occ.sum(dtype=torch.int32) == c
+
+    # the incoming tuple never wins a tie (its seq is the largest)
+    inc_min = insert & ((t < mts) | ~any_occ)
+    pop_inc = inc_min & ((t <= release) | full)
+    pop_buf = ~pop_inc & any_occ & ((mts <= release) | (full & insert))
+
+    et = torch.where(pop_inc, t, st.ts[lane])
+    eg = torch.where(pop_inc, g, st.grp[lane])
+    ek = torch.where(pop_inc, k, st.val[lane])
+    ev = pop_inc | pop_buf
+
+    st.occ[lane] &= ~pop_buf
+    do_ins = insert & ~pop_inc
+    slot = torch.argmax((~st.occ).to(torch.int32))  # free when do_ins
+    at = do_ins & (lanes == slot)
+    st.ts.copy_(torch.where(at, t, st.ts))
+    st.grp.copy_(torch.where(at, g, st.grp))
+    st.val.copy_(torch.where(at, k, st.val))
+    st.seq.copy_(torch.where(at, st.seq_clock, st.seq))
+    st.occ.logical_or_(at)
+    st.max_ts.copy_(max_ts)
+    st.last_emit.copy_(torch.where(ev, torch.maximum(st.last_emit, et),
+                                   st.last_emit))
+    st.seq_clock.add_(do_ins.to(torch.int32))
+    st.dropped.add_(late.to(torch.int32))
+    return et, eg, ek, ev, late
+
+
+def _reorder_drain(spec: ReorderSpec, st: ReorderState, release,
+                   rel=None) -> ReorderEmit:
+    """Release every buffered tuple the gate has passed (``ts <=
+    release``; or the slots ``rel`` marks), sorted by (ts, seq), as one
+    ``[capacity]`` emission batch: its released lanes first, then the
+    other slots in slot order.  Updates the host copy ``st`` in place."""
+    c = spec.capacity
+    if rel is None:
+        rel = st.occ & (st.ts <= release)
+    ts_m = torch.where(rel, st.ts, INT32_MAX)
+    seq_m = torch.where(rel, st.seq, INT32_MAX)
+    # (ts, seq) lexicographic and stable: seq first, then ts, both stable
+    order = torch.sort(seq_m, stable=True).indices
+    order = order[torch.sort(ts_m[order], stable=True).indices]
+    num = rel.sum(dtype=torch.int32)
+    live = torch.arange(c) < num
+    sts = ts_m[order]
+    last = torch.where(num > 0, sts[torch.clamp(num - 1, min=0)],
+                       st.last_emit)
+    st.occ.logical_and_(~rel)
+    st.last_emit.copy_(torch.maximum(st.last_emit, last))
+    return ReorderEmit(torch.where(live, sts, 0), st.grp[order],
+                       st.val[order], live, torch.zeros((c,),
+                                                        dtype=torch.bool))
+
+
+def _host_copy(state: ReorderState) -> ReorderState:
+    host = torch.device("cpu")
+    return ReorderState(*(x.to(host, copy=True) for x in state))
+
+
+def _on(dev, emit: ReorderEmit, st: ReorderState):
+    return (ReorderEmit(*(x.to(dev) for x in emit)),
+            ReorderState(*(x.to(dev) for x in st)))
+
+
+def reorder_push(spec: ReorderSpec, state: ReorderState, ts, groups, keys,
+                 *, n_valid=None, release_wm=None, late_wm=None,
+                 drain_wm=None, counters=None):
+    """Stream one batch through the reorder buffer: the cycle for every
+    tuple (the first ``n_valid`` live), then a drain of everything else the
+    final gate has passed, so that after every push the released set is
+    exactly the tuples at or below the gate, whatever the arrival order.
+    Returns ``(ReorderEmit [N + capacity], new state)``; emissions are
+    ts-nondecreasing over the batch.
+
+    ``release_wm`` replaces the per-cycle release gate with an externally
+    merged watermark (a sharded stream), and must be causal; ``drain_wm``
+    is the gate of the drain (default ``release_wm``, then the local
+    watermark after the push); ``late_wm`` replaces the lateness floor.
+    The loop runs on a host copy of ``state``, which is not modified."""
+    if counters is not None:
+        from repro_torch import query as _q
+        raise _q._later_slice("reorder_push(counters=)", 6, "observability")
+    dev = state.ts.device
+    st = _host_copy(state)
+    host = torch.device("cpu")
+    ts = torch.as_tensor(ts).to(host, torch.int32)
+    groups = torch.as_tensor(groups).to(host, torch.int32)
+    keys = torch.as_tensor(keys).to(host, st.val.dtype)
+    n = ts.shape[-1]
+    nv = n if n_valid is None else int(n_valid)
+
+    def gate(x):
+        return None if x is None else _i32(x).to(host)
+
+    release_wm, late_wm, drain_wm = (gate(release_wm), gate(late_wm),
+                                     gate(drain_wm))
+    lanes = torch.arange(spec.capacity)
+    true, false = torch.tensor(True), torch.tensor(False)
+    outs = [_reorder_cycle(spec, st, lanes, ts[i], groups[i], keys[i],
+                           true if i < nv else false, release_wm, late_wm)
+            for i in range(n)]
+    g = drain_wm if drain_wm is not None else release_wm
+    release = st.max_ts - spec.max_lateness if g is None else g
+    drain = _reorder_drain(spec, st, release)
+    cols = [torch.stack([o[f] for o in outs]) if outs else
+            torch.zeros((0,), dtype=drain[f].dtype) for f in range(5)]
+    emit = ReorderEmit(*(torch.cat([a, b]) for a, b in zip(cols, drain)))
+    return _on(dev, emit, st)
+
+
+def reorder_flush(spec: ReorderSpec, state: ReorderState):
+    """Drain the buffer: every held tuple, sorted by (ts, seq), as one
+    ``[capacity]`` emission batch; the buffer comes back empty (watermark,
+    drop count and emission floor kept).  ``state`` is not modified."""
+    dev = state.ts.device
+    st = _host_copy(state)
+    emit = _reorder_drain(spec, st, None, rel=st.occ.clone())
+    return _on(dev, emit, st)

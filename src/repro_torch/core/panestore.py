@@ -24,7 +24,14 @@ of the state whatever its device, updating that copy in place.  On the
 card the same scan runs as one CUDA kernel
 (``repro_torch.kernels.swag.kernel.pergroup_scan``).
 
-Time-mode stores (event-time streaming) come with ROADMAP slice 5b.
+**Time mode** (event-time streaming) keys a pane by its time pane ``ts //
+slide`` (chaining another slot when a group's pane holds more than ``wa``
+tuples), carries each tuple's timestamp through the pane sort, retires a
+pane once its interval falls behind ``retire_below`` (the watermark less
+the range), and evaluates every group over the shared window
+``[eval_time - time_range, eval_time)``: :func:`push_time`,
+``gather_runs(eval_time=)`` and ``replay(eval_time=)``.  On the card its
+placement is ``repro_torch.kernels.swag.kernel.pergroup_scan_time``.
 """
 from __future__ import annotations
 
@@ -40,6 +47,8 @@ from repro_torch.core.combiners import Combiner, _acc_dtype, is_integer
 PAD_GROUP = _engine.PAD_GROUP
 INT32_MIN = torch.iinfo(torch.int32).min
 INT32_MAX = torch.iinfo(torch.int32).max
+#: "no retirement" floor of time-mode pushes (the reorder buffer's TS_MIN)
+TS_FLOOR = -(2 ** 30)
 
 #: ops the replay tail computes directly from the merged, compacted window
 DIRECT_OPS = frozenset(
@@ -75,9 +84,9 @@ class PaneStoreSpec:
 
     **Time mode** (``slide`` and ``time_range`` both set): panes are keyed
     by ``ts // slide`` and retire by watermark, every group sharing the
-    window ``[eval_time - time_range, eval_time)``.  A time clause is
-    validated through its spec; the store operations of time mode serve
-    event-time streaming, a later slice (:func:`init_store` raises)."""
+    window ``[eval_time - time_range, eval_time)``; ``wa`` bounds the
+    tuples one slot holds of one (group, time pane), and denser traffic
+    chains more slots with the same pane id."""
     wa: int
     capacity: int
     default_ws: int
@@ -177,15 +186,13 @@ class PaneStoreState(NamedTuple):
 
 def _count_mode(spec: PaneStoreSpec) -> None:
     if spec.is_time:
-        raise NotImplementedError(
-            "time-mode pane stores (push_time, gather_runs(eval_time=)) are "
-            "not ported yet; they come with ROADMAP queue 1, slice 5b "
-            "(event-time streaming) — use repro.query meanwhile")
+        raise ValueError("push() and scan() place count-mode panes; a "
+                         "time-mode store (slide/time_range set) takes "
+                         "push_time()")
 
 
 def init_store(spec: PaneStoreSpec, key_dtype=torch.int32,
                device="cpu") -> PaneStoreState:
-    _count_mode(spec)
     c, wa = spec.capacity, spec.wa
 
     def full(shape, v, dt=torch.int32):
@@ -379,6 +386,92 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
                      final, final_abase, events)
 
 
+def _push_one_time(spec: PaneStoreSpec, st: PaneStoreState, g, k, t, lv: bool,
+                   rb) -> tuple[int, int]:
+    """Absorb one timestamped tuple into the host copy ``st`` (in place):
+    the slot of its (group, time pane) with room left (at most one), else
+    the first free slot, else the globally oldest (evicted); the lane
+    write; the pane's stable key sort when it closes (the timestamp rides
+    along); then the retirement of every pane wholly below ``rb``, on dead
+    lanes too.  Returns the evictions and retirements (0 or 1, and a
+    count)."""
+    wa = spec.wa
+    evicted = 0
+    if lv:
+        pid = torch.div(t, spec.slide, rounding_mode="floor")
+        mine_open = (st.owner == g) & (st.base == pid) & (st.count < wa)
+        has_open = bool(mine_open.any())
+        free = st.owner == PAD_GROUP
+        if has_open:
+            slot = int(torch.argmax(mine_open.to(torch.int32)))
+        elif bool(free.any()):
+            slot = int(torch.argmax(free.to(torch.int32)))
+        else:
+            slot = int(torch.argmin(st.stamp))  # first index of the oldest
+            evicted = 1
+        lane = int(st.count[slot]) if has_open else 0
+        st.count[slot] = lane + 1
+        if not has_open:
+            st.owner[slot] = g
+            st.base[slot] = pid
+            st.stamp[slot] = st.clock
+            st.clock.add_(1)
+        st.keys[slot, lane] = k
+        st.seqs[slot, lane] = t
+        if lane + 1 == wa:  # the pane closes: sorted once
+            order = torch.sort(st.keys[slot], stable=True).indices
+            st.keys[slot] = st.keys[slot][order]
+            st.seqs[slot] = st.seqs[slot][order]
+    dead = (st.owner != PAD_GROUP) & ((st.base + 1) * spec.slide <= rb)
+    st.owner.masked_fill_(dead, PAD_GROUP)
+    st.count.masked_fill_(dead, 0)
+    st.stamp.masked_fill_(dead, -1)
+    return evicted, int(dead.sum())
+
+
+def push_time_events(spec: PaneStoreSpec, state: PaneStoreState, groups,
+                     keys, ts, live=None, retire_below=None):
+    """:func:`push_time` with the evictions and retirements it made:
+    ``(state, events [2] int32)``, both on the device of ``state``."""
+    if not spec.is_time:
+        raise ValueError("push_time needs a time-mode PaneStoreSpec "
+                         "(slide/time_range set); use push() for "
+                         "count-based panes")
+    dev = state.owner.device
+    host = torch.device("cpu")
+    st = PaneStoreState(*(x.to(host, copy=True) for x in state))
+    groups = torch.as_tensor(groups).to(host, torch.int32)
+    keys = torch.as_tensor(keys).to(host, st.keys.dtype)
+    ts = torch.as_tensor(ts).to(host, torch.int32)
+    n = groups.shape[-1]
+    lv = ([True] * n if live is None
+          else torch.as_tensor(live).to(host, torch.bool).tolist())
+    rb = torch.as_tensor(TS_FLOOR if retire_below is None else retire_below,
+                         dtype=torch.int32).to(host)
+    evictions = retirements = 0
+    for i in range(n):
+        ev, ret = _push_one_time(spec, st, groups[i], keys[i], ts[i], lv[i],
+                                 rb)
+        evictions += ev
+        retirements += ret
+    events = torch.tensor([evictions, retirements], dtype=torch.int32)
+    return PaneStoreState(*(x.to(dev) for x in st)), events.to(dev)
+
+
+def push_time(spec: PaneStoreSpec, state: PaneStoreState, groups, keys, ts,
+              live=None, retire_below=None, counters=None) -> PaneStoreState:
+    """Stream one batch of timestamped tuples through a time-mode store,
+    one tuple at a time on a host copy (``state`` is not modified).
+    ``live`` is a full per-lane mask (reorder-buffer emissions are not a
+    valid prefix); ``retire_below`` the retirement horizon, normally the
+    watermark less the range (``None`` retires nothing)."""
+    if counters is not None:
+        from repro_torch import query as _q
+        raise _q._later_slice("push_time(counters=)", 6, "observability")
+    return push_time_events(spec, state, groups, keys, ts, live,
+                            retire_below)[0]
+
+
 class ReplayRuns(NamedTuple):
     """Gathered replay rows: per output row (candidate group), its pane
     subset flattened to ``runs * WA`` lanes of presorted runs; ``run_valid``
@@ -463,16 +556,28 @@ def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(idx.shape + rest)
 
 
-def gather_runs(spec: PaneStoreSpec, state: PaneStoreState) -> ReplayRuns:
+def gather_runs(spec: PaneStoreSpec, state: PaneStoreState,
+                eval_time=None) -> ReplayRuns:
     """The per-group pane index, applied: each live group's pane subset as
     ``spec.runs`` presorted runs with a liveness mask.  ``state`` may carry
     leading batch axes (one store per evaluation).  A padded run (slot
     index past the group's count) may gather another slot's keys; its lanes
     are dead, every run is still ascending, and the replayed window depends
-    only on the live lanes."""
-    _count_mode(spec)
+    only on the live lanes.
+
+    A time-mode store takes ``eval_time`` (one a store, or one for all): a
+    lane is live iff its timestamp lies in ``[eval_time - time_range,
+    eval_time)``."""
     c, wa, s = spec.capacity, spec.wa, spec.runs
     dev = state.owner.device
+    if spec.is_time:
+        if eval_time is None:
+            raise ValueError("time-mode stores gather against a watermark: "
+                             "pass eval_time=")
+        et = torch.as_tensor(eval_time, dtype=torch.int32, device=dev)
+        et = et.reshape(et.shape + (1, 1, 1))
+    elif eval_time is not None:
+        raise ValueError("eval_time only applies to time-mode stores")
     perm, ugroups, offsets, nslots, num, _n_occ = _slot_directory(
         state.owner, state.base)
     keys_v, seqs_v, filled_v = _slot_sorted(spec, state)
@@ -486,6 +591,13 @@ def gather_runs(spec: PaneStoreSpec, state: PaneStoreState) -> ReplayRuns:
     rs = _take_rows(seqs_v, sidx)
     filled = _take_rows(filled_v, sidx)
 
+    shape = rk.shape[:-2] + (s * wa,)
+    if spec.is_time:
+        # the seqs hold timestamps: live iff inside the evaluation window
+        lane_ok = (slot_ok.unsqueeze(-1) & filled
+                   & (rs >= et - spec.time_range) & (rs < et))
+        return ReplayRuns(ugroups, rk.reshape(shape), lane_ok.reshape(shape),
+                          num)
     # the newest slot is the last occupied one (base-ascending order);
     # lanes older than the group's last WS_g tuples are dead
     rb = _take_rows(state.base.unsqueeze(-1), sidx)[..., 0]     # [..., C, S]
@@ -497,7 +609,6 @@ def gather_runs(spec: PaneStoreSpec, state: PaneStoreState) -> ReplayRuns:
     lo = m_g - spec.ws_of(ugroups)
     lane_ok = (slot_ok.unsqueeze(-1) & filled
                & (rs >= lo.unsqueeze(-1).unsqueeze(-1)))
-    shape = rk.shape[:-2] + (s * wa,)
     return ReplayRuns(ugroups, rk.reshape(shape), lane_ok.reshape(shape),
                       num)
 
@@ -654,16 +765,42 @@ def _partials_per_row(keys, live, rows, names) -> dict:
     return out
 
 
+def drop_empty_rows(groups: torch.Tensor, values: dict, valid: torch.Tensor,
+                    cnt: torch.Tensor):
+    """Time-mode evaluation rows, compacted: a group may still own slots
+    while none of its tuples lies in the window; its row (``cnt`` 0) goes,
+    the rest keep their order (along the last axis; rows past the valid
+    ones may hold anything).  Returns ``(groups, values, valid, num)``,
+    PAD_GROUP and zeros past ``num``."""
+    c = groups.shape[-1]
+    keep = valid & (cnt > 0)
+    k32 = keep.to(torch.int32)
+    rank = torch.cumsum(k32, -1, dtype=torch.int32) - k32
+    idx = torch.where(keep, rank, c).to(torch.int64)
+    num = k32.sum(-1, dtype=torch.int32)
+    valid = torch.arange(c, device=groups.device) < num.unsqueeze(-1)
+    out = {nm: torch.where(valid, _engine._scatter_drop(
+        v.shape, 0, v.dtype, idx, v, c), 0).to(v.dtype)
+        for nm, v in values.items()}
+    return (_engine._scatter_drop(groups.shape, PAD_GROUP, torch.int32, idx,
+                                  groups, c), out, valid, num)
+
+
 def replay(spec: PaneStoreSpec, state: PaneStoreState, ops, *,
-           interpolate: bool = False):
+           interpolate: bool = False, eval_time=None):
     """Evaluate every live group's window from the store (reference path).
     Returns ``(groups [C], {name: values [C]}, valid [C], num_groups)``.
     PANE_PARTIAL_OPS take the per-pane partial path; the other DIRECT_OPS
     come off the merged window; any other combiner falls back to an engine
-    pass over the merged, compacted window."""
+    pass over the merged, compacted window.
+
+    A time-mode store evaluates ``[eval_time - time_range, eval_time)``,
+    always by merge-replay, and drops the rows of groups with no tuple in
+    that window (:func:`drop_empty_rows`)."""
     names = [op.name if isinstance(op, Combiner) else op for op in ops]
     c = spec.capacity
-    psel = partial_path_names(names, state.keys.dtype)
+    psel = ([False] * len(names) if spec.is_time
+            else partial_path_names(names, state.keys.dtype))
     partial_names = [nm for nm, sel in zip(names, psel) if sel]
     merge_pairs = [(op, nm) for (op, nm), sel in zip(zip(ops, names), psel)
                    if not sel]
@@ -677,12 +814,14 @@ def replay(spec: PaneStoreSpec, state: PaneStoreState, ops, *,
             return ugroups, {nm: torch.where(pvalid, v, 0).to(v.dtype)
                              for nm, v in values.items()}, pvalid, pnum
 
-    runs = gather_runs(spec, state)
-    mvals, _cnts = replay_rows(
+    runs = gather_runs(spec, state, eval_time=eval_time)
+    mvals, cnts = replay_rows(
         spec, runs.run_keys, runs.run_valid, [op for op, _ in merge_pairs],
         [nm for _, nm in merge_pairs], interpolate=interpolate)
     values.update(mvals)
     valid = torch.arange(c, device=state.owner.device) < runs.num_groups
+    if spec.is_time:
+        return drop_empty_rows(runs.groups, values, valid, cnts)
     return runs.groups, {nm: torch.where(valid, v, 0).to(v.dtype)
                          for nm, v in values.items()}, valid, \
         runs.num_groups

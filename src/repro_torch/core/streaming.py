@@ -18,9 +18,13 @@ reproduces the round-robin port rotation across the whole stream.
 
 With a count window the carry is a pane store
 (:mod:`repro_torch.core.panestore`): each push places the batch and emits
-one per-group-window evaluation.  Event-time windows (slice 5b), sharded
-streams (slice 7) and execution statistics (slice 6) come with later
-slices of the port and raise ``NotImplementedError`` naming theirs.
+one per-group-window evaluation.  With an event-time window
+(``Window(range=...)``) every push carries timestamps and the carry is a
+reorder buffer and a time-mode pane store: each push emits every group's
+window at the stream's watermark, and ``flush()`` drains the buffer and
+evaluates past the last tuple.  Sharded streams (slice 7) and execution
+statistics (slice 6) come with later slices of the port and raise
+``NotImplementedError`` naming theirs.
 """
 from __future__ import annotations
 
@@ -39,7 +43,9 @@ class StreamResult(NamedTuple):
     valid: torch.Tensor       # [N+1] bool
     num_groups: torch.Tensor  # scalar int32
     rr_port: torch.Tensor     # [N+1] round-robin output port (-1 where invalid)
-    #: engine telemetry: execution statistics, a later slice (always None)
+    #: engine telemetry: ``{"late_dropped": 0-d int32}`` for event-time
+    #: windows (the stream's late tuples so far); otherwise None until the
+    #: observability slice
     stats: Any = None
 
 
@@ -136,8 +142,11 @@ class StreamingAggregator:
     window; results carry ``{name: column}``).  ``device`` and ``backend``
     are ``execute``'s: the plan is ``auto`` for the device (the kernels on
     the card, the reference on the CPU).  On ``cuda-panestore`` a push
-    updates its pane store in place (ring buffers, clock and directory),
-    where the JAX package donates the carry.
+    updates its pane store (and an event-time window's reorder buffer) in
+    place, where the JAX package donates the carry.
+
+    An event-time window (``Window(range=...)``) takes ``timestamps=`` on
+    every push; its results carry ``stats={"late_dropped": ...}``.
     """
 
     def __init__(self, op="sum", *, window=None, key_dtype=torch.int32,
@@ -163,20 +172,36 @@ class StreamingAggregator:
         self.carry = _q.init_stream_state(self.plan, key_dtype)
         self._step = _q.stream_fn(self.plan, p_ports=p_ports, inplace=True)
 
-    def _result(self, g, values, valid, num, rr) -> StreamResult:
+    @property
+    def _is_time(self) -> bool:
+        return self.window is not None and self.window.is_time
+
+    def _stats(self):
+        """An event-time window's late-drop count (a copy: the carry is
+        updated in place); None otherwise."""
+        if self._is_time:
+            return {"late_dropped": self.carry[0].dropped.clone()}
+        return None
+
+    def _result(self, g, values, valid, num, rr, stats=None) -> StreamResult:
         if self._one:
             (values,) = values.values()
-        return StreamResult(g, values, valid, num, rr)
+        return StreamResult(g, values, valid, num, rr, stats)
 
     def push(self, groups, keys, n_valid=None,
              timestamps=None) -> StreamResult:
         from repro_torch import query as _q
-        if timestamps is not None:
-            raise _q._later_slice("StreamingAggregator.push(timestamps=)",
-                                  "5b", "event-time streaming")
+        if self._is_time and timestamps is None:
+            raise ValueError("event-time windows (Window(range=...)) need "
+                             "timestamps= on every push")
+        if not self._is_time and timestamps is not None:
+            raise ValueError("timestamps apply to event-time windows "
+                             "(Window(range=...)) only")
         dev = torch.device(self.plan.device)
         groups = _q._as_tensor(groups, dev).to(torch.int32)
         keys = _q._as_tensor(keys, dev)
+        if timestamps is not None:
+            timestamps = _q._as_tensor(timestamps, dev)
         if groups.dim() == 2:
             # per-shard pushes: [num_shards, L] slices of one batch
             if groups.shape[0] != 1:
@@ -185,15 +210,26 @@ class StreamingAggregator:
                     f"aggregator shards 1 ways")
             groups = groups.reshape(-1)
             keys = keys.reshape(-1)
-        out, self.carry = self._step(groups, keys, self.carry, n_valid)
-        return self._result(*out)
+            if timestamps is not None:
+                timestamps = timestamps.reshape(-1)
+        extra = (timestamps,) if self._is_time else ()
+        out, self.carry = self._step(groups, keys, self.carry, n_valid,
+                                     *extra)
+        return self._result(*out, self._stats())
 
     def flush(self) -> StreamResult:
         """Close the stream: emit the open group (windowed: re-emit every
-        live group's current window), reset the carry."""
+        live group's current window; event-time: drain the reorder buffer
+        and evaluate past the last tuple), reset the carry."""
         from repro_torch import query as _q
+        stats = self._stats()
         if self.window is not None:
-            g, values, valid, num = _q._store_eval(self.plan, self.carry)
+            store, end = self.carry, None
+            if self._is_time:
+                (_, store), end = _q._time_flush(self.plan, self.carry,
+                                                 inplace=True)
+            g, values, valid, num = _q._store_eval(self.plan, store,
+                                                   eval_time=end)
             c = valid.shape[-1]
             rr = torch.where(
                 valid, torch.arange(c, dtype=torch.int32,
@@ -216,4 +252,4 @@ class StreamingAggregator:
             rr = torch.where(valid, lead.emitted % self.p_ports,
                              -1).to(torch.int32)
         self.carry = _q.init_stream_state(self.plan, self.key_dtype)
-        return self._result(g, values, valid, num, rr)
+        return self._result(g, values, valid, num, rr, stats)

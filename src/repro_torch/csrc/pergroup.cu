@@ -5,8 +5,9 @@
 // TPU kernels):
 //   * pergroup_fused_pallas  -> pergroup_fused_kernel;
 //   * pergroup_replay_pallas -> pergroup_replay_kernel;
-// and, with no TPU kernel behind it, the XLA lax.scan of _push_decide
-// (src/repro/core/panestore.py) -> pergroup_scan_kernel.
+// and, with no TPU kernel behind it, the XLA lax.scans of _push_decide
+// and _push_one_time (src/repro/core/panestore.py) -> pergroup_scan_kernel
+// and pergroup_scan_time_kernel.
 //
 // pergroup_scan_kernel — one warp places the whole stream.  Placement is
 // sequential (each tuple's slot depends on the global eviction order), so
@@ -42,6 +43,26 @@
 // a few dependent shared-memory loads a batch and the full step a WA
 // tuples a group; bytes are ~20 a tuple, so the card's memory is idle.
 //
+// pergroup_scan_time_kernel — the placement of an event-time stream's
+// time-mode store: a reorder buffer's emission (a live mask, not a
+// prefix), each tuple into the slot of its (group, time pane ts / slide)
+// that has room, else the first free slot, else the globally oldest
+// (evicted; first index on ties, as _push_one_time's argmin picks).  A
+// simple design: one warp, the directory (owner, count, base, stamp, [C]
+// int32) in shared memory; a live tuple is one pass of the warp over the
+// directory, C / 32 slots a lane, for the open slot, the first free slot
+// and the oldest stamp at once, then three warp minima.  Lane 0 writes
+// the tuple's key and timestamp into the [C, WA] ring in device memory; a
+// pane that fills is sorted there by the warp (stable by key: -0.0 beside
+// 0.0 and NaN last, as torch.sort orders them, the lane breaking ties; the
+// timestamp rides along).  Retirement (a pane wholly below retire_below)
+// runs on every cycle in the JAX package, dead lanes included; the horizon
+// is one value for the push, so after the first cycle's pass over every
+// slot only a slot the cycle allocates can newly fall behind, and only it
+// is tested.  Bound: the latency of one warp, about C / 32 shared-memory
+// loads and three reductions a tuple; bytes (about 16 a tuple and the
+// panes that close) leave the card's memory idle.
+//
 // pergroup_fused_kernel — parallel over chunks, one block a chunk.  The
 // ring is scratch (the fused regime returns only op values) and sum,
 // count, min, max and mean do not depend on the order of a pane's lanes,
@@ -69,11 +90,18 @@
 // lanes move to the run's front at their rank (a prefix count of the
 // bitmap), which keeps the run sorted; the open pane is sorted in shared
 // memory; merge-path rounds over the runs that can hold live lanes make the
-// row one sorted run, its live keys first; count, sum, min, max, mean,
-// lower median and distinct count come off that prefix.  Keys compare as
+// row one sorted run, its live keys first; min, max, lower median and
+// distinct count come off that prefix, while count, sum and mean are taken
+// as the lanes load (they need no order, so a NaN key, which orders with
+// nothing, leaves them whole).  Keys compare as
 // keys (no packing), so -0.0 and +0.0 keep their bits.  Bound: bytes, 8 a
 // live slot lane of the ring read once (4.5 a lane of the row form); the
-// work is a few shared-memory passes a row.
+// work is a few shared-memory passes a row.  The time form (TIME, a
+// time-mode store) makes a lane live iff it is filled and its timestamp
+// (the ring's seq) lies in the evaluation's [lo, hi); a group then owns
+// several unfilled panes (one a time pane that did not fill), and every
+// run with count < R is sorted as the open run is; each row's live count
+// is written out, so the wrapper can drop the rows of groups with none.
 #include <cuda_pipeline.h>
 
 #include "tile.cuh"
@@ -620,6 +648,215 @@ pergroup_scan_kernel(ScanArgs a) {
   }
 }
 
+// ---------------------------------------------- time-mode placement scan
+
+constexpr int TS_FLOOR = -(1 << 30);  // no retirement
+constexpr int I32_MAX = 0x7fffffff;
+
+struct TimeScanArgs {
+  const int* g;             // [n] group ids
+  const void* k;            // [n] keys
+  const int* ts;            // [n] timestamps
+  const bool* live;         // [n]
+  int n;
+  const int* retire_below;  // [] or null: TS_FLOOR
+  int wa, c, slide;
+  int *owner, *count, *base, *stamp, *clock;  // [C], [] (in/out)
+  void* ring_k;             // [C, WA] (in/out)
+  int* ring_s;              // [C, WA] timestamps (in/out)
+  int* events;              // [2] evictions, retirements
+};
+
+__device__ __forceinline__ int floor_div(int t, int s) {  // s > 0
+  const int q = t / s;
+  return (t % s != 0 && t < 0) ? q - 1 : q;
+}
+
+__device__ __forceinline__ int mul_wrap(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+// Stable key order of torch.sort: ties (and -0.0 beside 0.0) by lane, NaN
+// after every number.
+template <typename K>
+__device__ __forceinline__ bool stable_less(K a, int ia, K b, int ib) {
+  return a < b || (!(b < a) && ia < ib);
+}
+template <>
+__device__ __forceinline__ bool stable_less<float>(float a, int ia, float b,
+                                                   int ib) {
+  const bool an = a != a, bn = b != b;
+  if (an || bn) return an && bn ? ia < ib : bn;
+  return a < b || (a == b && ia < ib);
+}
+
+// Sort row `s` of the ring stably by key (its timestamps along) with one
+// warp, through the buffers bk, bs, bi of WA entries.
+template <typename K>
+__device__ void sort_row_stable(K* ring_k, int* ring_s, long long s, int wa,
+                                K* bk, int* bs, int* bi, int lane) {
+  const long long row = s * wa;
+  for (int l = lane; l < wa; l += 32) {
+    bk[l] = ring_k[row + l];
+    bs[l] = ring_s[row + l];
+    bi[l] = l;
+  }
+  __syncwarp();
+  for (int kk = 2; kk <= wa; kk <<= 1) {
+    for (int jj = kk >> 1; jj > 0; jj >>= 1) {
+      for (int p = lane; p < wa / 2; p += 32) {
+        const int i = ((p & ~(jj - 1)) << 1) | (p & (jj - 1));
+        const int q = i + jj;
+        const bool up = (i & kk) == 0;
+        const bool sw = up ? stable_less<K>(bk[q], bi[q], bk[i], bi[i])
+                           : stable_less<K>(bk[i], bi[i], bk[q], bi[q]);
+        if (sw) {
+          const K tk = bk[i]; bk[i] = bk[q]; bk[q] = tk;
+          int x = bs[i]; bs[i] = bs[q]; bs[q] = x;
+          x = bi[i]; bi[i] = bi[q]; bi[q] = x;
+        }
+      }
+      __syncwarp();
+    }
+  }
+  for (int l = lane; l < wa; l += 32) {
+    ring_k[row + l] = bk[l];
+    ring_s[row + l] = bs[l];
+  }
+  __syncwarp();
+}
+
+template <typename K>
+__global__ void __launch_bounds__(32)
+pergroup_scan_time_kernel(TimeScanArgs a) {
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int C = a.c, WA = a.wa, lane = threadIdx.x;
+  int* own = reinterpret_cast<int*>(dyn);
+  int* cnt = own + C;
+  int* base = cnt + C;
+  int* stamp = base + C;
+  K* bk = reinterpret_cast<K*>(stamp + C);
+  int* bs = reinterpret_cast<int*>(bk + WA);
+  int* bi = bs + WA;
+  for (int s = lane; s < C; s += 32) {
+    own[s] = a.owner[s];
+    cnt[s] = a.count[s];
+    base[s] = a.base[s];
+    stamp[s] = a.stamp[s];
+  }
+  int clock = *a.clock;
+  const int rb = a.retire_below ? *a.retire_below : TS_FLOOR;
+  const K* keys = static_cast<const K*>(a.k);
+  K* ring_k = static_cast<K*>(a.ring_k);
+  int evictions = 0, retired = 0;
+  __syncwarp();
+
+  for (int i0 = 0; i0 < a.n; i0 += 32) {
+    const int nb = a.n - i0 < 32 ? a.n - i0 : 32;
+    bool my_lv = false;
+    int my_g = 0, my_t = 0;
+    K my_k = K(0);
+    if (lane < nb) {
+      my_lv = a.live[i0 + lane];
+      my_g = a.g[i0 + lane];
+      my_t = a.ts[i0 + lane];
+      my_k = keys[i0 + lane];
+    }
+    const unsigned lvm = __ballot_sync(FULL_MASK, my_lv);
+    for (int j = 0; j < nb; ++j) {
+      if ((lvm >> j) & 1) {
+        const int g = __shfl_sync(FULL_MASK, my_g, j);
+        const int t = __shfl_sync(FULL_MASK, my_t, j);
+        const K kv = __shfl_sync(FULL_MASK, my_k, j);
+        const int pid = floor_div(t, a.slide);
+        // one pass: the open slot of (g, pid), the first free slot, the
+        // first oldest stamp
+        int fo = I32_MAX, ff = I32_MAX, ov = I32_MAX, oi = I32_MAX;
+        for (int s = lane; s < C; s += 32) {
+          const int o = own[s];
+          if (o == PAD_GROUP) {
+            if (ff == I32_MAX) ff = s;
+          } else {
+            if (fo == I32_MAX && o == g && base[s] == pid && cnt[s] < WA)
+              fo = s;
+            const int st = stamp[s];
+            if (st < ov || oi == I32_MAX) {
+              ov = st;
+              oi = s;
+            }
+          }
+        }
+        fo = __reduce_min_sync(FULL_MASK, fo);
+        ff = __reduce_min_sync(FULL_MASK, ff);
+        const bool has_open = fo != I32_MAX;
+        int slot = fo;
+        if (!has_open) {
+          if (ff != I32_MAX) {
+            slot = ff;
+          } else {
+            const int om = __reduce_min_sync(FULL_MASK, ov);
+            slot = __reduce_min_sync(FULL_MASK, ov == om ? oi : I32_MAX);
+            ++evictions;
+          }
+        }
+        const int ln = has_open ? cnt[slot] : 0;
+        __syncwarp();
+        if (lane == 0) {
+          cnt[slot] = ln + 1;
+          if (!has_open) {
+            own[slot] = g;
+            base[slot] = pid;
+            stamp[slot] = clock;
+          }
+          const long long at = static_cast<long long>(slot) * WA + ln;
+          ring_k[at] = kv;
+          a.ring_s[at] = t;
+        }
+        if (!has_open) clock = add_wrap(clock, 1);
+        __syncwarp();
+        if (ln + 1 == WA)  // the pane closes: sorted once
+          sort_row_stable<K>(ring_k, a.ring_s, slot, WA, bk, bs, bi, lane);
+        // a pane allocated behind the horizon retires at once (the first
+        // cycle's pass below covers it there)
+        if (!has_open && i0 + j > 0 &&
+            mul_wrap(add_wrap(pid, 1), a.slide) <= rb) {
+          if (lane == 0) {
+            own[slot] = PAD_GROUP;
+            cnt[slot] = 0;
+            stamp[slot] = -1;
+          }
+          ++retired;
+        }
+        __syncwarp();
+      }
+      if (i0 + j == 0) {  // every pane behind the horizon, once
+        int r = 0;
+        for (int s = lane; s < C; s += 32)
+          if (own[s] != PAD_GROUP &&
+              mul_wrap(add_wrap(base[s], 1), a.slide) <= rb) {
+            own[s] = PAD_GROUP;
+            cnt[s] = 0;
+            stamp[s] = -1;
+            ++r;
+          }
+        retired += __reduce_add_sync(FULL_MASK, r);
+        __syncwarp();
+      }
+    }
+  }
+  for (int s = lane; s < C; s += 32) {
+    a.owner[s] = own[s];
+    a.count[s] = cnt[s];
+    a.base[s] = base[s];
+    a.stamp[s] = stamp[s];
+  }
+  if (lane == 0) {
+    *a.clock = clock;
+    a.events[0] = evictions;
+    a.events[1] = retired;
+  }
+}
+
 // ---------------------------------------------------- per-slot partials
 
 struct FusedArgs {
@@ -770,8 +1007,10 @@ struct ReplayArgs {
   const void* keys;    // row form [nrows, T]; ring form [NE, C, R]
   const int* live;     // row form [nrows, T]
   const int* seqs;     // ring form [NE, C, R]
-  const int *count, *base, *perm, *offsets, *nslots, *ws;  // [NE, C]
+  const int *count, *base, *perm, *offsets, *nslots;  // [NE, C]
+  const int* ws;       // [NE, C]; time form [NE, 2]: lo, hi
   const int* num;      // [NE]
+  int* live_out;       // time form [NE, C]: each row's live lanes
   long long nrows;     // row form
   int c, T, R, vec;    // vec: 16-byte loads (R % 4 == 0, aligned rows)
 };
@@ -845,8 +1084,9 @@ __device__ __forceinline__ int live_before(const unsigned* bits,
 // its lanes (dead ones the key sentinel) and its live-lane bitmap; move
 // each closed run's live lanes to the run's front at their rank (a prefix
 // count of the bitmap), sort each open run in shared memory; merge-path
-// rounds over the runs that can hold live lanes; then count, sum, min,
-// max, mean, lower median and distinct count off the sorted live prefix.
+// rounds over the runs that can hold live lanes; then min, max, lower
+// median and distinct count off the sorted live prefix (count and sum
+// come from the load).
 // No barrier beyond the warp's own.  Rows at or past num[e] (ring form)
 // are not written.
 // Warps a replay block: each replays rows of its own, in its own stretch
@@ -857,9 +1097,10 @@ __device__ __forceinline__ int live_before(const unsigned* bits,
 // spilled).
 constexpr int REPLAY_WARPS = 2;
 
-template <typename K, bool RING>
+template <typename K, bool RING, bool TIME>
 __global__ void __launch_bounds__(REPLAY_WARPS * 32, 1)
 pergroup_replay_kernel(ReplayArgs a, OpList ops) {
+  static_assert(RING || !TIME, "the time form reads the ring");
   extern __shared__ __align__(16) unsigned char dyn[];
   // float keys sum in double, so the rounding a float32 sum of a long
   // window picks up in one order or another stays far below the plain
@@ -886,7 +1127,7 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
        r < rows; r += step) {
     const long long orow = RING ? ec + r : r;
     // the runs: ring form, the group's first nr slots; row form, all
-    int nr = T >> lr, lo = 0;
+    int nr = T >> lr, lo = 0, hi = 0;
     if (RING) {
       nr = min(a.nslots[orow], nr);
       const int off = a.offsets[orow];
@@ -894,17 +1135,26 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
         const int sl = a.perm[ec + off + j], cs = a.count[ec + sl];
         s_slot[j] = sl;
         s_cnt[j] = cs;
-        if (j == nr - 1) lo = a.base[ec + sl] + cs - a.ws[orow];
+        if (!TIME && j == nr - 1) lo = a.base[ec + sl] + cs - a.ws[orow];
       }
-      lo = __shfl_sync(FULL_MASK, lo, (nr - 1) & 31);
+      if (TIME) {
+        lo = a.ws[2 * e];
+        hi = a.ws[2 * e + 1];
+      } else {
+        lo = __shfl_sync(FULL_MASK, lo, (nr - 1) & 31);
+      }
       __syncwarp();
     }
+    // a filled lane's seq (timestamp) inside the window
+    auto in_window = [lo, hi](int q) { return q >= lo && (!TIME || q < hi); };
     const int loaded = nr * R;  // lanes read; the rest are dead
 
     // load: four lanes a thread a step (16-byte loads where the row
     // allows; a dead quad's keys are not read), the masked keys to bufa,
-    // the live bits to the bitmap
+    // the live bits to the bitmap; the sum of the live keys (it needs no
+    // order, so keys that do not order — NaN — leave it whole)
     int cnt = 0, last = -1;
+    Acc sum = Acc(0);
 #pragma unroll 8
     for (int i0 = 4 * lane; i0 - 4 * lane < loaded; i0 += 128) {
       unsigned qm = 0;
@@ -915,9 +1165,10 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
           const int j = i0 >> lr, p0 = i0 & (R - 1), cs = s_cnt[j];
           at = (ec + s_slot[j]) * R + p0;
           const int4 q4 = __ldg(reinterpret_cast<const int4*>(a.seqs + at));
-          qm = (p0 < cs && q4.x >= lo) | (p0 + 1 < cs && q4.y >= lo) << 1 |
-               (p0 + 2 < cs && q4.z >= lo) << 2 |
-               (p0 + 3 < cs && q4.w >= lo) << 3;
+          qm = (p0 < cs && in_window(q4.x)) |
+               (p0 + 1 < cs && in_window(q4.y)) << 1 |
+               (p0 + 2 < cs && in_window(q4.z)) << 2 |
+               (p0 + 3 < cs && in_window(q4.w)) << 3;
         } else {
           at = r * T + i0;
           const int4 l4 = __ldg(reinterpret_cast<const int4*>(a.live + at));
@@ -930,6 +1181,10 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
         bufa[pad32(i0 + 1)] = qm & 2 ? from_bits<K>(k4.y) : sent;
         bufa[pad32(i0 + 2)] = qm & 4 ? from_bits<K>(k4.z) : sent;
         bufa[pad32(i0 + 3)] = qm & 8 ? from_bits<K>(k4.w) : sent;
+        if (qm & 1) sum = add_wrap(sum, static_cast<Acc>(from_bits<K>(k4.x)));
+        if (qm & 2) sum = add_wrap(sum, static_cast<Acc>(from_bits<K>(k4.y)));
+        if (qm & 4) sum = add_wrap(sum, static_cast<Acc>(from_bits<K>(k4.z)));
+        if (qm & 8) sum = add_wrap(sum, static_cast<Acc>(from_bits<K>(k4.w)));
       } else if (i0 < loaded) {
 #pragma unroll
         for (int u = 0; u < 4; ++u) {
@@ -941,12 +1196,15 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
             if (RING) {
               const int j = i >> lr, p = i & (R - 1);
               at = (ec + s_slot[j]) * R + p;
-              live = p < s_cnt[j] && a.seqs[at] >= lo;
+              live = p < s_cnt[j] && in_window(a.seqs[at]);
             } else {
               at = r * T + i;
               live = a.live[at] != 0;
             }
-            if (live) w = kb[at];
+            if (live) {
+              w = kb[at];
+              sum = add_wrap(sum, static_cast<Acc>(from_bits<K>(w)));
+            }
             bufa[pad32(i)] = live ? from_bits<K>(w) : sent;
           }
           qm |= static_cast<unsigned>(live) << u;
@@ -965,10 +1223,10 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
     for (int d = 16; d > 0; d >>= 1) {
       cnt += __shfl_xor_sync(FULL_MASK, cnt, d);
       last = max(last, __shfl_xor_sync(FULL_MASK, last, d));
+      sum = add_wrap(sum, __shfl_xor_sync(FULL_MASK, sum, d));
     }
     __syncwarp();
 
-    Acc sum = Acc(0);
     int dc = 0;
     const K* fin = bufb;  // the merged row
     if (cnt > 0) {
@@ -1039,20 +1297,18 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
         dst = t;
       }
       fin = src;
-      // the tails off the sorted live prefix fin[0, cnt)
+      // the order tails off the sorted live prefix fin[0, cnt)
       for (int i = lane; i < cnt; i += 32) {
         const K x = fin[pad32(i)];
-        sum = add_wrap(sum, static_cast<Acc>(x));
         // lane 0 is held against the sentinel, as the plain version does
         dc += x != (i == 0 ? sent : fin[pad32(i - 1)]);
       }
 #pragma unroll
-      for (int d = 16; d > 0; d >>= 1) {
-        sum = add_wrap(sum, __shfl_xor_sync(FULL_MASK, sum, d));
+      for (int d = 16; d > 0; d >>= 1)
         dc += __shfl_xor_sync(FULL_MASK, dc, d);
-      }
     }
     if (lane == 0) {
+      if (TIME) a.live_out[orow] = cnt;
       for (int o = 0; o < ops.n; ++o) {
         void* out = ops.out[o];
         switch (ops.code[o]) {
@@ -1176,7 +1432,7 @@ cudaError_t launch_fused(const FusedArgs& a, const OpList& ops,
 // four times over.
 constexpr int REPLAY_TARGET_WARPS = 132 * 12 * 4;
 
-template <typename K, bool RING>
+template <typename K, bool RING, bool TIME>
 cudaError_t launch_replay_kernel(const ReplayArgs& a, const OpList& ops,
                                  int ne, long long rows_per_e,
                                  cudaStream_t st) {
@@ -1190,7 +1446,7 @@ cudaError_t launch_replay_kernel(const ReplayArgs& a, const OpList& ops,
   const long long most = (rows_per_e + warps - 1) / warps;
   nblk = nblk < most ? nblk : most;
   nblk = nblk < 1 ? 1 : (nblk < 65535 ? nblk : 65535);
-  auto kern = pergroup_replay_kernel<K, RING>;
+  auto kern = pergroup_replay_kernel<K, RING, TIME>;
   cudaError_t err = opt_in_smem(kern, warps * per_warp);
   if (err != cudaSuccess) return err;
   // as much of the SM's 256 KiB for shared memory as it gives, so as many
@@ -1203,15 +1459,32 @@ cudaError_t launch_replay_kernel(const ReplayArgs& a, const OpList& ops,
   return cudaGetLastError();
 }
 
-template <bool RING>
+template <bool RING, bool TIME>
 cudaError_t launch_replay(const ReplayArgs& a, int key_type,
                           const OpList& ops, int ne, long long rows_per_e,
                           cudaStream_t st) {
   if (key_type == KEY_INT32)
-    return launch_replay_kernel<int, RING>(a, ops, ne, rows_per_e, st);
+    return launch_replay_kernel<int, RING, TIME>(a, ops, ne, rows_per_e, st);
   if (key_type == KEY_FLOAT32)
-    return launch_replay_kernel<float, RING>(a, ops, ne, rows_per_e, st);
+    return launch_replay_kernel<float, RING, TIME>(a, ops, ne, rows_per_e,
+                                                   st);
   return cudaErrorInvalidValue;
+}
+
+// Shared memory of the time-mode scan: the four [C] directory columns and
+// one sort buffer of WA (key, timestamp, lane) triples.
+size_t time_scan_smem(int c, int wa) {
+  return 16 * static_cast<size_t>(c) + 12 * static_cast<size_t>(wa);
+}
+
+template <typename K>
+cudaError_t launch_scan_time(const TimeScanArgs& a, cudaStream_t st) {
+  const size_t smem = time_scan_smem(a.c, a.wa);
+  auto kern = pergroup_scan_time_kernel<K>;
+  cudaError_t err = opt_in_smem(kern, smem);
+  if (err != cudaSuccess) return err;
+  kern<<<1, 32, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1305,8 +1578,9 @@ extern "C" int rt_pergroup_replay(const void* rk, const int* rv, int key_type,
   a.T = T;
   a.R = run;
   a.vec = T % 4 == 0 && aligned16(rk) && aligned16(rv);
-  return launch_replay<false>(a, key_type, make_ops(codes, outs, nops), 1,
-                              nrows, static_cast<cudaStream_t>(stream));
+  return launch_replay<false, false>(a, key_type,
+                                     make_ops(codes, outs, nops), 1, nrows,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 // The replay tails straight from the placement scan's ring snapshots (ring
@@ -1315,16 +1589,20 @@ extern "C" int rt_pergroup_replay(const void* rk, const int* rv, int key_type,
 // slots sorted by (owner, base), each live group's first position in perm
 // and slot count, the live groups); ws [ne, c] each live group's window.
 // Row r < num[e] of evaluation e replays the group's first min(nslots,
-// runs) slots; outputs [ne, c], rows at or past num[e] not written.
+// runs) slots; outputs [ne, c], rows at or past num[e] not written.  The
+// time form (time_win, a time-mode store): ws [ne, 2] is each
+// evaluation's [lo, hi), a lane live iff filled and lo <= seq < hi, and
+// live_out [ne, c] gets each row's live lanes.
 extern "C" int rt_pergroup_replay_ring(
     const void* keys, const int* seqs, const int* count, const int* base,
     const int* perm, const int* offsets, const int* nslots, const int* num,
-    const int* ws, int key_type, int ne, int c, int wa, int runs,
-    const int* codes, void* const* outs, int nops, void* stream) {
+    const int* ws, int* live_out, int key_type, int ne, int c, int wa,
+    int runs, int time_win, const int* codes, void* const* outs, int nops,
+    void* stream) {
   using namespace rt;
   if (ne < 1 || c < 1 || !pow2(wa) || !pow2(runs) ||
       static_cast<long long>(runs) * wa > MAX_ROW ||
-      !ops_ok(codes, nops, false))
+      !ops_ok(codes, nops, false) || (time_win && live_out == nullptr))
     return cudaErrorInvalidValue;
   ReplayArgs a{};
   a.keys = keys;
@@ -1336,10 +1614,36 @@ extern "C" int rt_pergroup_replay_ring(
   a.nslots = nslots;
   a.ws = ws;
   a.num = num;
+  a.live_out = live_out;
   a.c = c;
   a.T = runs * wa;
   a.R = wa;
   a.vec = wa % 4 == 0 && aligned16(keys) && aligned16(seqs);
-  return launch_replay<true>(a, key_type, make_ops(codes, outs, nops), ne, c,
-                             static_cast<cudaStream_t>(stream));
+  const OpList ops = make_ops(codes, outs, nops);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (time_win) return launch_replay<true, true>(a, key_type, ops, ne, c, st);
+  return launch_replay<true, false>(a, key_type, ops, ne, c, st);
+}
+
+// The time-mode placement of n timestamped tuples (g, k, ts; the lanes
+// `live` marks) into a store of c slots of wa lanes, time panes of `slide`:
+// owner/count/base/stamp [c] and clock [1] the directory, ring_k/ring_s
+// [c, wa] the keys and timestamps, all read and written in place; panes
+// wholly below *retire_below (TS_FLOOR when null) retire.  events [2] gets
+// the evictions and retirements.  One warp.
+extern "C" int rt_pergroup_scan_time(
+    const int* g, const void* k, const int* ts, const bool* live, int n,
+    const int* retire_below, int key_type, int wa, int c, int slide,
+    int* owner, int* count, int* base, int* stamp, int* clock, void* ring_k,
+    int* ring_s, int* events, void* stream) {
+  using namespace rt;
+  if (n < 0 || !pow2(wa) || c < 1 || slide < 1 ||
+      time_scan_smem(c, wa) > SMEM_BUDGET)
+    return cudaErrorInvalidValue;
+  TimeScanArgs a{g, k, ts, live, n, retire_below, wa, c, slide, owner, count,
+                 base, stamp, clock, ring_k, ring_s, events};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (key_type == KEY_INT32) return launch_scan_time<int>(a, st);
+  if (key_type == KEY_FLOAT32) return launch_scan_time<float>(a, st);
+  return cudaErrorInvalidValue;
 }

@@ -1,8 +1,10 @@
 """Data in and results out: seeded streams in numpy, tensors on a device,
 results in the numpy layout of ``repro.query.AggResult``, pane-store
-states in the field order of ``repro.core.panestore.PaneStoreState``, and
-streaming carries (one ``repro.core.segscan.Carry`` an op) in the field
-order of the JAX package's — so the same inputs can go through both
+states in the field order of ``repro.core.panestore.PaneStoreState``,
+reorder buffers in that of ``repro.core.eventtime.ReorderState``, and
+streaming carries (one ``repro.core.segscan.Carry`` an op, or an event-time
+stream's (reorder buffer, pane store) pair) in the field order of the JAX
+package's — so the same inputs can go through both
 packages, their full outputs (padded tails included) be compared, and a
 stream begun in one continue in the other.  :func:`make_stream` needs only numpy (torch is
 imported by the functions that use it), so a process that holds JAX alone
@@ -14,6 +16,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 if TYPE_CHECKING:
+    from repro_torch.core.eventtime import ReorderState
     from repro_torch.core.panestore import PaneStoreState
     from repro_torch.query import AggResult
 
@@ -23,6 +26,9 @@ PANE_STATE_FIELDS = ("owner", "keys", "seqs", "count", "base", "stamp",
 #: the fields of a rolling carry, in order; ``state`` is one array or the
 #: tuple of the combiner's state arrays (the JAX treedef's order)
 CARRY_FIELDS = ("group", "state", "nonempty", "emitted")
+#: the fields of a reorder buffer, in order
+REORDER_FIELDS = ("ts", "grp", "val", "seq", "occ", "max_ts", "last_emit",
+                  "seq_clock", "dropped")
 
 
 def make_stream(seed: int, n: int, n_groups: int, key_max: int,
@@ -95,15 +101,9 @@ def pane_state_from_numpy(state_arrays, device="cuda") -> PaneStoreState:
 
     from repro_torch.core.panestore import PaneStoreState
 
-    if hasattr(state_arrays, "keys") and callable(state_arrays.keys):
-        arrays = [state_arrays[f] for f in PANE_STATE_FIELDS]
-    else:
-        arrays = list(state_arrays)
-    if len(arrays) != len(PANE_STATE_FIELDS):
-        raise ValueError(f"a pane-store state has {len(PANE_STATE_FIELDS)} "
-                         f"arrays {PANE_STATE_FIELDS}, got {len(arrays)}")
     return PaneStoreState(*(torch.from_numpy(np.array(a)).to(device)
-                            for a in arrays))
+                            for a in _fields(state_arrays, PANE_STATE_FIELDS,
+                                             "pane-store state")))
 
 
 def _np_copy(t):
@@ -117,30 +117,70 @@ def pane_state_to_numpy(state: PaneStoreState) -> dict:
     return {f: _np_copy(getattr(state, f)) for f in PANE_STATE_FIELDS}
 
 
+def _fields(arrays, names, what):
+    """A mapping of ``names`` or a sequence in that order, as a list."""
+    if hasattr(arrays, "keys") and callable(arrays.keys):
+        return [arrays[f] for f in names]
+    arrays = list(arrays)
+    if len(arrays) != len(names):
+        raise ValueError(f"a {what} has {len(names)} arrays {names}, got "
+                         f"{len(arrays)}")
+    return arrays
+
+
+def reorder_state_from_numpy(arrays, device="cuda") -> ReorderState:
+    """A reorder buffer from numpy arrays — a mapping of
+    :data:`REORDER_FIELDS` or a sequence in that order (a JAX
+    ``ReorderState`` converted field by field) — on ``device``."""
+    import torch
+
+    from repro_torch.core.eventtime import ReorderState
+
+    return ReorderState(*(torch.from_numpy(np.array(a)).to(device)
+                          for a in _fields(arrays, REORDER_FIELDS,
+                                           "reorder buffer")))
+
+
+def reorder_state_to_numpy(state: ReorderState) -> dict:
+    """A reorder buffer as ``{field: numpy array}`` (copies)."""
+    return {f: _np_copy(getattr(state, f)) for f in REORDER_FIELDS}
+
+
+def _is_time_pair(carries) -> bool:
+    """Whether a streaming state is an event-time stream's (reorder
+    buffer, pane store) pair (a rolling carry has 4 fields, a reorder
+    buffer 9)."""
+    if not isinstance(carries, (tuple, list)) or len(carries) != 2:
+        return False
+    first = carries[0]
+    if hasattr(first, "keys") and callable(first.keys):
+        return "occ" in first.keys()
+    return len(first) == len(REORDER_FIELDS)
+
+
 def carries_from_numpy(carries, device="cuda") -> tuple:
     """A streaming state of rolling carries from numpy: one carry an op,
     each a mapping of :data:`CARRY_FIELDS` or a sequence in that order (a
     JAX ``Carry`` converted with ``np.asarray`` leaf by leaf), its
     ``state`` one array or a tuple of arrays.  Returns the tuple of
     :class:`repro_torch.core.segscan.Carry` on ``device`` that
-    ``execute(..., state=...)`` continues."""
+    ``execute(..., state=...)`` continues.  An event-time stream's pair
+    ``(reorder buffer, pane store)`` gives the pair of port states."""
     import torch
 
     from repro_torch.core.segscan import Carry
+
+    if _is_time_pair(carries):
+        return (reorder_state_from_numpy(carries[0], device),
+                pane_state_from_numpy(carries[1], device))
 
     def t(a):
         return torch.from_numpy(np.array(a)).to(device)
 
     out = []
     for carry in carries:
-        if hasattr(carry, "keys") and callable(carry.keys):
-            fields = [carry[f] for f in CARRY_FIELDS]
-        else:
-            fields = list(carry)
-        if len(fields) != len(CARRY_FIELDS):
-            raise ValueError(f"a carry has {len(CARRY_FIELDS)} fields "
-                             f"{CARRY_FIELDS}, got {len(fields)}")
-        group, state, nonempty, emitted = fields
+        group, state, nonempty, emitted = _fields(carry, CARRY_FIELDS,
+                                                  "carry")
         state = (tuple(t(x) for x in state)
                  if isinstance(state, (tuple, list)) else t(state))
         out.append(Carry(t(group), state, t(nonempty), t(emitted)))
@@ -149,7 +189,13 @@ def carries_from_numpy(carries, device="cuda") -> tuple:
 
 def carries_to_numpy(carries) -> tuple:
     """A streaming state of rolling carries as one ``{field: numpy}`` an op
-    (a multi-array ``state`` as a tuple of arrays; copies)."""
+    (a multi-array ``state`` as a tuple of arrays; copies); an event-time
+    stream's pair as the pair of ``{field: numpy}``."""
+    from repro_torch.core.eventtime import ReorderState
+
+    if isinstance(carries[0], ReorderState):
+        return (reorder_state_to_numpy(carries[0]),
+                pane_state_to_numpy(carries[1]))
     return tuple({"group": _np_copy(c.group),
                   "state": (tuple(_np_copy(x) for x in c.state)
                             if isinstance(c.state, tuple)

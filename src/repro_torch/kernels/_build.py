@@ -53,10 +53,18 @@ _SIGNATURES = {
     # rk, rv, key_type, nrows, T, run, codes, outs, nops, stream
     "rt_pergroup_replay": [_P, _P, _I, _I, _I, _I, ctypes.POINTER(_I),
                            ctypes.POINTER(_P), _I, _P],
-    # keys, seqs, count, base, perm, offsets, nslots, num, ws, key_type, ne,
-    # c, wa, runs, codes, outs, nops, stream
-    "rt_pergroup_replay_ring": [_P] * 9 + [_I] * 5 + [
+    # keys, seqs, count, base, perm, offsets, nslots, num, ws, live_out,
+    # key_type, ne, c, wa, runs, time_win, codes, outs, nops, stream
+    "rt_pergroup_replay_ring": [_P] * 10 + [_I] * 6 + [
         ctypes.POINTER(_I), ctypes.POINTER(_P), _I, _P],
+    # g, k, ts, live, n, retire_below, key_type, wa, c, slide, owner, count,
+    # base, stamp, clock, ring_k, ring_s, events, stream
+    "rt_pergroup_scan_time": [_P] * 4 + [_I, _P, _I, _I, _I, _I] + [_P] * 9,
+    # ts, g, k, n, nvalid, nvalid_dev, drain, drain_all, the buffer's ts,
+    # grp, val, seq, occ, max_ts, last_emit, seq_clock, dropped, capacity,
+    # max_lateness, out ts, groups, keys, live, late, stream
+    "rt_reorder": [_P, _P, _P, _I, _I, _P, _P, _I] + [_P] * 9 + [_I, _I]
+    + [_P] * 6,
     # keys, okeys, nk, float_keys, pays, opays, psize, np, R, T, stream
     "rt_bitonic_sort": [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I,
                         ctypes.POINTER(_P), ctypes.POINTER(_P),

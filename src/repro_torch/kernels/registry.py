@@ -16,8 +16,11 @@ package's registry).
                       partials kernel or the replay kernel; the counterpart
                       of ``pallas-panestore``.  Streaming count windows
                       too: a push is one placement scan from the carried
-                      store and one replay of the store it leaves
-  * ``auto``        — ``cuda-panestore`` for per-group and streaming count
+                      store and one replay of the store it leaves; and
+                      event-time streams: a push is one reorder launch,
+                      one time-mode placement and one replay at the
+                      watermark
+  * ``auto``        — ``cuda-panestore`` for per-group and streaming
                       windows, else ``cuda-panes`` when the window shape
                       allows, else ``cuda``, else ``reference``, for
                       tensors on the card; ``reference`` on the CPU
@@ -35,7 +38,10 @@ import torch
 
 from repro_torch.core.panestore import DIRECT_OPS, partial_path_names
 from repro_torch.core.swag import pane_compatible
+from repro_torch.kernels.eventtime.kernel import MAX_REORDER_CAPACITY
 from repro_torch.kernels.segscan.kernel import SEGSCAN_OPS
+from repro_torch.kernels.swag.kernel import (MAX_ROW, SMEM_BUDGET,
+                                             time_scan_smem)
 
 #: the reason every global-window kernel backend gives a streaming window
 STREAM_WINDOW = ("streaming windows thread a pane store as their carry — "
@@ -122,12 +128,41 @@ def _cuda_panes_supports(q) -> str | None:
     return None
 
 
+def _event_time_limits(w) -> str | None:
+    """What the event-time stream's kernels cannot hold: the reorder
+    buffer's warp, the replay's row, the placement's shared memory."""
+    spec = w.store_spec()
+    if w.reorder_capacity > MAX_REORDER_CAPACITY:
+        return (f"the reorder kernel holds its buffer in one warp, at most "
+                f"{MAX_REORDER_CAPACITY} slots; reorder_capacity="
+                f"{w.reorder_capacity} needs the reference backend")
+    if spec.runs * spec.wa > MAX_ROW:
+        return (f"a time-mode replay row spans every slot: "
+                f"next_pow2(capacity) * wa = {spec.runs} * {spec.wa} lanes "
+                f"exceeds the replay kernel's {MAX_ROW}")
+    need = time_scan_smem(spec.capacity, spec.wa)
+    if need > SMEM_BUDGET:
+        return (f"the time-mode placement keeps its directory in shared "
+                f"memory: {need} bytes for capacity={spec.capacity}, "
+                f"wa={spec.wa} exceed {SMEM_BUDGET}")
+    return None
+
+
 def _cuda_panestore_supports(q) -> str | None:
     w = q.window
-    if w is None or w.is_time or not (w.per_group or q.streaming):
+    if w is not None and w.is_time:
+        if not q.streaming:
+            return ("the pane-store kernels serve per-group windows and "
+                    "event-time streams (Query(streaming=True)); batch "
+                    "time-range windows re-frame by timestamp — use the "
+                    "cuda or reference backend")
+        reason = _event_time_limits(w)
+        if reason is not None:
+            return reason
+    elif w is None or not (w.per_group or q.streaming):
         return ("the pane-store kernel serves per-group windows "
-                "(Window(ws_per_group=...)) and streaming count windows "
-                "only")
+                "(Window(ws_per_group=...)), streaming count windows and "
+                "event-time streams only")
     if q.interpolate:
         return "cuda median is lower-median only (interpolate=False)"
     bad = sorted(op for op in q.op_names if op not in DIRECT_OPS)

@@ -13,11 +13,13 @@ per-group placement scan, which the JAX package leaves to an XLA
 * :func:`pergroup_scan` — the per-tuple pane-store placement over a
   stream's WA chunks (optionally keeping the ring buffers; for a
   streaming push, every tuple and only the store it leaves).
+* :func:`pergroup_scan_time` — the same for a time-mode store: a reorder
+  buffer's emission placed by time pane, panes retired by watermark.
 * :func:`pergroup_fused` — per chunk: the per-group partial aggregates of
   the ring as the chunk's writes leave it (the chunks in parallel).
 * :func:`pergroup_replay_ring` — per evaluation and live group: the
   DIRECT_OPS of the group's window, read straight from the placement
-  scan's ring snapshots.
+  scan's ring snapshots (a time-mode store's at an evaluation time).
 * :func:`pergroup_replay` — per gathered replay row: the live lanes'
   DIRECT_OPS.
 * :func:`twostack_flip` — per epoch row of a two-stack time-window batch:
@@ -45,6 +47,8 @@ INT32_MIN = torch.iinfo(torch.int32).min
 #: the longest row the CUDA kernels take: a row of (int32 group, 4-byte
 #: key) pairs must fit one block's shared memory (csrc/tile.cuh, MAX_ROW)
 MAX_ROW = 16384
+#: dynamic shared memory a block may use (csrc/pergroup.cu, SMEM_BUDGET)
+SMEM_BUDGET = 227 * 1024 - 256
 
 
 def _resolve_ops(ops) -> dict:
@@ -520,6 +524,91 @@ def pergroup_scan(spec, state, groups: torch.Tensor,
                                 final, None, events)
 
 
+def time_scan_smem(c: int, wa: int) -> int:
+    """Shared memory of :func:`pergroup_scan_time`'s block (bytes): the
+    ``[C]`` owner, count, base and stamp columns and one close-sort buffer
+    of ``wa`` (key, timestamp, lane) triples (csrc/pergroup.cu,
+    ``time_scan_smem``)."""
+    return 16 * c + 12 * wa
+
+
+def pergroup_scan_time_plain(spec, state, groups, keys, ts, live,
+                             retire_below=None, *, inplace=False):
+    """Plain torch version of :func:`pergroup_scan_time`: the per-tuple
+    loop of :func:`repro_torch.core.panestore.push_time`."""
+    final, events = _panestore.push_time_events(spec, state, groups, keys,
+                                                ts, live, retire_below)
+    if inplace:
+        _store_into(state, final)
+        final = state
+    return final, events
+
+
+def pergroup_scan_time(spec, state, groups: torch.Tensor,
+                       keys: torch.Tensor, ts: torch.Tensor,
+                       live: torch.Tensor, retire_below=None, *,
+                       inplace: bool = False):
+    """Place ``N`` timestamped tuples (a reorder buffer's emission: the
+    lanes ``live`` marks, in order) into the time-mode pane store
+    ``state``: each into its (group, ``ts // slide``) slot with room, else
+    the first free slot, else the globally oldest (evicted); a pane sorted
+    once when it fills; then every pane wholly below ``retire_below`` (a
+    0-d int32 tensor, or None: no retirement) retired, on every lane as
+    the JAX package's scan does.  Returns ``(state, events [2])`` (the
+    evictions and retirements): ``state`` itself, updated where it lies,
+    when ``inplace``, else an updated copy.  One launch, one warp; nothing
+    read back."""
+    if groups.device.type == "cpu":
+        return pergroup_scan_time_plain(spec, state, groups, keys, ts, live,
+                                        retire_below, inplace=inplace)
+    if not spec.is_time:
+        raise ValueError("pergroup_scan_time places time-mode panes; a "
+                         "count-mode store takes pergroup_scan")
+    wa, c = spec.wa, spec.capacity
+    n = groups.shape[-1]
+    dev = groups.device
+    _cuda_int32("pergroup_scan_time", groups=groups, ts=ts,
+                owner=state.owner, count=state.count, base=state.base,
+                stamp=state.stamp, clock=state.clock, seqs=state.seqs)
+    if groups.dim() != 1 or ts.shape != (n,) or keys.shape != (n,) \
+            or live.shape != (n,) or live.dtype != torch.bool \
+            or keys.dtype != state.keys.dtype \
+            or keys.dtype not in common.KEY_TYPES \
+            or not (keys.is_contiguous() and live.is_contiguous()
+                    and state.keys.is_contiguous()) \
+            or state.keys.shape != (c, wa):
+        raise ValueError(f"pergroup_scan_time takes [N] contiguous groups, "
+                         f"keys of the store's dtype, int32 timestamps and "
+                         f"a bool live mask, got {tuple(groups.shape)} "
+                         f"{keys.dtype} {tuple(keys.shape)} "
+                         f"{tuple(ts.shape)} {live.dtype}")
+    if time_scan_smem(c, wa) > SMEM_BUDGET:
+        raise ValueError(f"pergroup_scan_time: the directory of {c} slots "
+                         f"and a {wa}-lane sort buffer do not fit one "
+                         f"block's shared memory")
+    if not inplace:
+        state = _panestore.PaneStoreState(*(x.clone() for x in state))
+    rb = None
+    if retire_below is not None:
+        rb = torch.as_tensor(retire_below, dtype=torch.int32).to(
+            dev).reshape(())
+    events = torch.empty((2,), dtype=torch.int32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.rt_pergroup_scan_time(
+            groups.data_ptr(), keys.data_ptr(), ts.data_ptr(),
+            live.data_ptr(), n, None if rb is None else rb.data_ptr(),
+            common.KEY_TYPES[keys.dtype], wa, c, spec.slide,
+            state.owner.data_ptr(), state.count.data_ptr(),
+            state.base.data_ptr(), state.stamp.data_ptr(),
+            state.clock.data_ptr(), state.keys.data_ptr(),
+            state.seqs.data_ptr(), events.data_ptr(),
+            _build.stream_handle(dev))
+    _build.check(err, "pergroup_scan_time")
+    pergroup_scan_time.launches += 1
+    return state, events
+
+
 def _last_writes(slots: torch.Tensor, lanes: torch.Tensor, wa: int):
     """``[NE, WA]``: True where no later tuple of the chunk writes the same
     (slot, lane) — the writes that survive the chunk's in-order loop."""
@@ -690,37 +779,56 @@ def pergroup_replay(run_keys: torch.Tensor, run_valid: torch.Tensor, ops, *,
     return outs
 
 
-def pergroup_replay_ring_plain(spec, states, ops):
+def _time_rows(ovs, ugroups, num, cnt):
+    """A time-mode evaluation's rows without the groups whose window holds
+    no tuple (:func:`repro_torch.core.panestore.drop_empty_rows`)."""
+    c = ugroups.shape[-1]
+    valid = torch.arange(c, device=num.device) < num.unsqueeze(-1)
+    ug, ovs, _, num = _panestore.drop_empty_rows(ugroups, ovs, valid, cnt)
+    return ovs, ug, num
+
+
+def pergroup_replay_ring_plain(spec, states, ops, eval_time=None):
     """Plain torch version of :func:`pergroup_replay_ring`: the gathered
     replay rows (:func:`repro_torch.core.panestore.gather_runs`) through
     :func:`pergroup_replay_plain`."""
     names = (ops,) if isinstance(ops, str) else tuple(ops)
-    runs = _panestore.gather_runs(spec, states)
+    runs = _panestore.gather_runs(spec, states, eval_time=eval_time)
     ne, c = runs.groups.shape
     length = runs.run_keys.shape[-1]
     ovs = pergroup_replay_plain(
         runs.run_keys.reshape(ne * c, length),
         runs.run_valid.reshape(ne * c, length).to(torch.int32), names,
         run=spec.wa)
-    return ({nm: v.reshape(ne, c) for nm, v in ovs.items()}, runs.groups,
-            runs.num_groups)
+    ovs = {nm: v.reshape(ne, c) for nm, v in ovs.items()}
+    if spec.is_time:
+        return _time_rows(ovs, runs.groups, runs.num_groups,
+                          runs.run_valid.sum(-1, dtype=torch.int32))
+    return ovs, runs.groups, runs.num_groups
 
 
-def ring_directory(spec, states) -> dict:
+def ring_directory(spec, states, eval_time=None) -> dict:
     """The ring-form replay kernel's view of the stores after every chunk
     (torch): the ring's seqs, each slot's count and base, the slot
     directory (:func:`repro_torch.core.panestore._slot_directory`: perm,
     live group ids, offsets, slot counts, num) and each live group's
-    window, all contiguous int32."""
+    window, all contiguous int32.  A time-mode store's window is its
+    evaluation's ``[eval_time - range, eval_time)``, ``ws`` ``[NE, 2]``."""
     perm, ugroups, offsets, nslots, num, _ = _panestore._slot_directory(
         states.owner, states.base)
+    if spec.is_time:
+        et = torch.as_tensor(eval_time, dtype=torch.int32,
+                             device=num.device).expand(num.shape)
+        ws = torch.stack([et - spec.time_range, et], -1)
+    else:
+        ws = spec.ws_of(ugroups)
     return {nm: t.contiguous() for nm, t in dict(
         seqs=states.seqs, count=states.count, base=states.base, perm=perm,
-        offsets=offsets, nslots=nslots, num=num, ws=spec.ws_of(ugroups),
+        offsets=offsets, nslots=nslots, num=num, ws=ws,
         ugroups=ugroups).items()}
 
 
-def pergroup_replay_ring(spec, states, ops):
+def pergroup_replay_ring(spec, states, ops, eval_time=None):
     """Replay every evaluation's live groups straight from the placement
     scan's ring snapshots: ``states`` is the ``[NE, ...]``
     :class:`repro_torch.core.panestore.PaneStoreState` of the store after
@@ -728,10 +836,19 @@ def pergroup_replay_ring(spec, states, ops):
     are DIRECT_OPS names.  Returns ``({name: [NE, C]}, ugroups [NE, C],
     num [NE])``: what :func:`repro_torch.core.panestore.gather_runs`
     followed by :func:`pergroup_replay` gives on the rows below ``num``;
-    on the card the rows at or past ``num[e]`` are left unwritten."""
+    on the card the rows at or past ``num[e]`` are left unwritten.
+
+    A time-mode store takes ``eval_time`` (``[NE]`` or one for all, int32,
+    may lie on the card): a lane is live iff its timestamp lies in
+    ``[eval_time - range, eval_time)``, the kernel counts each row's live
+    lanes, and the rows of groups with none are dropped (stable), the
+    rows past ``num`` then PAD_GROUP and zeros."""
     names = (ops,) if isinstance(ops, str) else tuple(ops)
+    if spec.is_time and eval_time is None:
+        raise ValueError("time-mode stores replay at an evaluation time: "
+                         "pass eval_time=")
     if states.owner.device.type == "cpu":
-        return pergroup_replay_ring_plain(spec, states, names)
+        return pergroup_replay_ring_plain(spec, states, names, eval_time)
     bad = [nm for nm in names if nm not in _panestore.DIRECT_OPS]
     if bad:
         raise ValueError(f"pergroup_replay_ring computes "
@@ -751,16 +868,23 @@ def pergroup_replay_ring(spec, states, ops):
         raise ValueError(f"pergroup_replay_ring takes at least one "
                          f"evaluation of rows up to {MAX_ROW} lanes, got "
                          f"{ne} of {runs} x {wa}")
-    dirs = ring_directory(spec, states)
+    dirs = ring_directory(spec, states, eval_time)
     _cuda_int32("pergroup_replay_ring", **dirs)
-    return replay_ring_launch(spec, keys, dirs, names), dirs["ugroups"], \
-        dirs["num"]
+    if not spec.is_time:
+        return replay_ring_launch(spec, keys, dirs, names), \
+            dirs["ugroups"], dirs["num"]
+    cnt = torch.empty((ne, c), dtype=torch.int32, device=keys.device)
+    ovs = replay_ring_launch(spec, keys, dirs, names, live_out=cnt)
+    return _time_rows(ovs, dirs["ugroups"], dirs["num"], cnt)
 
 
-def replay_ring_launch(spec, keys, dirs: dict, names: tuple) -> dict:
+def replay_ring_launch(spec, keys, dirs: dict, names: tuple,
+                       live_out=None) -> dict:
     """The launch of :func:`pergroup_replay_ring` alone, over the
     ``[NE, C, WA]`` ring keys and the :func:`ring_directory` of their
-    stores: ``{name: [NE, C]}``, the rows at or past ``num`` unwritten."""
+    stores: ``{name: [NE, C]}``, the rows at or past ``num`` unwritten.
+    A time-mode store's launch writes each row's live lanes into
+    ``live_out`` ``[NE, C]``."""
     ne, c, wa = keys.shape
     dev = keys.device
     outs = {nm: torch.empty((ne, c), dtype=out_dtype(nm, keys.dtype),
@@ -770,10 +894,10 @@ def replay_ring_launch(spec, keys, dirs: dict, names: tuple) -> dict:
         err = lib.rt_pergroup_replay_ring(
             keys.data_ptr(), *(dirs[nm].data_ptr() for nm in (
                 "seqs", "count", "base", "perm", "offsets", "nslots", "num",
-                "ws")),
+                "ws")), None if live_out is None else live_out.data_ptr(),
             common.KEY_TYPES[keys.dtype], ne, c, wa, spec.runs,
-            _codes(names), _ptrs(list(outs.values())), len(names),
-            _build.stream_handle(dev))
+            int(spec.is_time), _codes(names), _ptrs(list(outs.values())),
+            len(names), _build.stream_handle(dev))
     _build.check(err, "pergroup_replay_ring")
     pergroup_replay_ring.launches += 1
     return outs
@@ -785,6 +909,7 @@ sort_panes.launches = 0
 swag_panes.launches = 0
 pergroup_scan.launches = 0
 pergroup_scan.batch_stats = None
+pergroup_scan_time.launches = 0
 pergroup_fused.launches = 0
 pergroup_replay.launches = 0
 pergroup_replay_ring.launches = 0

@@ -36,9 +36,20 @@ each push emits every live group's window:
     >>> res, state = execute(q, g1, k1)                # first batch
     >>> res, state = execute(q, g2, k2, state=state)   # the next
 
-Event-time streaming, execution statistics and sharded execution belong
-to later slices of the port and raise ``NotImplementedError`` naming the
-ROADMAP slice that brings them.
+With an event-time window (``Window(range=R, slide=S, max_lateness=L)``)
+each push carries timestamps; the state is a bounded-lateness reorder
+buffer and a time-mode pane store, and each push emits every group's
+window ``[wm - R, wm)`` at the stream's watermark ``wm`` (the largest
+timestamp seen less ``L``):
+
+    >>> q = Query(ops="sum", window=Window(range=64, slide=16,
+    ...                                    max_lateness=8), streaming=True)
+    >>> res, state = execute(q, g1, k1, timestamps=t1)
+    >>> res, state = execute(q, g2, k2, state=state, timestamps=t2)
+
+Execution statistics and sharded execution belong to later slices of the
+port and raise ``NotImplementedError`` naming the ROADMAP slice that
+brings them.
 """
 from __future__ import annotations
 
@@ -61,6 +72,7 @@ from repro_torch.core.swag import (PARTIAL_OPS, _median_sorted_window, _swag,
                                    _swag_median, swag_multi, swag_per_group)
 from repro_torch.kernels import common as _common
 from repro_torch.kernels import registry as _registry
+from repro_torch.kernels.eventtime import kernel as _et_kernel
 from repro_torch.kernels.groupagg.ops import _groupagg_kernel_exec
 from repro_torch.kernels.segscan.ops import segmented_scan_cuda
 from repro_torch.kernels.swag import kernel as _swag_kernel
@@ -109,9 +121,11 @@ class Window:
     ``S > R`` samples).  Tuples carry timestamps (``execute(...,
     timestamps=...)``).  ``strategy`` is ``"twostack"`` (replay-free;
     ungrouped PARTIAL_OPS only), ``"replay"`` (any op) or ``None`` (the
-    two-stack when eligible).  ``wa`` (pane-slot capacity, default 8),
-    ``max_lateness`` and ``reorder_capacity`` are validated here and serve
-    event-time streaming, a later slice."""
+    two-stack when eligible).  Streamed (``Query(streaming=True)``), the
+    clause runs on a time-mode pane store behind a reorder buffer: ``wa``
+    is a pane slot's tuple capacity (default 8), ``capacity`` the store's
+    slots, ``max_lateness`` the lateness contract (default 0) and
+    ``reorder_capacity`` the buffer's slots (default 64)."""
     ws: int | None = None
     wa: int | None = None
     panes: bool | None = None
@@ -221,13 +235,12 @@ class Window:
         return _panestore.PaneStoreSpec(wa=self.wa, capacity=cap,
                                         default_ws=default, per_group=pairs)
 
-    def reorder_spec(self):
-        """The bounded-lateness reorder buffer of a time clause: event-time
-        streaming, a later slice."""
+    def reorder_spec(self) -> _eventtime.ReorderSpec:
+        """The bounded-lateness reorder buffer this (time) clause implies."""
         if not self.is_time:
             raise ValueError("reorder buffers serve Window(range=...) only")
-        raise _later_slice("Window.reorder_spec()", "5b",
-                           "event-time streaming")
+        return _eventtime.ReorderSpec(capacity=self.reorder_capacity,
+                                      max_lateness=self.max_lateness)
 
 
 def _twostack_reason(query: "Query") -> str | None:
@@ -332,10 +345,6 @@ def plan(query: Query, *, backend: str | None = None,
     ``note`` records the reinterpretation."""
     if not isinstance(query, Query):
         raise TypeError(f"expected a Query, got {type(query).__name__}")
-    if query.streaming and query.window is not None \
-            and query.window.is_time:
-        raise _later_slice("Query(streaming=True) with Window(range=...)",
-                           "5b", "event-time streaming")
     device = _common.require_cuda(device)
     if query.window is not None and query.window.is_time:
         if query.presorted:
@@ -359,7 +368,10 @@ def plan(query: Query, *, backend: str | None = None,
     names = query.op_names
     if query.interpolate and "median" not in names:
         raise ValueError("interpolate=True applies to the median op only")
-    if query.n_valid is not None and query.window is not None:
+    if query.n_valid is not None and query.window is not None \
+            and not (query.streaming and query.window.is_time):
+        # exception: event-time streaming pushes — the reorder buffer
+        # ingests a masked prefix a push
         raise ValueError("n_valid applies to non-windowed queries (windows "
                          "frame a dense stream)")
     for op in query.ops:
@@ -382,6 +394,11 @@ def plan(query: Query, *, backend: str | None = None,
             else "window" if query.window is not None
             else "engine")
     if path == "stream" and query.window is not None \
+            and query.window.is_time:
+        note = (note + "; " if note else "") + \
+            "event-time: panes close by watermark; evaluation at each " \
+            "push's watermark"
+    elif path == "stream" and query.window is not None \
             and not query.window.per_group:
         # NOT the batch semantics: a streamed global window runs on the
         # pane store, where ws becomes each group's default per-group
@@ -410,15 +427,20 @@ def _combiners(query: Query) -> tuple:
 def init_stream_state(p: Plan, key_dtype=torch.int32,
                       collect_stats: bool = False):
     """Fresh state for a streaming plan, on its device: one
-    :class:`repro_torch.core.segscan.Carry` an op, or a pane store when the
-    query is windowed."""
+    :class:`repro_torch.core.segscan.Carry` an op, a pane store when the
+    query is windowed, or the pair ``(reorder buffer, time-mode pane
+    store)`` for an event-time window."""
     if collect_stats:
         raise _later_slice("init_stream_state(collect_stats=True)", 6,
                            "observability")
     if p.path != "stream":
         raise ValueError("init_stream_state needs a streaming plan")
     dev = torch.device(p.device)
-    if p.query.window is not None:
+    w = p.query.window
+    if w is not None and w.is_time:
+        return (_eventtime.init_reorder(w.reorder_spec(), key_dtype, dev),
+                _panestore.init_store(w.store_spec(), key_dtype, device=dev))
+    if w is not None:
         return _panestore.init_store(p.query.window.store_spec(), key_dtype,
                                      device=dev)
     return tuple(_segscan.init_carry(c, key_dtype, dev)
@@ -444,19 +466,73 @@ def _store_push(p: Plan, state, groups, keys, n_valid, inplace: bool):
         push=True, inplace=inplace).final
 
 
-def _store_eval(p: Plan, state):
+def _time_place(p: Plan, pstate, emit, retire_below, inplace: bool):
+    """Place a reorder buffer's emission into the time-mode pane store: on
+    ``cuda-panestore`` one time-mode placement launch, else the plain
+    per-tuple loop on a host copy."""
+    spec = p.query.window.store_spec()
+    if p.backend != "cuda-panestore":
+        return _panestore.push_time(spec, pstate, emit.groups, emit.keys,
+                                    emit.ts, live=emit.live,
+                                    retire_below=retire_below)
+    return _swag_kernel.pergroup_scan_time(
+        spec, pstate, emit.groups, emit.keys, emit.ts, emit.live,
+        retire_below, inplace=inplace)[0]
+
+
+def _time_push(p: Plan, state, groups, keys, timestamps, n_valid,
+               inplace: bool):
+    """An event-time push: the batch through the reorder buffer, what it
+    releases into the time-mode store, panes wholly behind the horizon
+    (the watermark less the range) retired.  Returns ``(state, wm)``, the
+    watermark a 0-d device tensor (nothing is read back).  On
+    ``cuda-panestore`` a reorder launch and a placement launch."""
+    w = p.query.window
+    rspec = w.reorder_spec()
+    rstate, pstate = state
+    if p.backend == "cuda-panestore":
+        emit, rstate = _et_kernel.reorder_push(
+            rspec, rstate, timestamps, groups, keys, n_valid=n_valid,
+            inplace=inplace)
+    else:
+        emit, rstate = _eventtime.reorder_push(rspec, rstate, timestamps,
+                                               groups, keys, n_valid=n_valid)
+    wm = rstate.max_ts - w.max_lateness
+    pstate = _time_place(p, pstate, emit, wm - w.range, inplace)
+    return (rstate, pstate), wm
+
+
+def _time_flush(p: Plan, state, inplace: bool):
+    """The end of an event-time stream: drain the reorder buffer, place
+    every drained tuple (no retirement).  Returns ``(state, eval_time)``,
+    the evaluation time one past the largest timestamp seen."""
+    rstate, pstate = state
+    rspec = p.query.window.reorder_spec()
+    if p.backend == "cuda-panestore":
+        emit, rstate = _et_kernel.reorder_flush(rspec, rstate,
+                                                inplace=inplace)
+    else:
+        emit, rstate = _eventtime.reorder_flush(rspec, rstate)
+    pstate = _time_place(p, pstate, emit, None, inplace)
+    return (rstate, pstate), rstate.max_ts + 1
+
+
+def _store_eval(p: Plan, state, eval_time=None):
     """One evaluation of every live group's window in the pane store:
-    ``(groups [C], {name: values [C]}, valid [C], num)``.  On
-    ``cuda-panestore`` one launch of the ring-form replay over the store
-    as a one-snapshot ``[1, ...]`` state."""
+    ``(groups [C], {name: values [C]}, valid [C], num)`` (a time-mode
+    store at ``eval_time``).  On ``cuda-panestore`` one launch of the
+    ring-form replay over the store as a one-snapshot ``[1, ...]``
+    state."""
     q = p.query
     spec = q.window.store_spec()
     if p.backend != "cuda-panestore":
         return _panestore.replay(spec, state, q.ops,
-                                 interpolate=q.interpolate)
+                                 interpolate=q.interpolate,
+                                 eval_time=eval_time)
     one = _panestore.PaneStoreState(*(x[None] for x in state))
-    ovs, ugroups, num = _swag_kernel.pergroup_replay_ring(spec, one,
-                                                          q.op_names)
+    ovs, ugroups, num = _swag_kernel.pergroup_replay_ring(
+        spec, one, q.op_names,
+        eval_time=None if eval_time is None else eval_time.reshape(1))
     valid = torch.arange(spec.capacity, device=num.device) < num
     values = {nm: torch.where(valid, v[0], 0).to(v.dtype)
               for nm, v in ovs.items()}
@@ -468,15 +544,18 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
               collect_stats: bool = False, tile: int = 1024,
               inplace: bool = False):
     """The raw streaming step of a planned streaming query: ``(groups,
-    keys, state, n_valid) -> ((groups, values, valid, num, rr), state)``.
+    keys, state, n_valid) -> ((groups, values, valid, num, rr), state)``
+    (an event-time window's step takes ``timestamps`` last).
 
     Non-windowed streams thread one :class:`segscan.Carry` an op (on
     ``cuda`` each op's segmented scan is one kernel launch at ``tile``);
     windowed streams thread a
     :class:`repro_torch.core.panestore.PaneStoreState` (place the batch,
-    then one per-group evaluation).  The given state is left as it was,
-    unless ``inplace``, which lets a ``cuda-panestore`` push update the
-    store where it lies."""
+    then one per-group evaluation); event-time windows thread ``(reorder
+    buffer, time-mode store)`` (reorder the batch, place what it releases,
+    evaluate at the watermark).  The given state is left as it was,
+    unless ``inplace``, which lets a ``cuda-panestore`` push update its
+    buffers where they lie."""
     if p.path != "stream":
         raise ValueError("stream_fn needs a streaming plan")
     if mesh is not None:
@@ -485,6 +564,23 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
         raise _later_slice("stream_fn(collect_stats=True)", 6,
                            "observability")
     q = p.query
+    if q.window is not None and q.window.is_time:
+        c = q.window.store_spec().capacity
+
+        def time_step(groups, keys, state, n_valid=None, timestamps=None):
+            if timestamps is None:
+                raise ValueError("event-time streaming pushes need "
+                                 "timestamps=")
+            ts = _as_tensor(timestamps, groups.device)
+            state, wm = _time_push(p, state, groups, keys, ts, n_valid,
+                                   inplace)
+            g, values, valid, num = _store_eval(p, state[1], eval_time=wm)
+            lane = torch.arange(c, dtype=torch.int32, device=valid.device)
+            rr = torch.where(valid, lane % p_ports, -1).to(torch.int32)
+            return (g, values, valid, num, rr), state
+
+        return time_step
+
     if q.window is not None:
         c = q.window.store_spec().capacity
 
@@ -682,6 +778,8 @@ def execute(plan_or_query, groups, keys=None, *, state=None,
       keys: [N] value column.
       state: streaming queries only — the state the previous call
         returned (``None`` starts a fresh stream); it is not modified.
+        An event-time stream's state is ``(reorder buffer, time-mode pane
+        store)``.
       backend: override the plan's backend (re-plans when it differs).
       device: where to run — ``"cuda"`` (the default) or ``"cpu"``, where
         the kernel backends run their kernels' plain torch versions.
@@ -689,7 +787,8 @@ def execute(plan_or_query, groups, keys=None, *, state=None,
         ``cuda`` streaming push's scans.
       n_valid: prefix-length override of ``query.n_valid``.
       timestamps: [N] integer event times of a ``Window(range=...)``
-        query (numpy or torch; required by it, refused by the others).
+        query (numpy or torch; required by it, refused by the others;
+        int32 in a stream).
       mesh, num_shards, collect_stats: later slices of the port.
 
     Returns ``(AggResult, new_state)``; ``new_state`` is ``None`` unless
@@ -722,8 +821,9 @@ def execute(plan_or_query, groups, keys=None, *, state=None,
     if p.path == "stream":
         if state is None:
             state = init_stream_state(p, keys.dtype)
+        extra = (timestamps,) if is_time else ()
         (g, values, valid, num, _rr), new_state = stream_fn(p, tile=tile)(
-            groups, keys, state, n_valid)
+            groups, keys, state, n_valid, *extra)
         return AggResult(g, values, valid, num), new_state
     if state is not None:
         raise ValueError("state= applies to streaming queries "

@@ -341,7 +341,7 @@ def _stream_state(p, state, key_dtype):
 
     if state is None:
         return tq.init_stream_state(p, key_dtype)
-    if p.query.window is not None:
+    if p.query.window is not None and not p.query.window.is_time:
         return pane_state_from_numpy(state, "cpu")
     return carries_from_numpy(state, "cpu")
 
@@ -357,17 +357,18 @@ def _state_np(state):
 
 def stream_steps(ops, batches, *, backend, window=None, query=None,
                  state=None, n_valids=None):
-    """Push ``batches`` ([(groups, keys)]) through the streaming step of
-    the plan (``stream_fn``), from ``state`` (numpy) or a fresh one; per
-    push, its full outputs (with ``rr_port``) and the state it left, in
-    numpy."""
+    """Push ``batches`` ([(groups, keys)], or [(groups, keys, timestamps)]
+    for an event-time window) through the streaming step of the plan
+    (``stream_fn``), from ``state`` (numpy) or a fresh one; per push, its
+    full outputs (with ``rr_port``) and the state it left, in numpy."""
     p = _stream_plan(ops, window, query, backend)
     st = _stream_state(p, state, _t(batches[0][1]).dtype)
     step = tq.stream_fn(p)
     n_valids = n_valids or [None] * len(batches)
     out = []
-    for (g, k), nv in zip(batches, n_valids):
-        (og, ov, valid, num, rr), st = step(_t(g), _t(k), st, nv)
+    for (g, k, *ts), nv in zip(batches, n_valids):
+        (og, ov, valid, num, rr), st = step(_t(g), _t(k), st, nv,
+                                            *(_t(t) for t in ts))
         out.append({"groups": og.numpy(), "values": _np(ov),
                     "valid": valid.numpy(), "num": num.numpy(),
                     "rr": rr.numpy(), "state": _state_np(st)})
@@ -377,7 +378,8 @@ def stream_steps(ops, batches, *, backend, window=None, query=None,
 def aggregator_stream(op, batches, *, backend, window=None,
                       float_keys=False, n_valids=None):
     """``StreamingAggregator``'s pushes and flush on the CPU: per push its
-    result and carry, then the flush's result, in numpy."""
+    result (``stats`` included) and carry, then the flush's result, in
+    numpy.  An event-time window's batches carry timestamps third."""
     from repro_torch.core import StreamingAggregator
 
     agg = StreamingAggregator(
@@ -386,20 +388,24 @@ def aggregator_stream(op, batches, *, backend, window=None,
         device="cpu", backend=backend)
     n_valids = n_valids or [None] * len(batches)
     out = []
-    for (g, k), nv in zip(batches, n_valids):
-        r = agg.push(g, k, n_valid=nv)
+    for (g, k, *ts), nv in zip(batches, n_valids):
+        r = agg.push(g, k, n_valid=nv,
+                     timestamps=ts[0] if ts else None)
         out.append({**_np(r._asdict()), "state": _state_np(agg.carry)})
     return out, _np(agg.flush()._asdict())
 
 
-def execute_twice(ops, g, k, *, backend, window=None, state=None):
+def execute_twice(ops, g, k, *, backend, window=None, state=None,
+                  timestamps=None):
     """``execute(state=...)`` twice on one state: both results, and the
     state before and after (numpy)."""
     p = _stream_plan(ops, window, None, backend)
     st = _stream_state(p, state, _t(k).dtype)
     before = _state_np(st)
-    r1, s1 = tq.execute(p, g, k, state=st, device="cpu")
-    r2, s2 = tq.execute(p, g, k, state=st, device="cpu")
+    r1, s1 = tq.execute(p, g, k, state=st, device="cpu",
+                        timestamps=timestamps)
+    r2, s2 = tq.execute(p, g, k, state=st, device="cpu",
+                        timestamps=timestamps)
     return (_np(tuple(result_to_numpy(r1)[:4])),
             _np(tuple(result_to_numpy(r2)[:4])), _state_np(s1),
             _state_np(s2), before, _state_np(st))
@@ -445,8 +451,9 @@ def aggregator_later_slice(what):
         agg = StreamingAggregator("sum", device="cpu")
         agg.push(np.zeros(4, np.int32), np.zeros(4, np.int32),
                  timestamps=np.zeros(4, np.int32))
-    elif what == "time window":
-        StreamingAggregator("sum", window=tq.Window(range=10), device="cpu")
+    elif what == "time window stats":
+        StreamingAggregator("sum", window=tq.Window(range=10),
+                            collect_stats=True, device="cpu")
     elif what == "table":
         stream_push_table(None, (), ("sum",), first_group=0, any_real=True)
 
@@ -488,13 +495,106 @@ def window_info(window):
 
 
 def init_time_store(spec_kw):
+    """A fresh time-mode store, in numpy."""
     from repro_torch.core import panestore as ps
+    from repro_torch.interop import pane_state_to_numpy
 
-    ps.init_store(_spec(spec_kw))
+    return pane_state_to_numpy(ps.init_store(_spec(spec_kw)))
 
 
 def reorder_spec(window):
-    tq.Window(**window).reorder_spec()
+    """A time clause's reorder buffer: (capacity, max_lateness)."""
+    rs = tq.Window(**window).reorder_spec()
+    return rs.capacity, rs.max_lateness
+
+
+def plan_note(ops, *, backend=None, window=None, query=None):
+    return tq.plan(_query(ops, window, query), backend=backend,
+                   device="cpu").note
+
+
+# --------------------------------------------------- event-time streaming
+
+def _rspec(capacity, lateness):
+    from repro_torch.core.eventtime import ReorderSpec
+
+    return ReorderSpec(capacity, lateness)
+
+
+def reorder_pushes(capacity, lateness, pushes, float_keys=False,
+                   state=None):
+    """Pushes ``[(ts, groups, keys, n_valid, drain_wm)]`` through the plain
+    reorder buffer (``kernels.eventtime.kernel.reorder_push`` on CPU
+    tensors), from ``state`` (numpy) or an empty buffer, then a flush; per
+    push and for the flush the emission and the buffer, in numpy."""
+    from repro_torch.core import eventtime as et
+    from repro_torch.interop import (reorder_state_from_numpy,
+                                     reorder_state_to_numpy)
+    from repro_torch.kernels.eventtime import kernel as ek
+
+    spec = _rspec(capacity, lateness)
+    st = (et.init_reorder(spec, torch.float32 if float_keys
+                          else torch.int32) if state is None
+          else reorder_state_from_numpy(state, "cpu"))
+    out = []
+    for ts, g, k, nv, dw in pushes:
+        emit, st = ek.reorder_push(spec, st, _t(ts), _t(g), _t(k),
+                                   n_valid=nv, drain_wm=dw)
+        out.append((_np(tuple(emit)), reorder_state_to_numpy(st)))
+    emit, st = ek.reorder_flush(spec, st)
+    out.append((_np(tuple(emit)), reorder_state_to_numpy(st)))
+    return out
+
+
+def watermarks(batches, lateness, shard_wms):
+    """The watermark tracker over ``batches`` of (ts, live): max_ts after
+    each, the watermark, and the merge of ``shard_wms``."""
+    from repro_torch.core import eventtime as et
+
+    tr = et.init_tracker()
+    seen = []
+    for ts, live in batches:
+        tr = et.observe(tr, _t(ts), None if live is None else _t(live))
+        seen.append(int(tr.max_ts))
+    return (seen, int(et.watermark(tr, lateness)),
+            int(et.merge_watermarks(shard_wms)),
+            int(et.merge_watermarks(_t(np.asarray(shard_wms, np.int32)))))
+
+
+def push_time_steps(spec_kw, pushes, state=None, float_keys=False):
+    """Pushes ``[(groups, keys, ts, live, retire_below)]`` through the
+    plain time-mode placement (``kernels.swag.kernel.pergroup_scan_time``
+    on CPU tensors), from ``state`` (numpy) or an empty store: per push the
+    store and its events, in numpy."""
+    from repro_torch.core import panestore as ps
+    from repro_torch.interop import pane_state_to_numpy
+
+    spec = _spec(spec_kw)
+    st = (ps.init_store(spec, torch.float32 if float_keys else torch.int32)
+          if state is None else _state(state))
+    out = []
+    for g, k, ts, live, rb in pushes:
+        st, events = sk.pergroup_scan_time(
+            spec, st, _t(g), _t(k), _t(ts), _t(live),
+            None if rb is None else torch.tensor(rb, dtype=torch.int32))
+        out.append((pane_state_to_numpy(st), events.numpy()))
+    return out
+
+
+def time_replay(spec_kw, state_arrays, ops, eval_time):
+    """``gather_runs`` and ``replay`` of a time-mode store at
+    ``eval_time``, and the ring replay's plain version over it as a
+    one-snapshot state."""
+    from repro_torch.core import panestore as ps
+
+    spec = _spec(spec_kw)
+    st = _state(state_arrays)
+    et = torch.tensor(eval_time, dtype=torch.int32)
+    runs = ps.gather_runs(spec, st, eval_time=et)
+    g, vals, valid, num = ps.replay(spec, st, ops, eval_time=et)
+    one = ps.PaneStoreState(*(x[None] for x in st))
+    ring = sk.pergroup_replay_ring(spec, one, ops, eval_time=et.reshape(1))
+    return (_np(tuple(runs)), _np((g, vals, valid, num)), _np(ring))
 
 
 # ------------------------------------------- standalone sort and scan

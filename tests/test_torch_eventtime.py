@@ -296,12 +296,23 @@ def test_execute_timestamp_guards(port):
 
 
 def test_event_time_streaming_and_sharding_raise(port):
+    # event-time streaming is ported (slice 5b, held to the JAX package in
+    # test_torch_eventtime_stream.py): the planner serves it and a time
+    # clause's reorder buffer is the JAX package's; sharding still raises
+    from repro import query as jq
+
     g, k, ts = _stream(31, 32)
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        port.plan_backend(("sum",), window=dict(range=64),
-                          query={"streaming": True})
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        port.reorder_spec(dict(range=64, max_lateness=4))
+    stream = {"streaming": True}
+    assert port.plan_backend(("sum",), window=dict(range=64),
+                             query=stream) == "reference"  # auto on the CPU
+    assert port.plan_backend(("sum",), backend="cuda-panestore",
+                             window=dict(range=64), query=stream) \
+        == "cuda-panestore"
+    for window in (dict(range=64, max_lateness=4), dict(range=64),
+                   dict(range=64, reorder_capacity=8, max_lateness=0)):
+        want = jq.Window(**window).reorder_spec()
+        assert port.reorder_spec(window) == (want.capacity,
+                                             want.max_lateness)
     with pytest.raises(NotImplementedError, match="slice 7"):
         port.execute(("sum",), g, k, backend="reference",
                      window=dict(range=64), timestamps=ts, num_shards=2)

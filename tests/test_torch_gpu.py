@@ -1159,3 +1159,313 @@ def test_segscan_kernel_rejects(cuda):
         ssk.segscan(f, (k,), "sum", tile=8192)
     with pytest.raises(ValueError, match="variance"):
         ssk.segscan(f, (k,), "variance", tile=1024)
+
+
+# ------------------------------------------------- event-time streaming
+
+def _bits(t):
+    """A tensor's bits: float32 viewed as int32 (NaN payloads, signed
+    zeros), anything else as it is."""
+    import torch
+
+    return t.view(torch.int32) if t.dtype == torch.float32 else t
+
+
+def _time_tuples(seed, n, dtype, device, *, offset=0, jitter=(-14, 14),
+                 late=(), n_groups=6, special=False):
+    """``n`` (ts, group, key) tuples on the card, tuple i stamped about
+    ``offset + i``; ``late`` lanes far behind; ``special`` float keys
+    include -0.0 and NaN."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ts = (np.arange(n) + offset + rng.integers(*jitter, n)).astype(np.int32)
+    for i in late:
+        ts[i] = offset - 500
+    g = rng.integers(0, n_groups, n).astype(np.int32)
+    if dtype == np.float32:
+        k = (rng.integers(-6, 6, n) * 0.5).astype(np.float32)
+        if special:
+            k[::5] = -0.0
+            k[3::11] = np.nan
+    else:
+        k = rng.integers(-20, 50, n).astype(np.int32)
+    return tuple(torch.from_numpy(x).to(device) for x in (ts, g, k))
+
+
+def _assert_emit_same(got, want, n, what):
+    """Reorder emissions: the live lanes' ts, group and key bits, every
+    lane's live and late flags, ts 0 on the dead drain lanes (a dead
+    lane's other fields are whatever its cycle read)."""
+    import torch
+
+    assert_same(got.live, want.live, what=f"{what} live")
+    assert_same(got.late, want.late, what=f"{what} late")
+    lv = want.live
+    for f in ("ts", "groups", "keys"):
+        a, b = _bits(getattr(got, f)), _bits(getattr(want, f))
+        assert_same(torch.where(lv, a, 0), torch.where(lv, b, 0),
+                    what=f"{what} {f}")
+    assert bool((got.ts[n:][~got.live[n:]] == 0).all()), what
+
+
+#: (capacity, lateness, pushes of (n, late lanes, n_valid, drain_wm
+#: offset)): forced pops, stragglers, an n_valid tail (an int and a
+#: tensor on the card), a drain gate behind the watermark and ahead
+REORDER_CARD_CASES = {
+    "forced_pops": (8, 40, [(300, (), None, None)] * 3),
+    "late": (128, 8, [(1024, (5, 77, 900), None, None),
+                      (1024, (0, 1023), None, None)]),
+    "n_valid": (64, 16, [(500, (), 431, None), (500, (7,), "tensor", None),
+                         (500, (), 0, None)]),
+    "drain_wm": (32, 16, [(400, (), None, -40), (400, (), None, 9),
+                          (400, (), None, None)]),
+    "capacity_1024": (1024, 300, [(2048, (3,), None, None)] * 2),
+}
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", sorted(REORDER_CARD_CASES))
+def test_reorder_kernel_vs_plain(cuda, case, dtype):
+    import torch
+
+    from repro_torch.core import eventtime as et
+    from repro_torch.kernels.eventtime import kernel as ek
+
+    capacity, lateness, pushes = REORDER_CARD_CASES[case]
+    spec = et.ReorderSpec(capacity, lateness)
+    kdt = torch.float32 if dtype == np.float32 else torch.int32
+    st = et.init_reorder(spec, kdt, cuda)
+    ref = et.init_reorder(spec, kdt, cuda)
+    for i, (n, late, nv, dw) in enumerate(pushes):
+        ts, g, k = _time_tuples(100 + i, n, dtype, cuda, offset=n * i,
+                                late=late, special=True)
+        if nv == "tensor":
+            nv = torch.tensor(n - 50, dtype=torch.int32, device=cuda)
+        gate = None if dw is None else ts.max() + dw
+        ek.reorder_push.launches = 0
+        got, st = ek.reorder_push(spec, st, ts, g, k, n_valid=nv,
+                                  drain_wm=gate, inplace=True)
+        assert ek.reorder_push.launches == 1
+        want, ref = ek.reorder_push_plain(spec, ref, ts, g, k, n_valid=nv,
+                                          drain_wm=gate)
+        torch.cuda.synchronize()
+        _assert_emit_same(got, want, n, f"{case} push {i}")
+        _assert_trees(tuple(_bits(x) for x in st),
+                      tuple(_bits(x) for x in ref), f"{case} buffer {i}")
+    if case == "late":
+        assert int(st.dropped) >= 5
+    got, st = ek.reorder_flush(spec, st)
+    want, ref = ek.reorder_flush_plain(spec, ref)
+    torch.cuda.synchronize()
+    _assert_emit_same(got, want, 0, f"{case} flush")
+    _assert_trees(tuple(_bits(x) for x in st), tuple(_bits(x) for x in ref),
+                  f"{case} flushed buffer")
+
+
+def _time_store_pushes(case, dtype, device):
+    """A time-mode spec and pushes of (groups, keys, ts, live,
+    retire_below) for a placement case: chaining beyond wa, evictions, a
+    first-cycle eviction beside dead panes, negative timestamps, dead
+    lanes."""
+    import torch
+
+    from repro_torch.core import panestore as ps
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(device)
+
+    rng = np.random.default_rng(PLACE_CASES.index(case))
+    if case == "cycle0_eviction":
+        spec = ps.PaneStoreSpec(wa=4, capacity=4, default_ws=1, slide=10,
+                                time_range=30)
+        k = np.array([7, 8, 9, 10, 1, 2]).astype(dtype)
+        return spec, [
+            (t(np.arange(4, dtype=np.int32)), t(k[:4]),
+             t(np.array([100, 5, 6, 7], np.int32)), t(np.ones(4, bool)),
+             None),
+            (t(np.array([4, 5], np.int32)), t(k[4:]),
+             t(np.array([200, 201], np.int32)), t(np.ones(2, bool)),
+             torch.tensor(50, dtype=torch.int32, device=device))]
+    spec = ps.PaneStoreSpec(wa=16, capacity=64 if case == "evictions" else
+                            256, default_ws=1, slide=64, time_range=256)
+    base = -5000 if case == "negative" else 0
+    n_groups = {"chaining": 3, "evictions": 48}.get(case, 8)
+    pushes = []
+    for i in range(4):
+        n = 1152
+        ts = np.sort(rng.integers(base + 600 * i, base + 600 * i + 700, n)
+                     ).astype(np.int32)
+        g = rng.integers(0, n_groups, n).astype(np.int32)
+        if dtype == np.float32:
+            k = rng.choice(np.array([-1.0, -0.0, 0.0, 0.5, 2.0, np.nan],
+                                    np.float32), n)
+        else:
+            k = rng.integers(0, 1000, n).astype(np.int32)
+        live = (rng.random(n) < 0.6 if case == "dead_lanes"
+                else np.ones(n, bool))
+        if case == "dead_lanes":
+            ts[~live] = rng.integers(-10**6, 10**6, int((~live).sum()))
+        rb = torch.tensor(base + 600 * i - 200, dtype=torch.int32,
+                          device=device)
+        pushes.append((t(g), t(k), t(ts), t(live), rb))
+    return spec, pushes
+
+
+PLACE_CASES = ("chaining", "evictions", "cycle0_eviction", "negative",
+               "dead_lanes")
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", PLACE_CASES)
+def test_pergroup_scan_time_kernel_vs_plain(cuda, case, dtype):
+    import torch
+
+    from repro_torch.core import panestore as ps
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec, pushes = _time_store_pushes(case, dtype, cuda)
+    kdt = torch.float32 if dtype == np.float32 else torch.int32
+    st = ps.init_store(spec, kdt, device=cuda)
+    ref = ps.init_store(spec, kdt, device=cuda)
+    events = np.zeros(2, np.int64)
+    for i, (g, k, ts, live, rb) in enumerate(pushes):
+        sk.pergroup_scan_time.launches = 0
+        st, ev = sk.pergroup_scan_time(spec, st, g, k, ts, live, rb,
+                                       inplace=True)
+        assert sk.pergroup_scan_time.launches == 1
+        ref, wev = sk.pergroup_scan_time_plain(spec, ref, g, k, ts, live, rb)
+        torch.cuda.synchronize()
+        assert_same(ev, wev, what=f"{case} push {i} events")
+        _assert_trees(tuple(_bits(x) for x in st),
+                      tuple(_bits(x) for x in ref), f"{case} store {i}")
+        events += wev.cpu().numpy()
+    if case == "cycle0_eviction":
+        assert events.tolist() == [1, 3] and int(st.owner[0]) == 4
+    elif case == "evictions":
+        assert events[0] > 0
+    else:
+        assert events[1] > 0
+
+
+@pytest.mark.parametrize("keys", ["int32", "float32", "signed_zeros", "nan"])
+def test_pergroup_replay_ring_time_form_vs_plain(cuda, keys):
+    # a time-mode store evaluated at several times (one whose window holds
+    # no tuple of some groups, whose rows are then dropped); -0.0 may
+    # differ only in the sign of a zero (the kernel merges by value), NaN
+    # keys are held on the ops that do not order the window
+    import torch
+
+    from repro_torch.core import panestore as ps
+    from repro_torch.kernels.swag import kernel as sk
+
+    dtype = np.int32 if keys == "int32" else np.float32
+    spec, pushes = _time_store_pushes("chaining", dtype, cuda)
+    kdt = torch.float32 if dtype == np.float32 else torch.int32
+    st = ps.init_store(spec, kdt, device=cuda)
+    for g, k, ts, live, rb in pushes:
+        if keys == "float32":
+            k = torch.where(torch.isnan(k) | (k == 0), 1.5, k)
+        elif keys == "signed_zeros":
+            k = torch.where(torch.isnan(k), -0.0, k)
+        st, _ = sk.pergroup_scan_time(spec, st, g, k, ts, live, rb)
+    one = ps.PaneStoreState(*(x[None] for x in st))
+    top = int(pushes[-1][2].max())
+    ops = (("count", "sum", "mean") if keys == "nan"
+           else tuple(sorted(DIRECT_OPS)))
+    for et in (top + 1, top - 150, top + 300):
+        et_t = torch.tensor([et], dtype=torch.int32, device=cuda)
+        sk.pergroup_replay_ring.launches = 0
+        gv, gg, gn = sk.pergroup_replay_ring(spec, one, ops, eval_time=et_t)
+        assert sk.pergroup_replay_ring.launches == 1
+        wv, wg, wn = sk.pergroup_replay_ring_plain(spec, one, ops,
+                                                   eval_time=et_t)
+        torch.cuda.synchronize()
+        assert_same(gg, wg, what=f"et {et} ugroups")
+        assert_same(gn, wn, what=f"et {et} num")
+        for name in ops:
+            a, b = gv[name], wv[name]
+            if keys == "nan" and name != "count":
+                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
+                                           equal_nan=True, msg=name)
+                continue
+            if keys == "signed_zeros" and name not in INEXACT:
+                a, b = _zero_mapped(a), _zero_mapped(b)
+            assert_same(a, b, inexact=name in INEXACT, what=f"et {et} {name}")
+        if et == top + 300:  # no tuple in the window: every row dropped
+            assert int(gn[0]) == 0 < int((st.owner != PAD_GROUP).sum())
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+def test_event_time_stream_on_card_matches_reference(cuda, dtype):
+    # auto plans cuda-panestore on the card; each push is one reorder, one
+    # time-mode placement and one ring replay launch, and equals the
+    # reference backend on the card push by push (outputs and the carried
+    # pair); the aggregator updates its buffers in place and its flush
+    # (three launches) equals the reference's
+    import torch
+
+    from repro_torch.core import StreamingAggregator
+    from repro_torch.kernels.eventtime import kernel as ek
+    from repro_torch.kernels.swag import kernel as sk
+    from repro_torch.query import (Query, Window, init_stream_state, plan,
+                                   stream_fn)
+
+    w = Window(range=512, slide=128, wa=8, capacity=256, max_lateness=32,
+               reorder_capacity=128)
+    ops = tuple(sorted(DIRECT_OPS))
+    q = Query(ops=ops, window=w, streaming=True)
+    p = plan(q, device=cuda)
+    assert p.backend == "cuda-panestore" and "watermark" in p.note, p
+    pr = plan(q, backend="reference", device=cuda)
+    kdt = torch.float32 if dtype == np.float32 else torch.int32
+    step, ref = stream_fn(p), stream_fn(pr)
+    st, rst = init_stream_state(p, kdt), init_stream_state(pr, kdt)
+    agg = StreamingAggregator(ops, window=w, key_dtype=kdt, device=cuda)
+    aref = StreamingAggregator(ops, window=w, key_dtype=kdt,
+                               backend="reference", device=cuda)
+    ring = agg.carry[1].keys.data_ptr()
+    wrappers = (ek.reorder_push, sk.pergroup_scan_time,
+                sk.pergroup_replay_ring)
+    for i in range(6):
+        ts, g, k = _time_tuples(200 + i, 700, dtype, cuda, offset=700 * i,
+                                jitter=(-15, 15), late=(9,), n_groups=20)
+        nv = 650 if i == 2 else None
+        for wr in wrappers:
+            wr.launches = 0
+        got, st = step(g, k, st, nv, ts)
+        assert tuple(wr.launches for wr in wrappers) == (1, 1, 1)
+        want, rst = ref(g, k, rst, nv, ts)
+        torch.cuda.synchronize()
+        tag = f"push {i}"
+        for a, b, what in zip(got[:1] + got[2:], want[:1] + want[2:],
+                              ("groups", "valid", "num", "rr_port")):
+            assert_same(a, b, what=f"{tag} {what}")
+        for name in ops:
+            assert_same(got[1][name], want[1][name],
+                        inexact=name in INEXACT, what=f"{tag} {name}")
+        for a, b in zip(st, rst):
+            _assert_trees(tuple(_bits(x) for x in a),
+                          tuple(_bits(x) for x in b), f"{tag} state")
+        _same_stream_result(agg.push(g, k, nv, ts), aref.push(g, k, nv, ts),
+                            f"aggregator {tag}")
+        assert agg.carry[1].keys.data_ptr() == ring
+    for wr in wrappers:
+        wr.launches = 0
+    fin = agg.flush()
+    assert tuple(wr.launches for wr in wrappers) == (1, 1, 1)
+    _same_stream_result(fin, aref.flush(), "flush")
+    assert int(fin.stats["late_dropped"]) == 6
+    torch.cuda.synchronize()
+
+
+def _same_stream_result(got, want, what):
+    """Two ``StreamResult`` of several ops: every field, ``stats``
+    included."""
+    for f in ("groups", "valid", "num_groups", "rr_port"):
+        assert_same(getattr(got, f), getattr(want, f), what=f"{what} {f}")
+    for name, v in want.values.items():
+        assert_same(got.values[name], v, inexact=name in INEXACT,
+                    what=f"{what} {name}")
+    assert_same(got.stats["late_dropped"], want.stats["late_dropped"],
+                what=f"{what} late_dropped")

@@ -309,12 +309,14 @@ def test_pergroup_plan_conflicts(port):
 
 
 def test_range_window_still_raises(port):
-    # batch time windows are ported (slice 5a); a time clause takes no
-    # per-group windows, and time-mode pane stores serve event-time
-    # streaming, which still raises (slice 5b)
+    # batch time windows are ported (slice 5a) and a time clause takes no
+    # per-group windows; time-mode pane stores serve event-time streaming
+    # (slice 5b): a fresh one equals the JAX package's
     port.make_window(range=10)
     with pytest.raises(ValueError, match="time-bounded"):
         port.make_window(range=10, ws_per_group={0: 8})
-    with pytest.raises(NotImplementedError, match="slice 5b"):
-        port.init_time_store(dict(wa=8, capacity=16, default_ws=1, slide=4,
-                                  time_range=16))
+    spec = dict(wa=8, capacity=16, default_ws=1, slide=4, time_range=16)
+    got = port.init_time_store(spec)
+    want = jps.init_store(jps.PaneStoreSpec(**spec))
+    for f, w in zip(jps.PaneStoreState._fields, want):
+        assert_same(w, got[f], name=f)

@@ -368,7 +368,16 @@ def test_streaming_median_without_a_window_is_refused(port):
 
 @pytest.mark.parametrize("what,slice_no", [
     ("shards", "7"), ("mesh", "7"), ("table", "7"), ("stats", "6"),
-    ("timestamps", "5b"), ("time window", "5b")])
+    # event-time streaming is ported (slice 5b): timestamps without a time
+    # window are the JAX package's ValueError, and what still waits is the
+    # statistics of a time window (slice 6)
+    pytest.param("timestamps", None, id="timestamps-5b"),
+    pytest.param("time window stats", "6", id="time window-5b")])
 def test_later_slices_raise_naming_theirs(port, what, slice_no):
+    if slice_no is None:
+        with pytest.raises(ValueError, match="timestamps apply to "
+                           "event-time windows"):
+            port.aggregator_later_slice(what)
+        return
     with pytest.raises(NotImplementedError, match=f"slice {slice_no} "):
         port.aggregator_later_slice(what)
