@@ -103,10 +103,12 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    (n)'s push, its plain version being one torch loop step a tuple; the
    scan at (m)'s push, every op; the ring replay at (n)'s one evaluation;
    at (o)'s push the reorder kernel and the time-mode placement, each also
-   on float32 keys with -0.0 and NaN and on an edge push — forced pops
-   and late tuples (a 32-slot buffer), chaining, evictions and negative
-   timestamps (32 slots, four groups) — and the time-form replay of (o)'s
-   last store, on float32 keys too),
+   on float32 keys with -0.0 and NaN and on an edge push, timed too —
+   forced pops and late tuples (a 32-slot buffer), chaining, evictions and
+   negative timestamps (32 slots, four groups) —, the reorder also on a
+   1024-slot buffer that holds about 900 tuples (timed), each printed
+   with its ns a tuple beside the first design's (PERF.md §6), and the
+   time-form replay of (o)'s last store, on float32 keys too),
    timed with CUDA events beside the plain
    version, a library call where one computes the same function, and the
    least time the card could take (H100 SXM data sheet: 3.35 TB/s, 67
@@ -159,6 +161,9 @@ EVENT_WINDOW = dict(range=4096, slide=1024, wa=16, capacity=1024,
 EVENT_STREAM = dict(n=1 << 16, n_groups=64, key_max=1 << 20, density=0.875,
                     jitter=64)
 EVENT_PUSH = 1024
+#: ns a tuple of the event-time kernels' first design at run (o)'s push
+#: (PERF.md §6, rows 11 and 12), printed beside this run's
+PARENT_NS = {"reorder": 1101.0, "pergroup_scan_time": 2597.0}
 REPLACES = {
     "groupagg": "src/repro/kernels/groupagg/kernel.py:109",
     "swag": "src/repro/kernels/swag/kernel.py:453",
@@ -1160,7 +1165,8 @@ def event_time_run(torch, dev, wrappers, run_launches, identity):
     lt = pt.clone()
     lt[100::113] -= 500
     empty = et.init_reorder(spec32, torch.int32, dev)
-    ge = ek.reorder_push(spec32, empty, lt, pg, pk)
+    ge, edge_ms = timed(torch, lambda: ek.reorder_push(spec32, empty, lt, pg,
+                                                       pk), 5)
     we = ek.reorder_push_plain(spec32, empty, lt, pg, pk)
     edge_err = max(_emit_err(torch, ge[0], we[0], EVENT_PUSH),
                    _state_err(torch, ge[1], we[1]))
@@ -1171,9 +1177,20 @@ def event_time_run(torch, dev, wrappers, run_launches, identity):
     if forced == 0 or late == 0:
         raise AssertionError(f"reorder edge check: {forced} forced pops, "
                              f"{late} late tuples")
-    if float_err or edge_err:
+    # the widest buffer, 1024 slots (32 a lane), with a lateness that keeps
+    # about 900 tuples in flight, from an empty buffer
+    spec1k = et.ReorderSpec(1024, 1000)
+    empty1k = et.init_reorder(spec1k, torch.int32, dev)
+    g1k, wide_ms = timed(torch, lambda: ek.reorder_push(spec1k, empty1k, pt,
+                                                        pg, pk), 5)
+    w1k = ek.reorder_push_plain(spec1k, empty1k, pt, pg, pk)
+    wide_err = max(_emit_err(torch, g1k[0], w1k[0], EVENT_PUSH),
+                   _state_err(torch, g1k[1], w1k[1]))
+    held = int(w1k[1].occ.sum())
+    if float_err or edge_err or wide_err or held < 512:
         raise AssertionError(f"reorder: float32 keys differ by {float_err}, "
-                             f"the forced-pop push by {edge_err}")
+                             f"the forced-pop push by {edge_err}, the "
+                             f"1024-slot push by {wide_err} ({held} held)")
     nb = (12 * m + 14 * (m + rspec.capacity) + 2 * 17 * rspec.capacity + 32)
     bnd, by = bound_ms(nb, 0.0)
     rows.append({"name": "reorder", "ms": ms, "ns_a_tuple": ms * 1e6 / m,
@@ -1183,7 +1200,11 @@ def event_time_run(torch, dev, wrappers, run_launches, identity):
                  "float32_check": {"max_abs_err": float_err,
                                    "keys": "-0.0 and NaN"},
                  "edge_check": {"capacity": 32, "forced_pops": forced,
-                                "late": late, "max_abs_err": edge_err}})
+                                "late": late, "max_abs_err": edge_err,
+                                "ms": edge_ms},
+                 "wide_check": {"capacity": 1024, "lateness": 1000,
+                                "held": held, "max_abs_err": wide_err,
+                                "ms": wide_ms}})
 
     # the time-mode placement at a push's shape: push j's emission onto
     # the store before it
@@ -1195,6 +1216,27 @@ def event_time_run(torch, dev, wrappers, run_launches, identity):
                                        em.ts, em.live, rb)
     err = max(_state_err(torch, got[0], want[0]),
               max_abs_err(torch, [got[1]], [want[1].to(dev)]))
+    # the launch alone, its pane index and bitmaps in shared memory (where
+    # the wrapper puts them at this shape) and in device memory (where it
+    # puts them when they do not fit): on fresh copies of the store, the
+    # two homes alternated shared, device, device, shared
+    aux = torch.empty((sk.time_aux_bytes(c),), dtype=torch.uint8,
+                      device=dev)
+    home_ms = {"shared": [], "device": []}
+    for where in ("shared", "device", "device", "shared"):
+        copies = [ps.PaneStoreState(*(x.clone() for x in p_before))
+                  for _ in range(8)]
+
+        def launch_on_copy():
+            st = copies.pop()
+            return st, sk.time_scan_launch(
+                spec, st, em.groups, em.keys, em.ts, em.live, rb,
+                aux=aux if where == "device" else None)
+
+        (st_h, ev_h), t_h = timed(torch, launch_on_copy, 7)
+        home_ms[where].append(t_h)
+        err = max(err, _state_err(torch, st_h, want[0]),
+                  max_abs_err(torch, [ev_h], [want[1].to(dev)]))
     p_float = p_before._replace(keys=p_before.keys.to(torch.float32))
     fkeys = _specials(torch, em.keys)
     gf = sk.pergroup_scan_time(spec, p_float, em.groups, fkeys, em.ts,
@@ -1216,8 +1258,9 @@ def event_time_run(torch, dev, wrappers, run_launches, identity):
         qt = qt - 1_000_000
         live = torch.ones_like(qg, dtype=torch.bool)
         qrb = qt.max() - lat - w.range
-        st_e, kev = sk.pergroup_scan_time(spec_e, st_e, qg, qk, qt, live,
-                                          qrb)
+        before_e = st_e
+        (st_e, kev), edge_ms = timed(torch, lambda: sk.pergroup_scan_time(
+            spec_e, before_e, qg, qk, qt, live, qrb), 5)
         wt_e, pev = sk.pergroup_scan_time_plain(spec_e, wt_e, qg, qk, qt,
                                                 live, qrb)
         edge_err = max(edge_err, _state_err(torch, st_e, wt_e),
@@ -1249,14 +1292,15 @@ def event_time_run(torch, dev, wrappers, run_launches, identity):
                  "library_ms": None, "max_abs_err": err, "bound_ms": bnd,
                  "bound_by": by, "shape": [m, c, wa], "live_lanes":
                  live_lanes, "closes": closes, "events": events.tolist(),
-                 "runs": ["o"],
+                 "runs": ["o"], "launch_ms_by_index_home": home_ms,
                  "float32_check": {"max_abs_err": float_err,
                                    "keys": "-0.0 and NaN"},
                  "edge_check": {"capacity": 32, "groups": 4,
                                 "evictions": int(ev_e[0]),
                                 "retirements": int(ev_e[1]),
                                 "chained_slots": chained,
-                                "max_abs_err": edge_err}})
+                                "max_abs_err": edge_err,
+                                "ms": edge_ms}})
 
     # the ring replay's time form at a push's shape: one evaluation of the
     # store before the flush, at its watermark
@@ -1316,10 +1360,21 @@ def event_time_run(torch, dev, wrappers, run_launches, identity):
     for row in rows:
         print(f"{row['name']} at run (o)'s shape {row['shape']}: "
               f"{row['ms']:.4f} ms"
-              + (f" ({row['ns_a_tuple']:.1f} ns a tuple)"
+              + (f" ({row['ns_a_tuple']:.1f} ns a tuple; the first design "
+                 f"{PARENT_NS[row['name']]:.0f}, from PERF.md)"
                  if "ns_a_tuple" in row else "")
               + f", bound {row['bound_ms']:.6f} ({row['bound_by']}), plain "
               f"{row['plain_ms']:.2f} ms [{identity}]", flush=True)
+        for key in ("edge_check", "wide_check"):
+            check = dict(row.get(key, {}))
+            if "ms" in check:
+                ms = check.pop("ms")
+                print(f"{row['name']} {key}: {ms:.4f} ms ({check})",
+                      flush=True)
+        if "launch_ms_by_index_home" in row:
+            print(f"{row['name']} launch alone, index in shared / device "
+                  f"memory (s d d s): {row['launch_ms_by_index_home']} ms",
+                  flush=True)
     return phases, rows
 
 
@@ -1482,7 +1537,8 @@ PTXAS_KERNELS = {
          "pergroup_replay_kernel", ("keys", "ring", "time")),
         (r"pergroup_scan_time_kernelI([if])E", "pergroup_scan_time_kernel",
          ("keys",))],
-    "reorder.cu": [(r"reorder_kernel", "reorder_kernel", ())],
+    "reorder.cu": [(r"reorder_kernelILi(\d+)E", "reorder_kernel",
+                    ("slots",))],
     "bitonic.cu": [
         (r"bitonic_rows_kernelILi(\d)ELi(n?\d)E", "bitonic_rows_kernel",
          ("num_keys", "float_keys"))],
@@ -1540,8 +1596,8 @@ def kernel_ptxas(build) -> list:
                                                  line)[1])
                 sm = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem"] = int(sm[1]) if sm else 0
-    shown = ("op", "keys", "num_keys", "float_keys", "lanes", "max_threads",
-             "ring", "time", "flat")
+    shown = ("op", "keys", "num_keys", "float_keys", "lanes", "slots",
+             "max_threads", "ring", "time", "flat")
     for r in rows:
         args = ", ".join(f"{k} {r[k]}" for k in shown if k in r)
         print(f"ptxas {r['kernel']}<{args}>: "

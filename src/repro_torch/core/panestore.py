@@ -617,9 +617,18 @@ def merged_window(run_keys: torch.Tensor, run_valid: torch.Tensor, *,
                   run: int):
     """Merge each row's presorted runs of ``run`` lanes (liveness as
     payload) and compact the live lanes to the front:
-    ``(keys_sorted_live_prefix, cnt)``; the tail holds the key sentinel."""
-    mk, mv = sorter.merge_presorted(
-        (run_keys, run_valid.to(torch.int32)), run=run, num_keys=1)
+    ``(keys_sorted_live_prefix, cnt)``; the tail holds the key sentinel.
+    Float keys merge as the panes are sorted: NaN after every number (the
+    JAX package's network compares NaN with nothing, so where NaN keys
+    are live, min, max, median and distinct count may differ from it)."""
+    if run_keys.dtype.is_floating_point:
+        nan = torch.isnan(run_keys)
+        _, _, mk, mv = sorter.merge_presorted(
+            (nan.to(torch.int32), torch.where(nan, 0.0, run_keys), run_keys,
+             run_valid.to(torch.int32)), run=run, num_keys=2)
+    else:
+        mk, mv = sorter.merge_presorted(
+            (run_keys, run_valid.to(torch.int32)), run=run, num_keys=1)
     mv = mv == 1
     n = mk.shape[-1]
     rank = torch.cumsum(mv.to(torch.int32), -1, dtype=torch.int32) \

@@ -47,21 +47,39 @@
 // time-mode store: a reorder buffer's emission (a live mask, not a
 // prefix), each tuple into the slot of its (group, time pane ts / slide)
 // that has room, else the first free slot, else the globally oldest
-// (evicted; first index on ties, as _push_one_time's argmin picks).  A
-// simple design: one warp, the directory (owner, count, base, stamp, [C]
-// int32) in shared memory; a live tuple is one pass of the warp over the
-// directory, C / 32 slots a lane, for the open slot, the first free slot
-// and the oldest stamp at once, then three warp minima.  Lane 0 writes
-// the tuple's key and timestamp into the [C, WA] ring in device memory; a
-// pane that fills is sorted there by the warp (stable by key: -0.0 beside
-// 0.0 and NaN last, as torch.sort orders them, the lane breaking ties; the
-// timestamp rides along).  Retirement (a pane wholly below retire_below)
-// runs on every cycle in the JAX package, dead lanes included; the horizon
-// is one value for the push, so after the first cycle's pass over every
-// slot only a slot the cycle allocates can newly fall behind, and only it
-// is tested.  Bound: the latency of one warp, about C / 32 shared-memory
-// loads and three reductions a tuple; bytes (about 16 a tuple and the
-// panes that close) leave the card's memory idle.
+// (evicted; first index on ties, as _push_one_time's argmin picks).  It
+// follows the count-mode scan's design: the common tuple costs O(1) and
+// 32 are placed at once.  The directory (owner, count, base, stamp) sits
+// in shared memory with an index of the open panes, open-addressed by the
+// (group, pane) pair (at most one open pane a pair: a chain's earlier
+// links are full): an entry holds the pane's slot and count, and its slot
+// becomes -1 the moment the pane fills, is evicted or retires, so a probe
+// needs no check against the directory (the index is rebuilt when half of
+// it is taken).  Beside them: a bitmap of the free slots, one of the panes
+// closed and not yet sorted, and a word a slot for a batch's lanes of
+// each pane.  The block's eight warps build the index at launch; then one
+// warp places: a window of 32 lanes looks its pairs up, each lane sets its
+// bit in its pane's word (an atomic OR; __match_any_sync costs several
+// times as much on this card), so a lane's rank among the lanes of its
+// pane is a popcount, and the lanes before the first event (no open pane,
+// or one that fills before the lane) write their key and timestamp into
+// the [C, WA] ring at count + rank, the last lane of a pane the count.
+// The event lane is an allocation: the first free slot by a reduction over
+// the bitmap, else an argmin pass over the stamps (an eviction: every slot
+// is live then, and the signed argmin is right across a wrapped clock),
+// the pane allocated behind the horizon retired at once; the window
+// resumes after it.  Retirement (a pane wholly below retire_below) runs on
+// every cycle in the JAX package, dead lanes included; the horizon is one
+// value for the push, so after the first tuple's full pass over every slot
+// only a slot a cycle allocates can newly fall behind.  A pane that fills
+// is sorted once (stable by key: -0.0 beside 0.0 and NaN last, as
+// torch.sort orders them, the lane breaking ties; the timestamp rides
+// along): by all eight warps after the last tuple, 32 / WA panes a warp at
+// once in registers (a shared buffer for WA > 32), or by the placing warp
+// before a slot it closed is reallocated.  Bound: the latency of one warp,
+// a probe, an atomic and two ballots a batch, a reduction and one lane's
+// stores an allocation; bytes (about 16 a tuple and the panes that close)
+// leave the card's memory idle.
 //
 // pergroup_fused_kernel — parallel over chunks, one block a chunk.  The
 // ring is scratch (the fused regime returns only op values) and sum,
@@ -85,16 +103,16 @@
 // in flight on an SM.  The ring form reads a group's runs straight from the
 // scan's ring snapshot through the slot directory (no gathered [NE*C, S*WA]
 // rows; a warp takes its evaluation's live groups only); the row form
-// reads gathered rows with a liveness mask.  Dead lanes become the key
-// sentinel and set no bit of the row's live bitmap; a closed run's live
-// lanes move to the run's front at their rank (a prefix count of the
-// bitmap), which keeps the run sorted; the open pane is sorted in shared
-// memory; merge-path rounds over the runs that can hold live lanes make the
-// row one sorted run, its live keys first; min, max, lower median and
-// distinct count come off that prefix, while count, sum and mean are taken
-// as the lanes load (they need no order, so a NaN key, which orders with
-// nothing, leaves them whole).  Keys compare as
-// keys (no packing), so -0.0 and +0.0 keep their bits.  Bound: bytes, 8 a
+// reads gathered rows with a liveness mask.  Dead lanes become the fill
+// (the int32 maximum, or a NaN) and set no bit of the row's live bitmap; a
+// closed run's live lanes move to the run's front at their rank (a prefix
+// count of the bitmap), which keeps the run sorted; the open pane is sorted
+// in shared memory; merge-path rounds over the runs that can hold live
+// lanes make the row one sorted run, its live keys first; min, max, lower
+// median and distinct count come off that prefix, while count, sum and
+// mean are taken as the lanes load.  Keys compare as keys (no packing), in
+// the panes' order: -0.0 beside +0.0 (both keep their bits), NaN after
+// every number, as the close sort and the plain version's merge put it.  Bound: bytes, 8 a
 // live slot lane of the ring read once (4.5 a lane of the row form); the
 // work is a few shared-memory passes a row.  The time form (TIME, a
 // time-mode store) makes a lane live iff it is filled and its timestamp
@@ -116,9 +134,24 @@ template <typename K> __device__ __forceinline__ K key_min();
 template <> __device__ __forceinline__ int key_min<int>() { return SHIFT_FILL; }
 template <> __device__ __forceinline__ float key_min<float>() { return __int_as_float(0xff800000); }
 
+// The key order of the panes and the replay's merge: numbers by value
+// (-0.0 beside +0.0), NaN after every number and equal to NaN, as
+// torch.sort places it.
+template <typename K>
+__device__ __forceinline__ bool key_lt(K a, K b) { return a < b; }
+template <>
+__device__ __forceinline__ bool key_lt<float>(float a, float b) {
+  return a < b || (a == a && b != b);
+}
+// What a dead lane of a replay row holds: after every live key in the
+// order above (a NaN for float keys, so a live NaN ties with it).
+template <typename K> __device__ __forceinline__ K key_fill();
+template <> __device__ __forceinline__ int key_fill<int>() { return 0x7fffffff; }
+template <> __device__ __forceinline__ float key_fill<float>() { return __int_as_float(0x7fc00000); }
+
 template <typename K>
 __device__ __forceinline__ bool key_seq_less(K ka, int sa, K kb, int sb) {
-  return ka < kb || (!(kb < ka) && sa < sb);
+  return key_lt(ka, kb) || (!key_lt(kb, ka) && sa < sb);
 }
 
 // Bitonic sort of n (a power of two) (key, seq) pairs in shared memory by
@@ -146,6 +179,9 @@ __device__ void sort_key_seq(K* k, int* s, int n, int tid, int nthreads,
 }
 
 struct WarpSync { __device__ void operator()() const { __syncwarp(); } };
+struct BlockSync {
+  __device__ void operator()() const { __syncthreads(); }
+};
 
 // ------------------------------------------------------- placement scan
 
@@ -653,20 +689,6 @@ pergroup_scan_kernel(ScanArgs a) {
 constexpr int TS_FLOOR = -(1 << 30);  // no retirement
 constexpr int I32_MAX = 0x7fffffff;
 
-struct TimeScanArgs {
-  const int* g;             // [n] group ids
-  const void* k;            // [n] keys
-  const int* ts;            // [n] timestamps
-  const bool* live;         // [n]
-  int n;
-  const int* retire_below;  // [] or null: TS_FLOOR
-  int wa, c, slide;
-  int *owner, *count, *base, *stamp, *clock;  // [C], [] (in/out)
-  void* ring_k;             // [C, WA] (in/out)
-  int* ring_s;              // [C, WA] timestamps (in/out)
-  int* events;              // [2] evictions, retirements
-};
-
 __device__ __forceinline__ int floor_div(int t, int s) {  // s > 0
   const int q = t / s;
   return (t % s != 0 && t < 0) ? q - 1 : q;
@@ -726,134 +748,408 @@ __device__ void sort_row_stable(K* ring_k, int* ring_s, long long s, int wa,
   __syncwarp();
 }
 
+// Threads of the time-mode placement's block: the placing warp, and seven
+// more that help build its index at launch and sort the panes that closed
+// in the push at its end.
+constexpr int TIME_THREADS = 256;
+
+struct TimeScanArgs {
+  const int* g;             // [n] group ids
+  const void* k;            // [n] keys
+  const int* ts;            // [n] timestamps
+  const bool* live;         // [n]
+  int n;
+  const int* retire_below;  // [] or null: TS_FLOOR
+  int wa, c, slide;
+  int *owner, *count, *base, *stamp, *clock;  // [C], [] (in/out)
+  void* ring_k;             // [C, WA] (in/out)
+  int* ring_s;              // [C, WA] timestamps (in/out)
+  int* events;              // [2] evictions, retirements
+  int hsize;                // index entries (a power of two, >= 2C)
+  void* aux;                // device memory for the index and bitmaps, or
+                            // null: they sit in shared memory
+};
+
+// The index, bitmaps and list of the time-mode placement (in shared memory,
+// or in device memory when they do not fit beside the directory).
+struct TimeAux {
+  int4* ht;         // [hsize] (group, pane id, slot, count): a pair's open
+                    // pane (slot -1 once it is not open)
+  unsigned* freew;  // [ceil(C/32)] bit s: slot s free
+  unsigned* pendw;  // [ceil(C/32)] bit s: pane s closed, not yet sorted
+  int* list;        // [C] the panes to sort at the end
+  unsigned* peer;   // [C] a batch's lanes of each open pane (zero between)
+};
+
+__host__ __device__ inline size_t time_aux_bytes(int c, int hsize) {
+  const size_t nw = (static_cast<size_t>(c) + 31) / 32;
+  return 16 * static_cast<size_t>(hsize) + 4 * (2 * nw + 2 * c);
+}
+
+__device__ __forceinline__ TimeAux time_aux(void* p, int c, int hsize) {
+  TimeAux x;
+  x.ht = static_cast<int4*>(p);
+  x.freew = reinterpret_cast<unsigned*>(x.ht + hsize);
+  x.pendw = x.freew + (c + 31) / 32;
+  x.list = reinterpret_cast<int*>(x.pendw + (c + 31) / 32);
+  x.peer = reinterpret_cast<unsigned*>(x.list + c);
+  return x;
+}
+
+__device__ __forceinline__ unsigned pair_hash(int g, int pid) {
+  unsigned h = static_cast<unsigned>(g) * 0x9E3779B1u ^
+               (static_cast<unsigned>(pid) + 0x7F4A7C15u) * 0x85EBCA77u;
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  return h ^ (h >> 13);
+}
+
+__device__ __forceinline__ unsigned long long pair_word(int g, int pid) {
+  return static_cast<unsigned>(g) |
+         (static_cast<unsigned long long>(static_cast<unsigned>(pid)) << 32);
+}
+
+// Where (g, pid) sits in the index: its entry, or the empty entry where it
+// would go (linear probing; an entry whose group is PAD_GROUP is empty).
+// An entry's slot is -1 once its pane is no longer open.
+__device__ __forceinline__ unsigned index_at(const int4* ht, unsigned hmask,
+                                             int g, int pid) {
+  unsigned h = pair_hash(g, pid) & hmask;
+  for (int4 e = ht[h]; e.x != PAD_GROUP && (e.x != g || e.y != pid);
+       e = ht[h])
+    h = (h + 1) & hmask;
+  return h;
+}
+
+// Enter open pane `slot` of (g, pid) with its count at launch, among
+// concurrent threads: the pair claims its entry by a 64-bit
+// compare-and-swap, and the least slot of a pair wins, as argmax's first
+// index (counts are filled in after).  Returns 1 if it took a new entry.
+__device__ __forceinline__ int index_claim(int4* ht, unsigned hmask, int g,
+                                           int pid, int slot) {
+  const unsigned long long want = pair_word(g, pid);
+  const unsigned long long empty = pair_word(PAD_GROUP, 0);
+  for (unsigned h = pair_hash(g, pid) & hmask;; h = (h + 1) & hmask) {
+    const unsigned long long old = atomicCAS(
+        reinterpret_cast<unsigned long long*>(ht + h), empty, want);
+    if (old == empty || old == want) {
+      atomicMin(&ht[h].z, slot);
+      return old == empty;
+    }
+  }
+}
+
+// The index anew from the directory (every thread of `nt` from `tid`, a
+// barrier `sync` between the passes): every open pane, with its count.
+template <typename Sync>
+__device__ __forceinline__ void index_build(int4* ht, int hsize,
+                                            const int* own, const int* cnt,
+                                            const int* base, int C, int WA,
+                                            int tid, int nt, Sync sync) {
+  const unsigned hmask = static_cast<unsigned>(hsize - 1);
+  for (int h = tid; h < hsize; h += nt)
+    ht[h] = make_int4(PAD_GROUP, 0, I32_MAX, 0);
+  sync();
+  for (int s = tid; s < C; s += nt)
+    if (own[s] != PAD_GROUP && cnt[s] < WA)
+      index_claim(ht, hmask, own[s], base[s], s);
+  sync();
+  for (int h = tid; h < hsize; h += nt)
+    if (ht[h].x != PAD_GROUP) ht[h].w = cnt[ht[h].z];
+  sync();
+}
+
+// Sort the panes `slot` names (one a run of WA lanes, -1: none) stably by
+// key with one warp, their timestamps along: a bitonic network of shuffles
+// within runs of WA <= 32 lanes, in registers.
 template <typename K>
-__global__ void __launch_bounds__(32)
+__device__ void sort_runs_warp(K* ring_k, int* ring_s, int slot, int wa,
+                               int lane) {
+  const int e = lane & (wa - 1);
+  const bool on = slot >= 0;
+  const long long at = static_cast<long long>(on ? slot : 0) * wa + e;
+  K k = on ? ring_k[at] : K(0);
+  int t = on ? ring_s[at] : 0, id = e;
+  for (int kk = 2; kk <= wa; kk <<= 1) {
+    for (int jj = kk >> 1; jj > 0; jj >>= 1) {
+      const K pk = __shfl_xor_sync(FULL_MASK, k, jj);
+      const int pt = __shfl_xor_sync(FULL_MASK, t, jj);
+      const int pi = __shfl_xor_sync(FULL_MASK, id, jj);
+      const bool lt = stable_less<K>(pk, pi, k, id);
+      // the lower lane of an ascending pair keeps the less, of a
+      // descending one the greater
+      if (((e & jj) == 0) == ((e & kk) == 0) ? lt : !lt) {
+        k = pk;
+        t = pt;
+        id = pi;
+      }
+    }
+  }
+  if (on) {
+    ring_k[at] = k;
+    ring_s[at] = t;
+  }
+}
+
+// Sort pane `slot` with the placing warp (WA > 32: through the buffers).
+template <typename K>
+__device__ __forceinline__ void sort_pane_time(K* ring_k, int* ring_s,
+                                               int slot, int wa, K* bk,
+                                               int* bs, int* bi, int lane) {
+  if (wa <= 32)
+    sort_runs_warp<K>(ring_k, ring_s, lane < wa ? slot : -1, wa, lane);
+  else
+    sort_row_stable<K>(ring_k, ring_s, slot, wa, bk, bs, bi, lane);
+}
+
+template <typename K>
+__global__ void __launch_bounds__(TIME_THREADS, 1)
 pergroup_scan_time_kernel(TimeScanArgs a) {
   extern __shared__ __align__(16) unsigned char dyn[];
-  const int C = a.c, WA = a.wa, lane = threadIdx.x;
+  __shared__ int s_events[2], s_npend;
+  const int C = a.c, WA = a.wa, H = a.hsize;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nt = blockDim.x, nw = (C + 31) / 32;
+  const unsigned hmask = static_cast<unsigned>(H - 1);
   int* own = reinterpret_cast<int*>(dyn);
   int* cnt = own + C;
   int* base = cnt + C;
   int* stamp = base + C;
-  K* bk = reinterpret_cast<K*>(stamp + C);
-  int* bs = reinterpret_cast<int*>(bk + WA);
-  int* bi = bs + WA;
-  for (int s = lane; s < C; s += 32) {
+  K* bk = reinterpret_cast<K*>(stamp + C);  // WA > 32: the sort buffers
+  int* bs = reinterpret_cast<int*>(bk + (WA > 32 ? WA : 0));
+  int* bi = bs + (WA > 32 ? WA : 0);
+  const TimeAux x = time_aux(a.aux ? a.aux : bi + (WA > 32 ? WA : 0), C, H);
+  K* ring_k = static_cast<K*>(a.ring_k);
+
+  // the launch's build, every thread: the directory, the free bitmap, the
+  // index of the open panes
+  for (int s = tid; s < C; s += nt) {
     own[s] = a.owner[s];
     cnt[s] = a.count[s];
     base[s] = a.base[s];
     stamp[s] = a.stamp[s];
+    x.peer[s] = 0;
   }
-  int clock = *a.clock;
-  const int rb = a.retire_below ? *a.retire_below : TS_FLOOR;
-  const K* keys = static_cast<const K*>(a.k);
-  K* ring_k = static_cast<K*>(a.ring_k);
-  int evictions = 0, retired = 0;
-  __syncwarp();
+  for (int w = tid; w < nw; w += nt) x.pendw[w] = 0;
+  if (tid == 0) s_npend = 0;
+  __syncthreads();
+  for (int w = warp; w < nw; w += nt / 32) {
+    const int s = w * 32 + lane;
+    const unsigned b = __ballot_sync(FULL_MASK, s < C && own[s] == PAD_GROUP);
+    if (lane == 0) x.freew[w] = b;
+  }
+  index_build(x.ht, H, own, cnt, base, C, WA, tid, nt, BlockSync());
 
-  for (int i0 = 0; i0 < a.n; i0 += 32) {
-    const int nb = a.n - i0 < 32 ? a.n - i0 : 32;
-    bool my_lv = false;
-    int my_g = 0, my_t = 0;
-    K my_k = K(0);
-    if (lane < nb) {
-      my_lv = a.live[i0 + lane];
-      my_g = a.g[i0 + lane];
-      my_t = a.ts[i0 + lane];
-      my_k = keys[i0 + lane];
+  if (warp == 0) {
+    const K* keys = static_cast<const K*>(a.k);
+    const int n = a.n, slide = a.slide;
+    const int rb = a.retire_below ? *a.retire_below : TS_FLOOR;
+    const unsigned below = (1u << lane) - 1;
+    int clock = *a.clock, evictions = 0, retired = 0;
+    int used = 0;  // index entries taken, an upper bound
+    for (int h = lane; h < H; h += 32) used += x.ht[h].x != PAD_GROUP;
+    used = __reduce_add_sync(FULL_MASK, used);
+
+    // An allocation for tuple i (warp-uniform arguments): the first free
+    // slot, else the first oldest (evicted); the pane opened in the index,
+    // or retired at once when it lies behind the horizon (but on the
+    // first tuple, whose retirement pass follows).
+    auto allocate = [&](int g, K kv, int t, int pid, int i) {
+      int ff = I32_MAX;
+      for (int w = lane; w < nw; w += 32) {
+        const unsigned bits = x.freew[w];
+        if (bits != 0 && ff == I32_MAX) ff = w * 32 + __ffs(bits) - 1;
+      }
+      int slot = __reduce_min_sync(FULL_MASK, ff);
+      const bool evict = slot == I32_MAX;
+      if (evict) {  // every slot is live: argmin of the stamps
+        int ov = I32_MAX, oi = I32_MAX;
+        for (int s0 = lane; s0 < C; s0 += 128) {
+          int sv[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            sv[q] = s0 + q * 32 < C ? stamp[s0 + q * 32] : I32_MAX;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (s0 + q * 32 < C && (sv[q] < ov || oi == I32_MAX)) {
+              ov = sv[q];
+              oi = s0 + q * 32;
+            }
+        }
+        const int om = __reduce_min_sync(FULL_MASK, ov);
+        slot = __reduce_min_sync(FULL_MASK, ov == om ? oi : I32_MAX);
+        ++evictions;
+        if (lane == 0 && cnt[slot] < WA)  // the victim's pane closes
+          x.ht[index_at(x.ht, hmask, own[slot], base[slot])].z = -1;
+      }
+      if ((x.pendw[slot >> 5] >> (slot & 31)) & 1) {  // closed: sort first
+        sort_pane_time<K>(ring_k, a.ring_s, slot, WA, bk, bs, bi, lane);
+        if (lane == 0) x.pendw[slot >> 5] &= ~(1u << (slot & 31));
+      }
+      __syncwarp();
+      const bool behind =
+          i > 0 && mul_wrap(add_wrap(pid, 1), slide) <= rb;
+      if (lane == 0) {
+        const long long at = static_cast<long long>(slot) * WA;
+        own[slot] = behind ? PAD_GROUP : g;
+        base[slot] = pid;
+        stamp[slot] = behind ? -1 : clock;
+        cnt[slot] = behind ? 0 : 1;
+        ring_k[at] = kv;
+        a.ring_s[at] = t;
+        const unsigned bit = 1u << (slot & 31);  // taken, or free again
+        x.freew[slot >> 5] = behind ? x.freew[slot >> 5] | bit
+                                    : x.freew[slot >> 5] & ~bit;
+        if (!behind && WA > 1)
+          x.ht[index_at(x.ht, hmask, g, pid)] = make_int4(g, pid, slot, 1);
+      }
+      clock = add_wrap(clock, 1);
+      retired += behind;
+      used += !behind && WA > 1;
+      __syncwarp();
+      if (2 * used > H) {  // too many entries of closed panes: anew
+        index_build(x.ht, H, own, cnt, base, C, WA, lane, 32, WarpSync());
+        used = 0;
+        for (int h = lane; h < H; h += 32) used += x.ht[h].x != PAD_GROUP;
+        used = __reduce_add_sync(FULL_MASK, used);
+      }
+    };
+
+    // 32 tuples a window, one a lane; the next window loaded meanwhile
+    bool nl = false;
+    int ng = 0, nt_ = 0;
+    K nk = K(0);
+    if (lane < n) {
+      nl = a.live[lane];
+      ng = a.g[lane];
+      nt_ = a.ts[lane];
+      nk = keys[lane];
     }
-    const unsigned lvm = __ballot_sync(FULL_MASK, my_lv);
-    for (int j = 0; j < nb; ++j) {
-      if ((lvm >> j) & 1) {
-        const int g = __shfl_sync(FULL_MASK, my_g, j);
-        const int t = __shfl_sync(FULL_MASK, my_t, j);
-        const K kv = __shfl_sync(FULL_MASK, my_k, j);
-        const int pid = floor_div(t, a.slide);
-        // one pass: the open slot of (g, pid), the first free slot, the
-        // first oldest stamp
-        int fo = I32_MAX, ff = I32_MAX, ov = I32_MAX, oi = I32_MAX;
-        for (int s = lane; s < C; s += 32) {
-          const int o = own[s];
-          if (o == PAD_GROUP) {
-            if (ff == I32_MAX) ff = s;
-          } else {
-            if (fo == I32_MAX && o == g && base[s] == pid && cnt[s] < WA)
-              fo = s;
-            const int st = stamp[s];
-            if (st < ov || oi == I32_MAX) {
-              ov = st;
-              oi = s;
+    for (int w0 = 0; w0 < n; w0 += 32) {
+      const bool lv = nl;
+      const int g = ng, t = nt_;
+      const K kv = nk;
+      nl = false;  // lanes past the last tuple are dead
+      if (w0 + 32 + lane < n) {
+        nl = a.live[w0 + 32 + lane];
+        ng = a.g[w0 + 32 + lane];
+        nt_ = a.ts[w0 + 32 + lane];
+        nk = keys[w0 + 32 + lane];
+      }
+      const int pid = floor_div(t, slide);
+      // batches: the lanes of `todo` look their pane up; a lane whose open
+      // pane has room at its rank among the lanes of that pane is placed
+      // at once, up to the first that is not (an allocation)
+      auto place = [&](unsigned todo) {
+        while (todo) {
+          const bool on = (todo >> lane) & 1;
+          unsigned h = 0;
+          int s = -1, c0 = 0;
+          if (on) {
+            h = index_at(x.ht, hmask, g, pid);
+            const int4 e = x.ht[h];
+            if (e.x != PAD_GROUP) {
+              s = e.z;
+              c0 = e.w;
             }
           }
-        }
-        fo = __reduce_min_sync(FULL_MASK, fo);
-        ff = __reduce_min_sync(FULL_MASK, ff);
-        const bool has_open = fo != I32_MAX;
-        int slot = fo;
-        if (!has_open) {
-          if (ff != I32_MAX) {
-            slot = ff;
-          } else {
-            const int om = __reduce_min_sync(FULL_MASK, ov);
-            slot = __reduce_min_sync(FULL_MASK, ov == om ? oi : I32_MAX);
-            ++evictions;
+          // the lanes of each open pane: a bit each in the pane's word
+          if (s >= 0) atomicOr(x.peer + s, 1u << lane);
+          __syncwarp();
+          const unsigned peers = s >= 0 ? x.peer[s] : 1u << lane;
+          __syncwarp();
+          if (s >= 0) x.peer[s] = 0;
+          const int c = c0 + __popc(peers & below);
+          const unsigned evm =
+              __ballot_sync(FULL_MASK, on && (s < 0 || c >= WA));
+          const int f = evm ? __ffs(evm) - 1 : 32;
+          const unsigned before = f >= 32 ? FULL_MASK : (1u << f) - 1;
+          if (on && lane < f) {
+            const long long at = static_cast<long long>(s) * WA + c;
+            ring_k[at] = kv;
+            a.ring_s[at] = t;
+            if (lane == 31 - __clz(peers & before)) {  // the pair's last
+              cnt[s] = c + 1;
+              x.ht[h].w = c + 1;
+              if (c + 1 == WA) {  // the pane closes
+                x.ht[h].z = -1;
+                atomicOr(x.pendw + (s >> 5), 1u << (s & 31));
+              }
+            }
           }
+          __syncwarp();
+          if (f == 32) break;
+          // the event: no open pane for lane f (the index missed, or its
+          // pane filled before it)
+          allocate(__shfl_sync(FULL_MASK, g, f),
+                   __shfl_sync(FULL_MASK, kv, f),
+                   __shfl_sync(FULL_MASK, t, f),
+                   __shfl_sync(FULL_MASK, pid, f), w0 + f);
+          todo &= f >= 31 ? 0u : FULL_MASK << (f + 1);
         }
-        const int ln = has_open ? cnt[slot] : 0;
-        __syncwarp();
-        if (lane == 0) {
-          cnt[slot] = ln + 1;
-          if (!has_open) {
-            own[slot] = g;
-            base[slot] = pid;
-            stamp[slot] = clock;
-          }
-          const long long at = static_cast<long long>(slot) * WA + ln;
-          ring_k[at] = kv;
-          a.ring_s[at] = t;
-        }
-        if (!has_open) clock = add_wrap(clock, 1);
-        __syncwarp();
-        if (ln + 1 == WA)  // the pane closes: sorted once
-          sort_row_stable<K>(ring_k, a.ring_s, slot, WA, bk, bs, bi, lane);
-        // a pane allocated behind the horizon retires at once (the first
-        // cycle's pass below covers it there)
-        if (!has_open && i0 + j > 0 &&
-            mul_wrap(add_wrap(pid, 1), a.slide) <= rb) {
-          if (lane == 0) {
-            own[slot] = PAD_GROUP;
-            cnt[slot] = 0;
-            stamp[slot] = -1;
-          }
-          ++retired;
-        }
-        __syncwarp();
-      }
-      if (i0 + j == 0) {  // every pane behind the horizon, once
-        int r = 0;
-        for (int s = lane; s < C; s += 32)
-          if (own[s] != PAD_GROUP &&
-              mul_wrap(add_wrap(base[s], 1), a.slide) <= rb) {
+      };
+      unsigned todo = __ballot_sync(FULL_MASK, lv);
+      if (w0 == 0) {
+        place(todo & 1u);  // the first tuple alone
+        // every pane behind the horizon, once, after the first tuple; an
+        // open one leaves the index
+        for (int s0 = 0; s0 < C; s0 += 32) {
+          const int s = s0 + lane;
+          const bool r = s < C && own[s] != PAD_GROUP &&
+                         mul_wrap(add_wrap(base[s], 1), slide) <= rb;
+          if (r) {
+            if (cnt[s] < WA) x.ht[index_at(x.ht, hmask, own[s], base[s])].z = -1;
             own[s] = PAD_GROUP;
             cnt[s] = 0;
             stamp[s] = -1;
-            ++r;
           }
-        retired += __reduce_add_sync(FULL_MASK, r);
+          const unsigned b = __ballot_sync(FULL_MASK, r);
+          if (lane == 0 && b) x.freew[s0 >> 5] |= b;
+          retired += __popc(b);
+        }
         __syncwarp();
+        todo &= ~1u;
       }
+      place(todo);
+    }
+    if (lane == 0) {
+      *a.clock = clock;
+      s_events[0] = evictions;
+      s_events[1] = retired;
     }
   }
-  for (int s = lane; s < C; s += 32) {
+  __syncthreads();
+
+  // the end, every thread: the panes that closed, sorted once; the
+  // directory out
+  for (int w = tid; w < nw; w += nt) {
+    unsigned bits = x.pendw[w];
+    if (bits) {
+      int at = atomicAdd(&s_npend, __popc(bits));
+      for (; bits; bits &= bits - 1) x.list[at++] = w * 32 + __ffs(bits) - 1;
+    }
+  }
+  __syncthreads();
+  const int np = s_npend;
+  if (WA <= 32) {
+    const int per = 32 / WA;  // panes a warp sorts at once
+    for (int p0 = warp * per; p0 < np; p0 += (nt / 32) * per) {
+      const int p = p0 + lane / WA;
+      sort_runs_warp<K>(ring_k, a.ring_s, p < np ? x.list[p] : -1, WA, lane);
+    }
+  } else if (warp == 0) {
+    for (int p = 0; p < np; ++p)
+      sort_row_stable<K>(ring_k, a.ring_s, x.list[p], WA, bk, bs, bi, lane);
+  }
+  for (int s = tid; s < C; s += nt) {
     a.owner[s] = own[s];
     a.count[s] = cnt[s];
     a.base[s] = base[s];
     a.stamp[s] = stamp[s];
   }
-  if (lane == 0) {
-    *a.clock = clock;
-    a.events[0] = evictions;
-    a.events[1] = retired;
+  if (tid == 0) {
+    a.events[0] = s_events[0];
+    a.events[1] = s_events[1];
   }
 }
 
@@ -1036,8 +1332,9 @@ template <> __device__ __forceinline__ float from_bits<float>(int b) {
 // One warp merges the sorted runs of `len` lanes of src[0, W) pairwise
 // into dst (pad32 layouts): lane l writes outputs [l * per, (l + 1) * per),
 // each stretch inside one pair found by a co-rank binary search, then
-// merged serially.  Keys compare as K values, so -0.0 and +0.0 (equal)
-// keep their bits and the co-ranks of float runs are well defined.
+// merged serially.  Keys compare as K values by key_lt, so -0.0 and +0.0
+// (equal) keep their bits, NaN goes last, and the co-ranks of float runs
+// are well defined.
 template <typename K>
 __device__ __forceinline__ void warp_merge_round(const K* src, K* dst,
                                                  int len, int W) {
@@ -1052,14 +1349,14 @@ __device__ __forceinline__ void warp_merge_round(const K* src, K* dst,
     int lo = d > len ? d - len : 0, hi = d < len ? d : len;
     while (lo < hi) {
       const int i = (lo + hi) >> 1;
-      if (src[pad32(a0 + i)] <= src[pad32(b0 + d - i - 1)]) lo = i + 1;
+      if (!key_lt(src[pad32(b0 + d - i - 1)], src[pad32(a0 + i)])) lo = i + 1;
       else hi = i;
     }
     int i = lo, j = d - lo;
     K x = i < len ? src[pad32(a0 + i)] : K(0);
     K y = j < len ? src[pad32(b0 + j)] : K(0);
     for (; o < stop; ++o) {
-      const bool take_x = i < len && (j >= len || x <= y);
+      const bool take_x = i < len && (j >= len || !key_lt(y, x));
       dst[pad32(o)] = take_x ? x : y;
       if (take_x) {
         if (++i < len) x = src[pad32(a0 + i)];
@@ -1081,7 +1378,7 @@ __device__ __forceinline__ int live_before(const unsigned* bits,
 // One warp a replay row: blocks of blockDim.x / 32 warps; warp w of block
 // (e, y) replays rows y * warps + w, stepping by gridDim.y * warps, of
 // evaluation e (ring form) or of all rows (row form, e = 0).  A row: load
-// its lanes (dead ones the key sentinel) and its live-lane bitmap; move
+// its lanes (dead ones the fill) and its live-lane bitmap; move
 // each closed run's live lanes to the run's front at their rank (a prefix
 // count of the bitmap), sort each open run in shared memory; merge-path
 // rounds over the runs that can hold live lanes; then min, max, lower
@@ -1117,7 +1414,7 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
   int* wpre = reinterpret_cast<int*>(bits + lay.words);
   int* s_slot = wpre + lay.words;
   int* s_cnt = s_slot + lay.runs;
-  const K sent = key_max<K>();
+  const K sent = key_max<K>(), fill = key_fill<K>();
   const int* kb = static_cast<const int*>(a.keys);  // keys as 32-bit words
   const long long e = blockIdx.x, ec = e * a.c;
   const long long rows = RING ? a.num[e] : a.nrows;
@@ -1177,10 +1474,10 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
         }
         int4 k4 = make_int4(0, 0, 0, 0);
         if (qm) k4 = __ldg(reinterpret_cast<const int4*>(kb + at));
-        bufa[pad32(i0)] = qm & 1 ? from_bits<K>(k4.x) : sent;
-        bufa[pad32(i0 + 1)] = qm & 2 ? from_bits<K>(k4.y) : sent;
-        bufa[pad32(i0 + 2)] = qm & 4 ? from_bits<K>(k4.z) : sent;
-        bufa[pad32(i0 + 3)] = qm & 8 ? from_bits<K>(k4.w) : sent;
+        bufa[pad32(i0)] = qm & 1 ? from_bits<K>(k4.x) : fill;
+        bufa[pad32(i0 + 1)] = qm & 2 ? from_bits<K>(k4.y) : fill;
+        bufa[pad32(i0 + 2)] = qm & 4 ? from_bits<K>(k4.z) : fill;
+        bufa[pad32(i0 + 3)] = qm & 8 ? from_bits<K>(k4.w) : fill;
         if (qm & 1) sum = add_wrap(sum, static_cast<Acc>(from_bits<K>(k4.x)));
         if (qm & 2) sum = add_wrap(sum, static_cast<Acc>(from_bits<K>(k4.y)));
         if (qm & 4) sum = add_wrap(sum, static_cast<Acc>(from_bits<K>(k4.z)));
@@ -1205,7 +1502,7 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
               w = kb[at];
               sum = add_wrap(sum, static_cast<Acc>(from_bits<K>(w)));
             }
-            bufa[pad32(i)] = live ? from_bits<K>(w) : sent;
+            bufa[pad32(i)] = live ? from_bits<K>(w) : fill;
           }
           qm |= static_cast<unsigned>(live) << u;
         }
@@ -1253,7 +1550,7 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
       }
       __syncwarp();
       // closed runs: each live lane to its rank among the run's live
-      // lanes, the rest of the run the sentinel; open runs as loaded
+      // lanes, the rest of the run the fill; open runs as loaded
       for (int i = lane; i < W; i += 32) {
         const int j = i >> lr, rs = j << lr;
         if (RING && j < nr && s_cnt[j] < R) {
@@ -1265,11 +1562,11 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
         if (i < limit && (bits[i >> 5] >> (i & 31)) & 1)
           bufb[pad32(rs + live_before(bits, wpre, i, cnt, limit) - before)] =
               bufa[pad32(i)];
-        if (i - rs >= in_run) bufb[pad32(i)] = sent;
+        if (i - rs >= in_run) bufb[pad32(i)] = fill;
       }
       __syncwarp();
       // open runs (the group's open pane): a bitonic sort in place; the
-      // dead lanes, the sentinel, end up last
+      // dead lanes, the fill, end up last
       for (int j = 0; RING && j < nr; ++j) {
         if (s_cnt[j] >= R) continue;
         for (int kk = 2; kk <= R; kk <<= 1)
@@ -1278,7 +1575,7 @@ pergroup_replay_kernel(ReplayArgs a, OpList ops) {
               const int i = ((p & ~(jj - 1)) << 1) | (p & (jj - 1));
               const int rb = (j << lr) + i;
               K x = bufb[pad32(rb)], y = bufb[pad32(rb + jj)];
-              if (kk == R || (i & kk) == 0 ? y < x : x < y) {
+              if (kk == R || (i & kk) == 0 ? key_lt(y, x) : key_lt(x, y)) {
                 bufb[pad32(rb)] = y;
                 bufb[pad32(rb + jj)] = x;
               }
@@ -1471,19 +1768,31 @@ cudaError_t launch_replay(const ReplayArgs& a, int key_type,
   return cudaErrorInvalidValue;
 }
 
-// Shared memory of the time-mode scan: the four [C] directory columns and
-// one sort buffer of WA (key, timestamp, lane) triples.
+// Shared memory of the time-mode placement: the four [C] directory
+// columns, and for WA > 32 one sort buffer of WA (key, timestamp, lane)
+// triples (panes of up to 32 lanes sort in registers); its index, bitmaps
+// and list (time_aux_bytes) join them when they fit, else lie in device
+// memory the caller gives.
 size_t time_scan_smem(int c, int wa) {
-  return 16 * static_cast<size_t>(c) + 12 * static_cast<size_t>(wa);
+  return 16 * static_cast<size_t>(c) +
+         (wa > 32 ? 12 * static_cast<size_t>(wa) : 0);
+}
+
+// Entries of the time-mode placement's index: at least twice the slots.
+int time_index_size(int c) {
+  int h = 1;
+  while (h < 2 * c) h <<= 1;
+  return h;
 }
 
 template <typename K>
 cudaError_t launch_scan_time(const TimeScanArgs& a, cudaStream_t st) {
-  const size_t smem = time_scan_smem(a.c, a.wa);
+  const size_t smem = time_scan_smem(a.c, a.wa) +
+                      (a.aux ? 0 : time_aux_bytes(a.c, a.hsize));
   auto kern = pergroup_scan_time_kernel<K>;
   cudaError_t err = opt_in_smem(kern, smem);
   if (err != cudaSuccess) return err;
-  kern<<<1, 32, smem, st>>>(a);
+  kern<<<1, TIME_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -1630,18 +1939,24 @@ extern "C" int rt_pergroup_replay_ring(
 // owner/count/base/stamp [c] and clock [1] the directory, ring_k/ring_s
 // [c, wa] the keys and timestamps, all read and written in place; panes
 // wholly below *retire_below (TS_FLOOR when null) retire.  events [2] gets
-// the evictions and retirements.  One warp.
+// the evictions and retirements.  aux: device memory of
+// time_aux_bytes(c, time_index_size(c)) bytes for the index and bitmaps,
+// needed only when they do not fit shared memory beside the directory
+// (else null).  One block: one warp places, seven help.
 extern "C" int rt_pergroup_scan_time(
     const int* g, const void* k, const int* ts, const bool* live, int n,
     const int* retire_below, int key_type, int wa, int c, int slide,
     int* owner, int* count, int* base, int* stamp, int* clock, void* ring_k,
-    int* ring_s, int* events, void* stream) {
+    int* ring_s, int* events, void* aux, void* stream) {
   using namespace rt;
-  if (n < 0 || !pow2(wa) || c < 1 || slide < 1 ||
-      time_scan_smem(c, wa) > SMEM_BUDGET)
+  const int hsize = c >= 1 && c <= (1 << 28) ? time_index_size(c) : 0;
+  if (n < 0 || !pow2(wa) || c < 1 || hsize == 0 || slide < 1 ||
+      time_scan_smem(c, wa) > SMEM_BUDGET ||
+      (aux == nullptr &&
+       time_scan_smem(c, wa) + time_aux_bytes(c, hsize) > SMEM_BUDGET))
     return cudaErrorInvalidValue;
   TimeScanArgs a{g, k, ts, live, n, retire_below, wa, c, slide, owner, count,
-                 base, stamp, clock, ring_k, ring_s, events};
+                 base, stamp, clock, ring_k, ring_s, events, hsize, aux};
   auto st = static_cast<cudaStream_t>(stream);
   if (key_type == KEY_INT32) return launch_scan_time<int>(a, st);
   if (key_type == KEY_FLOAT32) return launch_scan_time<float>(a, st);

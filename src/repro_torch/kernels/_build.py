@@ -58,12 +58,13 @@ _SIGNATURES = {
     "rt_pergroup_replay_ring": [_P] * 10 + [_I] * 6 + [
         ctypes.POINTER(_I), ctypes.POINTER(_P), _I, _P],
     # g, k, ts, live, n, retire_below, key_type, wa, c, slide, owner, count,
-    # base, stamp, clock, ring_k, ring_s, events, stream
-    "rt_pergroup_scan_time": [_P] * 4 + [_I, _P, _I, _I, _I, _I] + [_P] * 9,
-    # ts, g, k, n, nvalid, nvalid_dev, drain, drain_all, the buffer's ts,
-    # grp, val, seq, occ, max_ts, last_emit, seq_clock, dropped, capacity,
-    # max_lateness, out ts, groups, keys, live, late, stream
-    "rt_reorder": [_P, _P, _P, _I, _I, _P, _P, _I] + [_P] * 9 + [_I, _I]
+    # base, stamp, clock, ring_k, ring_s, events, aux, stream
+    "rt_pergroup_scan_time": [_P] * 4 + [_I, _P, _I, _I, _I, _I] + [_P] * 10,
+    # ts, g, k, n, nvalid, nvalid_dev, drain, drain_all, the buffer read
+    # (ts, grp, val, seq, occ, max_ts, last_emit, seq_clock, dropped) and
+    # the buffer written (the same nine), capacity, max_lateness, out ts,
+    # groups, keys, live, late, stream
+    "rt_reorder": [_P, _P, _P, _I, _I, _P, _P, _I] + [_P] * 18 + [_I, _I]
     + [_P] * 6,
     # keys, okeys, nk, float_keys, pays, opays, psize, np, R, T, stream
     "rt_bitonic_sort": [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I,

@@ -6,9 +6,12 @@ No TPU kernel stands behind it: the JAX package runs the buffer as a
 (``src/repro/core/eventtime.py``, ``_reorder_cycle`` and
 ``_reorder_drain``).  The cycle is sequential (each release depends on
 the buffer the cycles before left), so one warp runs the whole push: the
-buffer's slots in shared memory, the scalars (watermark, emission floor,
-arrival clock, drop count) in registers, the drain a bitonic sort of the
-released slots.  Nothing is read back to the host.
+slots in shared memory, the held entries in their release order (ts,
+seq, slot) in registers (up to 32 ranks a lane), so the least is a
+broadcast and a cycle moves the ranks between a release and an insert by
+one; the scalars (watermark, emission floor, arrival clock, drop count)
+in registers, each 32 cycles' emissions stored at once, the drain a
+prefix of the order.  Nothing is read back to the host.
 
 * :func:`reorder_push` — one push: a cycle a tuple, then the drain of
   everything the gate has passed; emissions ``[N + capacity]``.
@@ -27,7 +30,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import common
 from repro_torch.kernels.swag.kernel import _store_into
 
-#: the most slots the kernel's warp holds (32 a lane)
+#: the most slots the kernel's warp holds (32 ranks a lane, in registers)
 MAX_REORDER_CAPACITY = 1024
 
 
@@ -74,19 +77,30 @@ def _check_state(spec, state) -> None:
                          f"{tuple(state.val.shape)}")
 
 
+def _empty_state(state, c: int):
+    """A new buffer shaped as ``state``, from two allocations (the kernel
+    writes every field)."""
+    dev = state.ts.device
+    words = torch.empty((4 * c + 4,), dtype=torch.int32, device=dev)
+    ts, grp, val, seq, *scalars = words.split([c] * 4 + [1] * 4)
+    return _eventtime.ReorderState(
+        ts=ts, grp=grp, val=val.view(state.val.dtype), seq=seq,
+        occ=torch.empty((c,), dtype=torch.bool, device=dev),
+        **{name: x.view(()) for name, x in zip(
+            ("max_ts", "last_emit", "seq_clock", "dropped"), scalars)})
+
+
 def _launch(spec, state, ts, groups, keys, nvalid, drain_wm,
             drain_all: bool, inplace: bool):
     c = spec.capacity
     dev = state.ts.device
     n = 0 if ts is None else ts.shape[0]
-    if not inplace:
-        state = _eventtime.ReorderState(*(x.clone() for x in state))
-    out = _eventtime.ReorderEmit(
-        ts=torch.empty((n + c,), dtype=torch.int32, device=dev),
-        groups=torch.empty((n + c,), dtype=torch.int32, device=dev),
-        keys=torch.empty((n + c,), dtype=state.val.dtype, device=dev),
-        live=torch.empty((n + c,), dtype=torch.bool, device=dev),
-        late=torch.empty((n + c,), dtype=torch.bool, device=dev))
+    new = state if inplace else _empty_state(state, c)
+    words = torch.empty((3 * (n + c),), dtype=torch.int32, device=dev)
+    flags = torch.empty((2 * (n + c),), dtype=torch.bool, device=dev)
+    o_ts, o_g, o_k = words.split(n + c)
+    out = _eventtime.ReorderEmit(o_ts, o_g, o_k.view(state.val.dtype),
+                                 *flags.split(n + c))
     nv_host, nv_dev = n, None
     if isinstance(nvalid, torch.Tensor):
         nv_dev = nvalid.to(dev, torch.int32).reshape(())
@@ -102,12 +116,12 @@ def _launch(spec, state, ts, groups, keys, nvalid, drain_wm,
     with torch.cuda.device(dev):
         err = lib.rt_reorder(
             ptr(ts), ptr(groups), ptr(keys), n, nv_host, ptr(nv_dev),
-            ptr(drain), int(drain_all),
-            *(t.data_ptr() for t in state), c, spec.max_lateness,
+            ptr(drain), int(drain_all), *(t.data_ptr() for t in state),
+            *(t.data_ptr() for t in new), c, spec.max_lateness,
             *(t.data_ptr() for t in out), _build.stream_handle(dev))
     _build.check(err, "reorder")
     reorder_push.launches += 1
-    return out, state
+    return out, new
 
 
 def reorder_push(spec, state, ts, groups, keys, *, n_valid=None,

@@ -525,11 +525,24 @@ def pergroup_scan(spec, state, groups: torch.Tensor,
 
 
 def time_scan_smem(c: int, wa: int) -> int:
-    """Shared memory of :func:`pergroup_scan_time`'s block (bytes): the
-    ``[C]`` owner, count, base and stamp columns and one close-sort buffer
-    of ``wa`` (key, timestamp, lane) triples (csrc/pergroup.cu,
-    ``time_scan_smem``)."""
-    return 16 * c + 12 * wa
+    """Shared memory that :func:`pergroup_scan_time`'s block needs (bytes):
+    the ``[C]`` owner, count, base and stamp columns, and for ``wa`` > 32
+    one close-sort buffer of ``wa`` (key, timestamp, lane) triples
+    (csrc/pergroup.cu, ``time_scan_smem``).  Its index and bitmaps
+    (:func:`time_aux_bytes`) join them when they fit, else lie in device
+    memory."""
+    return 16 * c + (12 * wa if wa > 32 else 0)
+
+
+def time_aux_bytes(c: int) -> int:
+    """Bytes of :func:`pergroup_scan_time`'s pane index (16 an entry, at
+    least ``2 C`` entries), its free and closed-pane bitmaps, its list of
+    the panes to sort and a word a slot for a batch's lanes of each pane
+    (csrc/pergroup.cu, ``time_aux_bytes``)."""
+    h = 1
+    while h < 2 * c:
+        h <<= 1
+    return 16 * h + 4 * (2 * ((c + 31) // 32) + 2 * c)
 
 
 def pergroup_scan_time_plain(spec, state, groups, keys, ts, live,
@@ -556,8 +569,9 @@ def pergroup_scan_time(spec, state, groups: torch.Tensor,
     0-d int32 tensor, or None: no retirement) retired, on every lane as
     the JAX package's scan does.  Returns ``(state, events [2])`` (the
     evictions and retirements): ``state`` itself, updated where it lies,
-    when ``inplace``, else an updated copy.  One launch, one warp; nothing
-    read back."""
+    when ``inplace``, else an updated copy.  One launch (one warp places,
+    seven more build its pane index and sort the panes that close);
+    nothing read back."""
     if groups.device.type == "cpu":
         return pergroup_scan_time_plain(spec, state, groups, keys, ts, live,
                                         retire_below, inplace=inplace)
@@ -592,21 +606,38 @@ def pergroup_scan_time(spec, state, groups: torch.Tensor,
     if retire_below is not None:
         rb = torch.as_tensor(retire_below, dtype=torch.int32).to(
             dev).reshape(())
+    aux = None
+    if time_scan_smem(c, wa) + time_aux_bytes(c) > SMEM_BUDGET:
+        aux = torch.empty((time_aux_bytes(c),), dtype=torch.uint8,
+                          device=dev)
+    return state, time_scan_launch(spec, state, groups, keys, ts, live, rb,
+                                   aux=aux)
+
+
+def time_scan_launch(spec, state, groups, keys, ts, live, rb, *, aux=None):
+    """The launch of :func:`pergroup_scan_time` alone, on ``state`` where
+    it lies, ``rb`` a 0-d int32 device tensor or None: the events ``[2]``.
+    ``aux``: device memory of :func:`time_aux_bytes` bytes for the pane
+    index and bitmaps, or None: they join the directory in shared memory
+    (the wrapper passes device memory only where they do not fit)."""
+    dev = groups.device
     events = torch.empty((2,), dtype=torch.int32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rt_pergroup_scan_time(
             groups.data_ptr(), keys.data_ptr(), ts.data_ptr(),
-            live.data_ptr(), n, None if rb is None else rb.data_ptr(),
-            common.KEY_TYPES[keys.dtype], wa, c, spec.slide,
-            state.owner.data_ptr(), state.count.data_ptr(),
+            live.data_ptr(), groups.shape[-1],
+            None if rb is None else rb.data_ptr(),
+            common.KEY_TYPES[keys.dtype], spec.wa, spec.capacity,
+            spec.slide, state.owner.data_ptr(), state.count.data_ptr(),
             state.base.data_ptr(), state.stamp.data_ptr(),
             state.clock.data_ptr(), state.keys.data_ptr(),
             state.seqs.data_ptr(), events.data_ptr(),
+            None if aux is None else aux.data_ptr(),
             _build.stream_handle(dev))
     _build.check(err, "pergroup_scan_time")
     pergroup_scan_time.launches += 1
-    return state, events
+    return events
 
 
 def _last_writes(slots: torch.Tensor, lanes: torch.Tensor, wa: int):

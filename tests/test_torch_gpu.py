@@ -1210,8 +1210,13 @@ def _assert_emit_same(got, want, n, what):
 
 
 #: (capacity, lateness, pushes of (n, late lanes, n_valid, drain_wm
-#: offset)): forced pops, stragglers, an n_valid tail (an int and a
-#: tensor on the card), a drain gate behind the watermark and ahead
+#: offset), and optionally the tuples' jitter and the buffer's starting
+#: arrival clock): forced pops, stragglers, an n_valid tail (an int and a
+#: tensor on the card), a drain gate behind the watermark and ahead; every
+#: register width of the kernel (capacities 1 to 1024: 1 to 32 slots a
+#: lane, lanes without a slot); an in-order stream released on every
+#: cycle; buffers that stay full (every register rank held, releases
+#: forced); arrival seqs that wrap past INT32_MAX
 REORDER_CARD_CASES = {
     "forced_pops": (8, 40, [(300, (), None, None)] * 3),
     "late": (128, 8, [(1024, (5, 77, 900), None, None),
@@ -1221,6 +1226,14 @@ REORDER_CARD_CASES = {
     "drain_wm": (32, 16, [(400, (), None, -40), (400, (), None, 9),
                           (400, (), None, None)]),
     "capacity_1024": (1024, 300, [(2048, (3,), None, None)] * 2),
+    "capacity_1": (1, 10, [(200, (), None, None), (200, (3,), None, None)]),
+    "capacity_32": (32, 20, [(600, (), None, None)] * 2),
+    "capacity_256": (256, 200, [(700, (9,), None, None)] * 2),
+    "in_order": (16, 0, [(512, (), None, None)] * 2, {"jitter": (0, 1)}),
+    "full": (32, 10**6, [(400, (), None, None)] * 2),
+    "full_64": (64, 10**6, [(400, (), None, None)] * 2),
+    "clock_wrap": (64, 16, [(500, (), None, None)] * 3,
+                   {"clock": 2**31 - 8}),
 }
 
 
@@ -1232,14 +1245,19 @@ def test_reorder_kernel_vs_plain(cuda, case, dtype):
     from repro_torch.core import eventtime as et
     from repro_torch.kernels.eventtime import kernel as ek
 
-    capacity, lateness, pushes = REORDER_CARD_CASES[case]
+    capacity, lateness, pushes, *opts = REORDER_CARD_CASES[case]
+    opts = opts[0] if opts else {}
     spec = et.ReorderSpec(capacity, lateness)
     kdt = torch.float32 if dtype == np.float32 else torch.int32
     st = et.init_reorder(spec, kdt, cuda)
     ref = et.init_reorder(spec, kdt, cuda)
+    if "clock" in opts:
+        st.seq_clock.fill_(opts["clock"])
+        ref.seq_clock.fill_(opts["clock"])
     for i, (n, late, nv, dw) in enumerate(pushes):
         ts, g, k = _time_tuples(100 + i, n, dtype, cuda, offset=n * i,
-                                late=late, special=True)
+                                late=late, special=True,
+                                jitter=opts.get("jitter", (-14, 14)))
         if nv == "tensor":
             nv = torch.tensor(n - 50, dtype=torch.int32, device=cuda)
         gate = None if dw is None else ts.max() + dw
@@ -1253,8 +1271,14 @@ def test_reorder_kernel_vs_plain(cuda, case, dtype):
         _assert_emit_same(got, want, n, f"{case} push {i}")
         _assert_trees(tuple(_bits(x) for x in st),
                       tuple(_bits(x) for x in ref), f"{case} buffer {i}")
+        if case == "in_order":  # every cycle releases its own tuple
+            assert bool(want.live[:n].all()), case
+        if case.startswith("full"):  # every rank of the order held
+            assert bool(ref.occ.all()), case
     if case == "late":
         assert int(st.dropped) >= 5
+    if case == "clock_wrap":
+        assert int(ref.seq_clock) < 0, case
     got, st = ek.reorder_flush(spec, st)
     want, ref = ek.reorder_flush_plain(spec, ref)
     torch.cuda.synchronize()
@@ -1267,7 +1291,13 @@ def _time_store_pushes(case, dtype, device):
     """A time-mode spec and pushes of (groups, keys, ts, live,
     retire_below) for a placement case: chaining beyond wa, evictions, a
     first-cycle eviction beside dead panes, negative timestamps, dead
-    lanes."""
+    lanes; one group, so whole batches share a pane that fills within
+    them; group ids from both ends of int32 at negative pane ids, 40 of
+    them in a 256-slot index; a store carried over retirements and
+    reallocations; a store of the fewest slots that evicts on every
+    allocation; a store clock about to wrap past INT32_MAX; and a store of
+    8192 slots, whose pane index lies in device memory (it does not fit
+    shared memory beside the directory)."""
     import torch
 
     from repro_torch.core import panestore as ps
@@ -1287,16 +1317,26 @@ def _time_store_pushes(case, dtype, device):
             (t(np.array([4, 5], np.int32)), t(k[4:]),
              t(np.array([200, 201], np.int32)), t(np.ones(2, bool)),
              torch.tensor(50, dtype=torch.int32, device=device))]
-    spec = ps.PaneStoreSpec(wa=16, capacity=64 if case == "evictions" else
-                            256, default_ws=1, slide=64, time_range=256)
-    base = -5000 if case == "negative" else 0
-    n_groups = {"chaining": 3, "evictions": 48}.get(case, 8)
+    capacity = {"evictions": 64, "carried": 192, "clock_wrap": 32,
+                "evict_all": 5, "wide_store": 8192}.get(case, 256)
+    wa = {"evict_all": 4, "wide_store": 2}.get(case, 16)
+    spec = ps.PaneStoreSpec(wa=wa, capacity=capacity, default_ws=1, slide=64,
+                            time_range=256)
+    base = {"negative": -5000, "collisions": -1_000_000}.get(case, 0)
+    n_groups = {"chaining": 3, "evictions": 48, "shared_pane": 1,
+                "collisions": 40, "carried": 10, "evict_all": 16,
+                "clock_wrap": 16}.get(case, 8)
+    ids = np.arange(n_groups, dtype=np.int64)
+    if case == "collisions":  # ids from both ends of int32, and between
+        ids = np.concatenate([
+            [-(2**31) + 1, 2**31 - 2, 0, -1, 2**30, -(2**30)],
+            rng.integers(-(2**31) + 1, 2**31 - 1, n_groups - 6)])
     pushes = []
-    for i in range(4):
+    for i in range(6 if case == "carried" else 4):
         n = 1152
         ts = np.sort(rng.integers(base + 600 * i, base + 600 * i + 700, n)
                      ).astype(np.int32)
-        g = rng.integers(0, n_groups, n).astype(np.int32)
+        g = ids[rng.integers(0, n_groups, n)].astype(np.int32)
         if dtype == np.float32:
             k = rng.choice(np.array([-1.0, -0.0, 0.0, 0.5, 2.0, np.nan],
                                     np.float32), n)
@@ -1308,12 +1348,15 @@ def _time_store_pushes(case, dtype, device):
             ts[~live] = rng.integers(-10**6, 10**6, int((~live).sum()))
         rb = torch.tensor(base + 600 * i - 200, dtype=torch.int32,
                           device=device)
+        if case in ("evict_all", "clock_wrap"):
+            rb = None  # nothing retires: a full store stays full
         pushes.append((t(g), t(k), t(ts), t(live), rb))
     return spec, pushes
 
 
 PLACE_CASES = ("chaining", "evictions", "cycle0_eviction", "negative",
-               "dead_lanes")
+               "dead_lanes", "shared_pane", "collisions", "carried",
+               "evict_all", "clock_wrap", "wide_store")
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
@@ -1328,6 +1371,9 @@ def test_pergroup_scan_time_kernel_vs_plain(cuda, case, dtype):
     kdt = torch.float32 if dtype == np.float32 else torch.int32
     st = ps.init_store(spec, kdt, device=cuda)
     ref = ps.init_store(spec, kdt, device=cuda)
+    if case == "clock_wrap":
+        st.clock.fill_(2**31 - 8)
+        ref.clock.fill_(2**31 - 8)
     events = np.zeros(2, np.int64)
     for i, (g, k, ts, live, rb) in enumerate(pushes):
         sk.pergroup_scan_time.launches = 0
@@ -1340,20 +1386,31 @@ def test_pergroup_scan_time_kernel_vs_plain(cuda, case, dtype):
         _assert_trees(tuple(_bits(x) for x in st),
                       tuple(_bits(x) for x in ref), f"{case} store {i}")
         events += wev.cpu().numpy()
+    occ = (ref.owner != PAD_GROUP).cpu()
+    stamps = ref.stamp.cpu()[occ]
     if case == "cycle0_eviction":
         assert events.tolist() == [1, 3] and int(st.owner[0]) == 4
-    elif case == "evictions":
-        assert events[0] > 0
+    elif case in ("evictions", "evict_all"):
+        assert events[0] > (200 if case == "evict_all" else 0)
+    elif case == "clock_wrap":
+        # stamps on both sides of the wrap: argmin evicts the newest
+        assert events[0] > 0 and int(ref.clock) < 0 < int(stamps.max())
     else:
         assert events[1] > 0
+    if case == "carried":  # allocation order is not slot order
+        assert not bool((stamps[1:] > stamps[:-1]).all())
+    if case == "wide_store":
+        assert sk.time_scan_smem(spec.capacity, spec.wa) \
+            + sk.time_aux_bytes(spec.capacity) > sk.SMEM_BUDGET
 
 
 @pytest.mark.parametrize("keys", ["int32", "float32", "signed_zeros", "nan"])
 def test_pergroup_replay_ring_time_form_vs_plain(cuda, keys):
     # a time-mode store evaluated at several times (one whose window holds
     # no tuple of some groups, whose rows are then dropped); -0.0 may
-    # differ only in the sign of a zero (the kernel merges by value), NaN
-    # keys are held on the ops that do not order the window
+    # differ only in the sign of a zero (the kernel merges by value); NaN
+    # keys order after every number in both, so min, max, median and
+    # distinct count are held bit for bit too
     import torch
 
     from repro_torch.core import panestore as ps
@@ -1371,8 +1428,7 @@ def test_pergroup_replay_ring_time_form_vs_plain(cuda, keys):
         st, _ = sk.pergroup_scan_time(spec, st, g, k, ts, live, rb)
     one = ps.PaneStoreState(*(x[None] for x in st))
     top = int(pushes[-1][2].max())
-    ops = (("count", "sum", "mean") if keys == "nan"
-           else tuple(sorted(DIRECT_OPS)))
+    ops = tuple(sorted(DIRECT_OPS))
     for et in (top + 1, top - 150, top + 300):
         et_t = torch.tensor([et], dtype=torch.int32, device=cuda)
         sk.pergroup_replay_ring.launches = 0
@@ -1385,15 +1441,76 @@ def test_pergroup_replay_ring_time_form_vs_plain(cuda, keys):
         assert_same(gn, wn, what=f"et {et} num")
         for name in ops:
             a, b = gv[name], wv[name]
-            if keys == "nan" and name != "count":
-                torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5,
-                                           equal_nan=True, msg=name)
+            if keys == "nan":
+                _assert_nan_keys_same(a, b, name, f"et {et}")
                 continue
             if keys == "signed_zeros" and name not in INEXACT:
                 a, b = _zero_mapped(a), _zero_mapped(b)
             assert_same(a, b, inexact=name in INEXACT, what=f"et {et} {name}")
         if et == top + 300:  # no tuple in the window: every row dropped
             assert int(gn[0]) == 0 < int((st.owner != PAD_GROUP).sum())
+
+
+def _assert_nan_keys_same(got, want, name, what):
+    """A replay op over windows that hold NaN keys: sums and means within
+    the float tolerance (NaN where the plain version has NaN), every other
+    op bit for bit but for the sign of a zero (the kernel merges -0.0 and
+    +0.0 by value, in another order than the plain network)."""
+    import torch
+
+    if name in INEXACT:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5,
+                                   equal_nan=True, msg=f"{what} {name}")
+    else:
+        assert_same(_zero_mapped(got), _zero_mapped(want),
+                    what=f"{what} {name}")
+
+
+def test_pergroup_replay_nan_keys_vs_plain(cuda):
+    # the count form over windows that hold NaN keys: the placement scan's
+    # close sort puts NaN last, as the plain version's stable sort does
+    # (ring and store bit for bit), and both replay forms merge NaN after
+    # every number, as the plain merge does, so min, max, median and
+    # distinct count equal it bit for bit
+    import torch
+
+    from repro_torch.core import panestore as ps
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec = ps.PaneStoreSpec(wa=8, capacity=12, default_ws=24)
+    n = 480
+    rng = np.random.default_rng(2)
+    g = torch.from_numpy(rng.integers(0, 5, n).astype(np.int32)).to(cuda)
+    k = torch.from_numpy(rng.choice(np.array(
+        [-1.0, 0.5, 2.0, 3.0, np.inf, np.nan], np.float32), n)).to(cuda)
+    st0 = ps.init_store(spec, k.dtype, device=cuda)
+    trace = sk.pergroup_scan(spec, st0, g, k)
+    want_trace = sk.pergroup_scan_plain(spec, st0, g, k)
+    torch.cuda.synchronize()
+    for a, b, what in ((trace.states, want_trace.states, "snapshots"),
+                       (trace.final, want_trace.final, "store")):
+        _assert_trees(tuple(_bits(x) for x in a),
+                      tuple(_bits(x) for x in b), what)
+    got = sk.pergroup_replay_ring(spec, trace.states, DIRECT_OPS)
+    want = sk.pergroup_replay_ring_plain(spec, trace.states, DIRECT_OPS)
+    torch.cuda.synchronize()
+    assert_same(got[1], want[1], what="ugroups")
+    assert_same(got[2], want[2], what="num")
+    valid = torch.arange(spec.capacity, device=cuda)[None, :] \
+        < want[2][:, None]
+    for name in DIRECT_OPS:
+        a = torch.where(valid, got[0][name], 0).to(got[0][name].dtype)
+        b = torch.where(valid, want[0][name], 0).to(want[0][name].dtype)
+        _assert_nan_keys_same(a, b, name, "ring form")
+    assert bool(torch.isnan(want[0]["max"][valid]).any())
+    runs = ps.gather_runs(spec, trace.states)
+    length = runs.run_keys.shape[-1]
+    rk = runs.run_keys.reshape(-1, length).contiguous()
+    rv = runs.run_valid.reshape(-1, length).to(torch.int32)
+    rgot = sk.pergroup_replay(rk, rv, DIRECT_OPS, run=spec.wa)
+    rwant = sk.pergroup_replay_plain(rk, rv, DIRECT_OPS, run=spec.wa)
+    for name in DIRECT_OPS:
+        _assert_nan_keys_same(rgot[name], rwant[name], name, "row form")
 
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])

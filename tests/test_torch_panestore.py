@@ -159,6 +159,69 @@ def test_replay_plain_matches_pallas(port, dtype):
                     float_keys=dtype == np.float32)
 
 
+#: lanes of a run in the NaN-key replay rows
+NAN_RUN = 8
+
+
+def _nan_rows():
+    """Six replay rows of four sorted runs of ``NAN_RUN`` float32 lanes
+    holding NaN keys (as the close sort leaves them: last in each run),
+    80 % live: a row without a live NaN, a row of NaN alone, four mixed."""
+    rng = np.random.default_rng(3)
+    rows, length = 6, 32
+    rk = rng.choice(np.array([-1.0, 0.5, 2.0, 3.0, np.nan], np.float32),
+                    (rows, length))
+    rk = np.sort(rk.reshape(rows, -1, NAN_RUN), -1).reshape(rows, length)
+    rv = (rng.random((rows, length)) < 0.8).astype(np.int32)
+    rv[0] = rv[0] * ~np.isnan(rk[0])  # a row without NaN
+    rk[1] = np.nan  # a row of NaN alone
+    return rk, rv
+
+
+def test_replay_plain_orders_nan_last(port):
+    # the port's contract where a window holds NaN keys (README): the runs
+    # merge with NaN after every number, as the panes are sorted, so min,
+    # max, the lower median and distinct count are those of np.sort's
+    # order of the live keys, every NaN a distinct key (the JAX network
+    # compares NaN with nothing, so it is not the yardstick here)
+    rk, rv = _nan_rows()
+    rows = rk.shape[0]
+    got = port.pergroup_replay(rk, rv, ALL_DIRECT, NAN_RUN)
+    for r in range(rows):
+        live = np.sort(rk[r][rv[r] != 0])
+        n = live.shape[0]
+        want = {"count": n, "min": live[0], "max": live[n - 1],
+                "median": live[(n - 1) // 2],
+                "distinct_count": int(np.isnan(live).sum())
+                + np.unique(live[~np.isnan(live)]).shape[0]}
+        for name, w in want.items():
+            np.testing.assert_array_equal(got[name][r], w,
+                                          err_msg=f"row {r} {name}")
+
+
+@pytest.mark.parametrize("yardstick", ["reference", "pallas"])
+def test_replay_plain_nan_keys_match_jax_where_order_free(port, yardstick):
+    # the port's plain merge orders NaN keys last and the JAX network does
+    # not (README, "NaN keys"), so min, max, median and distinct count of
+    # such a window may differ; count, sum and mean do not depend on the
+    # merge order and stay held to the JAX package's replay of the same
+    # rows: the reference's replay_rows and the TPU kernel (interpreted)
+    rk, rv = _nan_rows()
+    ops = ("count", "sum", "mean")
+    if yardstick == "reference":
+        spec = jps.PaneStoreSpec(wa=NAN_RUN, capacity=4, default_ws=NAN_RUN)
+        want, _cnt = jax.jit(lambda k, v: jps.replay_rows(
+            spec, k, v, ops, ops, key_dtype=jnp.float32,
+            interpolate=False))(jnp.array(rk), jnp.array(rv))
+    else:
+        want = jk.pergroup_replay_pallas(jnp.array(rk), jnp.array(rv), ops,
+                                         run=NAN_RUN, interpret=True)
+    got = port.pergroup_replay(rk, rv, ops, NAN_RUN)
+    assert np.isnan(np.asarray(want["sum"])).sum() >= 2  # NaN windows held
+    for name in ops:
+        assert_same(want[name], got[name], name=name, float_keys=True)
+
+
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
 def test_replay_ring_plain_matches_pallas(port, dtype):
     # the ring-form replay (the port's merge-replay path: the placement
