@@ -113,7 +113,21 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    version, a library call where one computes the same function, and the
    least time the card could take (H100 SXM data sheet: 3.35 TB/s, 67
    TFLOP/s float32 outside the tensor cores);
-5. prints a ``phases`` line, a ``kernels`` line, the card's name and power
+5. the ``stats`` phase (``collect_stats=True``, ``stats_phase``): (m)'s
+   first 4 pushes, (n) and (o) with stats on, every push's outputs and
+   state bit-identical to stats off; the counters the placement, reorder
+   and time-placement kernels count on the card against the plain
+   versions on host copies of the same states ((n)'s second push, (o)
+   through its first retiring push, a count-mode stream at (g)'s window
+   and 64 groups pushed onto (n)'s fourth store, which evicts, and an
+   event-time stream of 32 reorder slots, which forces pops); (f) once,
+   its gauges against the plain path's; the host syncs of a push with
+   stats on and off (equal); the push time with stats on and off (whole
+   streams (n) and (o), median of 7) and the three kernels' launches
+   with counters on and off; a ``capture()`` report of (a) and of (o);
+   ``auto`` choosing the faster of two measured backends for (b)'s
+   query;
+6. prints a ``phases`` line, a ``kernels`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Needs the repository beside it (``src/repro_torch``) and a CUDA card; it
@@ -1378,6 +1392,449 @@ def event_time_run(torch, dev, wrappers, run_launches, identity):
     return phases, rows
 
 
+#: the stats phase: the pushes of run (m) it streams; the count-mode edge
+#: stream's pushes (onto (n)'s store after its fourth push, which is about
+#: full, so the store evicts); the event-time edge stream's reorder slots
+#: (about 60 tuples of (o)'s stream are in flight: pops are forced) and
+#: pushes
+STATS_M_PUSHES = 4
+STATS_EDGE_PUSH = 2048
+STATS_EDGE_PUSHES = 2
+STATS_REORDER_SLOTS = 32
+STATS_TIME_PUSHES = 3
+#: the counters the kernels count, with the plain versions beside them
+KERNEL_COUNTERS = ("pane_evictions", "pane_occupancy_hwm",
+                   "reorder_forced_pops", "reorder_depth_hwm")
+
+
+def _same(torch, a, b) -> bool:
+    """Bit-identical nested tensors (outputs, states, counters)."""
+    from repro_torch.obs.trace import tensors
+
+    ta, tb = tensors(a), tensors(b)
+    return len(ta) == len(tb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(_bits(torch, x), _bits(torch, y).to(x.device))
+        for x, y in zip(ta, tb))
+
+
+def _counts(stats, names=None) -> dict:
+    """A stats dict read back as ints (``names``: those keys only)."""
+    return {k: int(v) for k, v in sorted(stats.items())
+            if names is None or k in names}
+
+
+def _syncs(torch, fn):
+    """(result, host syncs of ``fn()``) under torch's sync debug mode."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def _on_off_ms(torch, fn_off, fn_on, reps: int = 7,
+               b2b: bool = False) -> dict:
+    """Medians of ``reps`` calls, stats off and on, alternated off, on,
+    on, off (each after its warm-up); with ``b2b`` also each one's ms a
+    call of 20 back to back (a kernel that outlasts its wrapper's host
+    work shows its device time there), off then on."""
+    out = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        fn = fn_off if which == "off" else fn_on
+        out[which].append(timed(torch, fn, reps)[1])
+    if b2b:
+        out["off_back_to_back"] = back_to_back_ms(torch, fn_off)
+        out["on_back_to_back"] = back_to_back_ms(torch, fn_on)
+    return out
+
+
+def stats_phase(torch, data, dev, identity, kernels) -> dict:
+    """The stats phase (``collect_stats=True``).  Streams (m)'s first
+    pushes, (n) and (o) with stats on and off and holds every push's
+    outputs and state bit-identical; holds the counters the placement,
+    reorder and time-placement kernels count on the card to those of the
+    plain versions on host copies of the same states ((n)'s second push,
+    (o)'s first pushes, a count-mode edge stream that evicts and an
+    event-time edge stream of 32 reorder slots that forces pops); runs (f)
+    with stats and holds its gauges to the plain path's; counts host
+    syncs of a push with stats on and off; times the pushes and the three
+    kernels' launches with counters on and off; prints a ``capture()``
+    report of (a) and of (o); shows ``auto`` choosing the faster of two
+    measured backends for (b)'s query.  Adds the counters' launch times
+    to the kernel rows; returns the phase's row."""
+    import numpy as np
+
+    from repro_torch.core import StreamingAggregator
+    from repro_torch.core import eventtime as et
+    from repro_torch.core import panestore as ps
+    from repro_torch.interop import make_stream, make_time_stream
+    from repro_torch.kernels.eventtime import kernel as ek
+    from repro_torch.kernels.swag import kernel as sk
+    from repro_torch.obs import counters as oc
+    from repro_torch.obs import trace
+    from repro_torch.obs.registry import METRICS, query_fingerprint
+    from repro_torch.query import (Query, Window, execute, init_stream_state,
+                                   plan)
+
+    t_start = time.perf_counter()
+    row = {"phase": "stats", "card": identity}
+    METRICS.reset()  # routing by measurement only where this phase asks
+
+    def fail(what):
+        raise AssertionError(f"stats phase: {what}")
+
+    # (m)'s first pushes on cuda, stats on and off, and the reference
+    # stream's stats beside them
+    g, k = data["sorted"]
+    b = N // STREAM_BATCHES
+    qm = Query(ops=OPS, streaming=True)
+    s_off = s_on = s_ref = None
+    for i in range(STATS_M_PUSHES):
+        bg, bk = g[i * b:(i + 1) * b], k[i * b:(i + 1) * b]
+        r_off, s_off = execute(qm, bg, bk, state=s_off, backend="cuda")
+        r_on, s_on = execute(qm, bg, bk, state=s_on, backend="cuda",
+                             collect_stats=True)
+        r_ref, s_ref = execute(qm, bg, bk, state=s_ref,
+                               backend="reference", collect_stats=True)
+        if not (_same(torch, r_off[:4], r_on[:4])
+                and _same(torch, s_off, s_on[0])):
+            fail(f"(m) push {i}: stats on changed the result or carries")
+        if _counts(r_on.stats) != _counts(r_ref.stats):
+            fail(f"(m) push {i}: {r_on.stats} != the reference's "
+                 f"{r_ref.stats}")
+    row["m"] = {"pushes": STATS_M_PUSHES, "stats": _counts(r_on.stats)}
+
+    # (n): 9 pushes and the flush, stats on and off
+    w = Window(**PERGROUP)
+    spec = w.store_spec()
+    g, k = data["pergroup64"]
+    edges = np.cumsum((0,) + WINDOW_PUSHES)
+    pushes = [(g[a:b2], k[a:b2]) for a, b2 in zip(edges[:-1], edges[1:])]
+    a_off = StreamingAggregator(REPLAY_OPS, window=w)
+    a_on = StreamingAggregator(REPLAY_OPS, window=w, collect_stats=True)
+    leaves = len(trace.tensors(a_on.carry))
+    stores = []
+    for i, (pg, pk) in enumerate(pushes):
+        r_off, r_on = a_off.push(pg, pk), a_on.push(pg, pk)
+        if not (_same(torch, r_off[:5], r_on[:5])
+                and _same(torch, a_off.carry, a_on.carry[0])):
+            fail(f"(n) push {i}: stats on changed the result or store")
+        if int(r_on.stats["store_donated_buffers"]) != leaves * (i + 1):
+            fail(f"(n) push {i}: {r_on.stats['store_donated_buffers']} "
+                 f"buffers updated in place, not {leaves} a push")
+        stores.append((ps.PaneStoreState(*(x.clone() for x in a_off.carry)),
+                       {nm: v.clone() for nm, v in a_on.carry[1].items()}))
+    if not _same(torch, a_off.flush()[:5], a_on.flush()[:5]):
+        fail("(n) flush: stats on changed the result")
+    n_stats = _counts(r_on.stats)
+    # (n)'s second push: the kernel's counters from (n)'s carried
+    # counters, against the plain placement's on a host copy
+    (st0, c0), (st1, c1) = stores[0], stores[1]
+    pg, pk = pushes[1]
+    host_c = {nm: v.cpu() for nm, v in c0.items()}
+    trace_h, plain_ms = plain_once(torch, lambda: sk.pergroup_scan_plain(
+        spec, ps.PaneStoreState(*(x.cpu() for x in st0)), pg.cpu(),
+        pk.cpu(), push=True, counters=host_c))
+    if _counts(c1) != _counts(host_c) or not _same(torch, st1,
+                                                   trace_h.final):
+        fail(f"(n) push 1: the counters {_counts(c1)} differ from the plain "
+             f"placement's {_counts(host_c)}")
+    row["n"] = {"pushes": len(pushes), "stats": n_stats,
+                "checked_push": 1, "plain_ms": plain_ms,
+                "store_donated_buffers_a_push": leaves}
+
+    # the count-mode edge stream: (g)'s window and 64 groups, pushes onto
+    # (n)'s store after its fourth push, until the store evicts
+    pn = plan(Query(ops=REPLAY_OPS, window=w, streaming=True),
+              backend="cuda-panestore")
+    eg, ek_ = (torch.from_numpy(x).to(dev) for x in make_stream(
+        SEED + 1, STATS_EDGE_PUSH * STATS_EDGE_PUSHES, 64, 1000))
+    state = (ps.PaneStoreState(*(x.clone() for x in stores[3][0])),
+             init_stream_state(pn, collect_stats=True)[1])
+    host = (ps.PaneStoreState(*(x.cpu() for x in stores[3][0])), {})
+    for i in range(STATS_EDGE_PUSHES):
+        sl = slice(i * STATS_EDGE_PUSH, (i + 1) * STATS_EDGE_PUSH)
+        off, off_state = execute(pn, eg[sl], ek_[sl], state=state[0])
+        res, state = execute(pn, eg[sl], ek_[sl], state=state,
+                             collect_stats=True)
+        if not (_same(torch, off[:4], res[:4])
+                and _same(torch, off_state, state[0])):
+            fail(f"count-mode edge push {i}: stats on changed the result")
+        hs, hc = host
+        hs, hc = ps.push(spec, hs, eg[sl].cpu(), ek_[sl].cpu(), counters=hc)
+        host = (hs, hc)
+        if not _same(torch, state[0], hs):
+            fail(f"count-mode edge push {i}: the store differs from the "
+                 f"plain placement's")
+        if _counts(res.stats, KERNEL_COUNTERS) != _counts(hc):
+            fail(f"count-mode edge push {i}: {_counts(res.stats)} != the "
+                 f"plain placement's {_counts(hc)}")
+    edge_n = _counts(res.stats)
+    if edge_n["pane_evictions"] == 0:
+        fail(f"the count-mode edge stream did not evict: {edge_n}")
+    row["count_edge"] = {"pushes": STATS_EDGE_PUSHES,
+                         "push": STATS_EDGE_PUSH, "stats": edge_n}
+
+    # (o): 64 pushes and the flush, stats on and off; the first pushes'
+    # counters against the plain chain on host copies
+    we = Window(**EVENT_WINDOW)
+    tspec, rspec = we.store_spec(), we.reorder_spec()
+    es = EVENT_STREAM
+    g, k, ts = (torch.from_numpy(x).to(dev) for x in make_time_stream(
+        SEED, es["n"], es["n_groups"], es["key_max"], es["density"],
+        es["jitter"]))
+    tpushes = [(g[i:i + EVENT_PUSH], k[i:i + EVENT_PUSH],
+                ts[i:i + EVENT_PUSH]) for i in range(0, es["n"], EVENT_PUSH)]
+    a_off = StreamingAggregator(REPLAY_OPS, window=we)
+    a_on = StreamingAggregator(REPLAY_OPS, window=we, collect_stats=True)
+    leaves_o = len(trace.tensors(a_on.carry))
+    rst = et.init_reorder(rspec, torch.int32, torch.device("cpu"))
+    pst = ps.init_store(tspec, torch.int32)
+    hc = {}
+    befores = []
+    checked = retired = 0
+    for i, (pg, pk, pt) in enumerate(tpushes):
+        if i < 2:
+            befores.append((et.ReorderState(*(x.clone()
+                                              for x in a_off.carry[0])),
+                            ps.PaneStoreState(*(x.clone()
+                                                for x in a_off.carry[1]))))
+        r_off = a_off.push(pg, pk, timestamps=pt)
+        r_on = a_on.push(pg, pk, timestamps=pt)
+        if not (_same(torch, r_off[:5], r_on[:5])
+                and _same(torch, a_off.carry, a_on.carry[0])):
+            fail(f"(o) push {i}: stats on changed the result or carry")
+        if int(r_on.stats["store_donated_buffers"]) != leaves_o * (i + 1):
+            fail(f"(o) push {i}: buffers updated in place "
+                 f"{r_on.stats['store_donated_buffers']}")
+        if not retired:
+            emit, rst, hc = et.reorder_push(rspec, rst, pt.cpu(), pg.cpu(),
+                                            pk.cpu(), counters=hc)
+            wm = rst.max_ts - we.max_lateness
+            pst, ev, hwm = ps.push_time_events(
+                tspec, pst, emit.groups, emit.keys, emit.ts, emit.live,
+                wm - we.range, occupancy=True)
+            hc = ps.count_events(hc, ev, hwm, torch.device("cpu"))
+            hc = oc.put(oc.put(hc, "late_dropped", rst.dropped),
+                        "watermark", wm)
+            want = _counts(hc)
+            got = _counts(r_on.stats)
+            got.pop("store_donated_buffers")
+            if got != want:
+                fail(f"(o) push {i}: {got} != the plain chain's {want}")
+            checked += 1
+            retired = int(ev[1])
+    if not _same(torch, a_off.flush()[:5], a_on.flush()[:5]):
+        fail("(o) flush: stats on changed the result")
+    row["o"] = {"pushes": len(tpushes), "stats": _counts(r_on.stats),
+                "checked_pushes": checked,
+                "store_donated_buffers_a_push": leaves_o}
+
+    # the event-time edge stream: 32 reorder slots, pops forced
+    wf = Window(**dict(EVENT_WINDOW, reorder_capacity=STATS_REORDER_SLOTS))
+    pf = plan(Query(ops=REPLAY_OPS, window=wf, streaming=True),
+              backend="cuda-panestore")
+    rspec_f = wf.reorder_spec()
+    st_on = st_off = None
+    rst = et.init_reorder(rspec_f, torch.int32, torch.device("cpu"))
+    pst = ps.init_store(tspec, torch.int32)
+    hc = {}
+    for i, (pg, pk, pt) in enumerate(tpushes[:STATS_TIME_PUSHES]):
+        r_on, st_on = execute(pf, pg, pk, state=st_on, timestamps=pt,
+                              collect_stats=True)
+        r_off, st_off = execute(pf, pg, pk, state=st_off, timestamps=pt)
+        if not (_same(torch, r_off[:4], r_on[:4])
+                and _same(torch, st_off, st_on[0])):
+            fail(f"event-time edge push {i}: stats on changed the result")
+        emit, rst, hc = et.reorder_push(rspec_f, rst, pt.cpu(), pg.cpu(),
+                                        pk.cpu(), counters=hc)
+        wm = rst.max_ts - wf.max_lateness
+        pst, hc = ps.push_time(tspec, pst, emit.groups, emit.keys, emit.ts,
+                               live=emit.live, retire_below=wm - wf.range,
+                               counters=hc)
+        hc = oc.put(oc.put(hc, "late_dropped", rst.dropped), "watermark", wm)
+        if _counts(r_on.stats) != _counts(hc):
+            fail(f"event-time edge push {i}: {_counts(r_on.stats)} != the "
+                 f"plain chain's {_counts(hc)}")
+    edge_o = _counts(r_on.stats)
+    if edge_o["reorder_forced_pops"] == 0 \
+            or edge_o["reorder_depth_hwm"] != STATS_REORDER_SLOTS:
+        fail(f"the event-time edge stream forced no pop: {edge_o}")
+    row["time_edge"] = {"reorder_capacity": STATS_REORDER_SLOTS,
+                        "pushes": STATS_TIME_PUSHES, "stats": edge_o}
+
+    # (f) with stats: bit-identical, and its gauges the plain path's (on a
+    # prefix the reference's per-tuple loop takes in well under a second,
+    # and at the full run by the same rule)
+    qf = Query(ops=PARTIAL, window=w)
+    g, k = data["pergroup32"]
+    f_off, _ = execute(qf, g, k, backend="cuda-panestore")
+    f_on, _ = execute(qf, g, k, backend="cuda-panestore", collect_stats=True)
+    if not _same(torch, f_off[:4], f_on[:4]):
+        fail("(f): stats on changed the result")
+    pre = 8 * w.wa
+    p_k, _ = execute(qf, g[:pre], k[:pre], backend="cuda-panestore",
+                     collect_stats=True)
+    p_r, _ = execute(qf, g[:pre], k[:pre], backend="reference",
+                     collect_stats=True)
+    gauges = {nm: v for nm, v in _counts(p_k.stats).items()}
+    if gauges != {nm: v for nm, v in _counts(p_r.stats).items()
+                  if nm in gauges}:
+        fail(f"(f) prefix: {p_k.stats} != the reference's {p_r.stats}")
+    ne = k.shape[0] // w.wa
+    want = {"num_shards": 1, "pergroup_evals_batched": ne,
+            "pergroup_merge_dispatch": 0,
+            "pergroup_partial_dispatch": len(PARTIAL),
+            "pergroup_replay_rows_per_launch": ne * spec.capacity,
+            "tuples": k.shape[0]}
+    if _counts(f_on.stats) != want:
+        fail(f"(f): {f_on.stats} != {want}")
+    row["f"] = {"stats": _counts(f_on.stats), "prefix_checked": pre,
+                "prefix_reference": _counts(p_r.stats)}
+
+    # host syncs of a push, stats on and off: (n)'s fourth and fifth
+    # pushes, (o)'s, counted off, on, on, off, after three pushes of
+    # warm-up, the third under the sync debug mode too (the first call the
+    # process counts reads one sync more, stats on or off)
+    sync = {}
+    for tag, window, pp in (("n", w, pushes), ("o", we, tpushes)):
+        aggs = {on: StreamingAggregator(REPLAY_OPS, window=window,
+                                        collect_stats=on)
+                for on in (False, True)}
+
+        def push(on, j):
+            kw = {} if tag == "n" else {"timestamps": pp[j][2]}
+            return aggs[on].push(pp[j][0], pp[j][1], **kw)
+
+        for j in (0, 1):
+            for on in (False, True):
+                push(on, j)
+        for on in (False, True):
+            _syncs(torch, lambda: push(on, 2))
+        counts = {False: [], True: []}
+        for on, j in ((False, 3), (True, 3), (True, 4), (False, 4)):
+            counts[on].append(_syncs(torch, lambda: push(on, j))[1])
+        sync[tag] = {"off": counts[False], "on": counts[True]}
+        if counts[False] != counts[True]:
+            fail(f"({tag}): a push syncs {counts[True]} times with stats "
+                 f"on, {counts[False]} with stats off")
+    row["host_syncs_a_push"] = sync
+
+    # push times, stats on and off (whole streams, 7 each, alternated)
+    def stream(window, pp, on, time_keys):
+        def run():
+            agg = StreamingAggregator(REPLAY_OPS, window=window,
+                                      collect_stats=on)
+            for x in pp:
+                agg.push(x[0], x[1], **({"timestamps": x[2]} if time_keys
+                                        else {}))
+            return agg
+        return run
+
+    # and one more stream each under the profiler: the device time the
+    # counters add (the host's pace varies more than the stats cost)
+    push_ms, device_ms = {}, {}
+    for tag, window, pp, tk in (("n", w, pushes, False),
+                                ("o", we, tpushes, True)):
+        t = _on_off_ms(torch, stream(window, pp, False, tk),
+                       stream(window, pp, True, tk))
+        push_ms[tag] = {which: [x / len(pp) for x in v]
+                        for which, v in t.items()}
+        push_ms[tag]["pushes"] = len(pp)
+        device_ms[tag] = {
+            which: device_busy(torch, stream(window, pp, on, tk))["device_ms"]
+            for which, on in (("off", False), ("on", True))}
+    row["push_ms"], row["stream_device_ms"] = push_ms, device_ms
+
+    # the three kernels' launches with counters on and off, at (n)'s push
+    # and (o)'s
+    cnt_n, cnt_r, cnt_t = ({}, {}, {})
+    pg, pk = pushes[1]
+    launch = {"pergroup_scan": _on_off_ms(
+        torch, lambda: sk.pergroup_scan(spec, st0, pg, pk, push=True),
+        lambda: sk.pergroup_scan(spec, st0, pg, pk, push=True,
+                                 counters=cnt_n), b2b=True)}
+    (r_before, p_before), (pg, pk, pt) = befores[1], tpushes[1]
+    launch["reorder"] = _on_off_ms(
+        torch, lambda: ek.reorder_push(rspec, r_before, pt, pg, pk),
+        lambda: ek.reorder_push(rspec, r_before, pt, pg, pk,
+                                counters=cnt_r), b2b=True)
+    emit, r_after = ek.reorder_push(rspec, r_before, pt, pg, pk)
+    rb = r_after.max_ts - we.max_lateness - we.range
+    launch["pergroup_scan_time"] = _on_off_ms(
+        torch, lambda: sk.pergroup_scan_time(
+            tspec, p_before, emit.groups, emit.keys, emit.ts, emit.live, rb),
+        lambda: sk.pergroup_scan_time(
+            tspec, p_before, emit.groups, emit.keys, emit.ts, emit.live, rb,
+            counters=cnt_t), b2b=True)
+    row["launch_ms"] = launch
+    for krow in kernels:
+        if krow["name"] in launch and krow.get("push", True) \
+                and krow["runs"] in (["n"], ["o"]) \
+                and krow.get("form") is None:
+            t = launch[krow["name"]]
+            krow["ms_counters_off"] = t["off"]
+            krow["ms_counters_on"] = t["on"]
+            krow["ms_back_to_back_counters_off"] = t["off_back_to_back"]
+            krow["ms_back_to_back_counters_on"] = t["on_back_to_back"]
+
+    # capture() reports: (a) once, (o)'s stream through execute(state=)
+    with trace.capture() as tr:
+        execute(Query(ops=OPS), *data["sorted"], backend="cuda")
+    a_ms = {nm: s * 1e3 for nm, s in tr.durations().items()}
+    print(f"stats: capture() of run (a):\n{tr.report()}", flush=True)
+    with trace.capture() as tr:
+        state = None
+        qo = Query(ops=REPLAY_OPS, window=we, streaming=True)
+        for pg, pk, pt in tpushes:
+            _, state = execute(qo, pg, pk, state=state, timestamps=pt)
+    spans = tr.durations()
+    lines = tr.report().splitlines()
+    print(f"stats: capture() of run (o) through execute(state=) "
+          f"({len(lines)} spans; the first push's, then the sums):\n"
+          + "\n".join(lines[:2]) + "\n" + "\n".join(
+              f"{nm}: {s * 1e3:.3f} ms in all" for nm, s in spans.items()),
+          flush=True)
+    row["capture"] = {"a_ms": a_ms,
+                      "o_ms": {nm: s * 1e3 for nm, s in spans.items()}}
+
+    # auto on (b)'s query: two measured backends, the faster chosen
+    qb = Query(ops=OPS + ("median",), window=Window(ws=4096, wa=1024))
+    g, k = data["stream"]
+    fp = query_fingerprint(qb)
+    METRICS.reset()
+    static = plan(qb).backend
+    for backend in ("cuda-panes", "cuda"):
+        execute(qb, g, k, backend=backend)   # warm-up, not recorded
+    for _ in range(3):
+        for backend in ("cuda-panes", "cuda"):
+            execute(qb, g, k, backend=backend, collect_stats=True)
+    tps = {bk: METRICS.tuples_per_s(bk, fp) for bk in ("cuda-panes", "cuda")}
+    chosen = plan(qb).backend
+    METRICS.reset()
+    if chosen != max(tps, key=tps.get):
+        fail(f"auto chose {chosen} for (b)'s query, measured {tps}")
+    row["auto"] = {"static": static, "measured_tuples_per_s": tps,
+                   "chosen": chosen}
+    row["seconds"] = time.perf_counter() - t_start
+    print(f"stats phase: (m) {row['m']['stats']}; (n) {n_stats}; count edge "
+          f"{edge_n}; (o) {row['o']['stats']}; event-time edge {edge_o}; "
+          f"(f) {row['f']['stats']} [{identity}]", flush=True)
+    print(f"stats phase: host syncs a push {sync}; push ms stats off/on "
+          f"{push_ms}; a stream's device ms stats off/on {device_ms}; "
+          f"launch ms counters off/on {launch}; auto on (b): "
+          f"{tps} -> {chosen} (static: {static}); {row['seconds']:.1f} s "
+          f"[{identity}]", flush=True)
+    return row
+
+
 def slice5_kernels(torch, sk, data, dev) -> list:
     """twostack_flip at (h)'s shape, swag at (i)'s, bitonic_sort at (j)'s
     and segmented_scan at (k)'s, each against its plain version."""
@@ -1535,10 +1992,12 @@ PTXAS_KERNELS = {
     "pergroup.cu": [
         (r"pergroup_replay_kernelI([if])Lb([01])ELb([01])E",
          "pergroup_replay_kernel", ("keys", "ring", "time")),
-        (r"pergroup_scan_time_kernelI([if])E", "pergroup_scan_time_kernel",
-         ("keys",))],
-    "reorder.cu": [(r"reorder_kernelILi(\d+)E", "reorder_kernel",
-                    ("slots",))],
+        (r"pergroup_scan_time_kernelI([if])Lb([01])E",
+         "pergroup_scan_time_kernel", ("keys", "counters")),
+        (r"pergroup_scan_kernelI([if])Lb([01])ELb([01])ELb([01])ELb([01])E",
+         "pergroup_scan_kernel", ("keys", "ring", "gs", "snap", "counters"))],
+    "reorder.cu": [(r"reorder_kernelILi(\d+)ELb([01])E", "reorder_kernel",
+                    ("slots", "counters"))],
     "bitonic.cu": [
         (r"bitonic_rows_kernelILi(\d)ELi(n?\d)E", "bitonic_rows_kernel",
          ("num_keys", "float_keys"))],
@@ -1597,7 +2056,7 @@ def kernel_ptxas(build) -> list:
                 sm = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem"] = int(sm[1]) if sm else 0
     shown = ("op", "keys", "num_keys", "float_keys", "lanes", "slots",
-             "max_threads", "ring", "time", "flat")
+             "max_threads", "ring", "time", "flat", "gs", "snap", "counters")
     for r in rows:
         args = ", ".join(f"{k} {r[k]}" for k in shown if k in r)
         print(f"ptxas {r['kernel']}<{args}>: "
@@ -1668,6 +2127,7 @@ def float_key_checks(torch, sk, data, dev) -> dict:
 
 
 def main() -> int:
+    t_main = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1846,6 +2306,7 @@ def main() -> int:
                                          identity)
     phases += stream_phases
     kernels += rows
+    phases.append(stats_phase(torch, data, dev, identity, kernels))
 
     # groupagg as run (a) launches it: the flat layout, every op of (a) in
     # one launch over the unpadded stream
@@ -1986,9 +2447,13 @@ def main() -> int:
                 and r["ring"] == (row["name"] == "pergroup_replay_ring")
                 and r["time"] == (row.get("form") == "time"))
         if row["name"] in ("reorder", "pergroup_scan_time"):
-            row["ptxas"] = next(
+            # the main path's instantiation (stats off), and the one that
+            # counts
+            row["ptxas"], row["ptxas_counters"] = (next(
                 r for r in ptxas if r["kernel"] == row["name"] + "_kernel"
-                and r.get("keys", "int32") == "int32")
+                and r.get("keys", "int32") == "int32"
+                and r.get("slots", 4) == 4 and r["counters"] == cnt)
+                for cnt in (0, 1))
         if row["name"] == "sort_panes":
             geo = sk.swag_geometry(row["shape"][1])
             row["ptxas"] = min(
@@ -2075,6 +2540,8 @@ def main() -> int:
     spilled = [r for r in ptxas if r["spill_bytes"]]
     if spilled:
         raise AssertionError(f"register spills: {spilled}")
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s in all",
+          flush=True)
     print(card_identity(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

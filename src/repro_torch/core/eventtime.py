@@ -234,14 +234,17 @@ def init_reorder(spec: ReorderSpec, key_dtype=torch.int32,
 
 
 def _reorder_cycle(spec: ReorderSpec, st: ReorderState, lanes, t, g, k, lv,
-                   release_wm, late_wm):
+                   release_wm, late_wm, tally=None):
     """One tuple in, at most one out — the JAX package's cycle, updating
     the host copy ``st`` in place (its 0-d scalars included).  The incoming
     tuple (dead when ``lv`` is False) first advances the watermark; the
     buffered (or the incoming) minimum by (ts, seq) is released once the
     gate passes it, or when the buffer would overflow; a tuple earlier than
     the lateness floor or than the last emission is dropped.  Returns the
-    cycle's emission ``(ts, group, key, live, late)`` as 0-d tensors."""
+    cycle's emission ``(ts, group, key, live, late)`` as 0-d tensors.
+    ``tally`` (a list ``[forced pops, depth high-water mark or None]``)
+    counts a pop forced by a full buffer past the release gate and the
+    buffer's depth after the cycle, as the JAX package's counters do."""
     c = spec.capacity
     max_ts = torch.maximum(st.max_ts, torch.where(lv, t, TS_MIN))
     wm = max_ts - spec.max_lateness
@@ -282,6 +285,11 @@ def _reorder_cycle(spec: ReorderSpec, st: ReorderState, lanes, t, g, k, lv,
                                    st.last_emit))
     st.seq_clock.add_(do_ins.to(torch.int32))
     st.dropped.add_(late.to(torch.int32))
+    if tally is not None:
+        forced = (pop_inc & (t > release)) | (pop_buf & (mts > release))
+        depth = int(st.occ.sum())
+        tally[0] += int(forced)
+        tally[1] = depth if tally[1] is None else max(tally[1], depth)
     return et, eg, ek, ev, late
 
 
@@ -335,10 +343,11 @@ def reorder_push(spec: ReorderSpec, state: ReorderState, ts, groups, keys,
     merged watermark (a sharded stream), and must be causal; ``drain_wm``
     is the gate of the drain (default ``release_wm``, then the local
     watermark after the push); ``late_wm`` replaces the lateness floor.
-    The loop runs on a host copy of ``state``, which is not modified."""
-    if counters is not None:
-        from repro_torch import query as _q
-        raise _q._later_slice("reorder_push(counters=)", 6, "observability")
+    The loop runs on a host copy of ``state``, which is not modified.
+
+    With ``counters`` (a :mod:`repro_torch.obs.counters` dict) returns
+    ``(emit, state, counters)``, with the buffer-depth high-water mark and
+    the capacity-forced pops of every cycle of the push."""
     dev = state.ts.device
     st = _host_copy(state)
     host = torch.device("cpu")
@@ -355,8 +364,10 @@ def reorder_push(spec: ReorderSpec, state: ReorderState, ts, groups, keys,
                                      gate(drain_wm))
     lanes = torch.arange(spec.capacity)
     true, false = torch.tensor(True), torch.tensor(False)
+    tally = None if counters is None else [0, None]
     outs = [_reorder_cycle(spec, st, lanes, ts[i], groups[i], keys[i],
-                           true if i < nv else false, release_wm, late_wm)
+                           true if i < nv else false, release_wm, late_wm,
+                           tally)
             for i in range(n)]
     g = drain_wm if drain_wm is not None else release_wm
     release = st.max_ts - spec.max_lateness if g is None else g
@@ -364,7 +375,21 @@ def reorder_push(spec: ReorderSpec, state: ReorderState, ts, groups, keys,
     cols = [torch.stack([o[f] for o in outs]) if outs else
             torch.zeros((0,), dtype=drain[f].dtype) for f in range(5)]
     emit = ReorderEmit(*(torch.cat([a, b]) for a, b in zip(cols, drain)))
-    return _on(dev, emit, st)
+    if counters is None:
+        return _on(dev, emit, st)
+    return (*_on(dev, emit, st), count_cycles(counters, *tally, dev))
+
+
+def count_cycles(counters, forced, depth_hwm, device):
+    """``counters`` with a push's forced pops and its depth high-water mark
+    (a number, a 0-d tensor, or None: no cycle)."""
+    from repro_torch.obs import counters as _c
+    counters = _c.ensure(counters, ("reorder_depth_hwm",
+                                    "reorder_forced_pops"), device=device)
+    counters = _c.bump(counters, "reorder_forced_pops", forced)
+    if depth_hwm is None:
+        return counters
+    return _c.high_water(counters, "reorder_depth_hwm", depth_hwm)
 
 
 def reorder_flush(spec: ReorderSpec, state: ReorderState):

@@ -267,19 +267,31 @@ def _write_lane(keys, seqs, slot, lane, k, seq, closes):
 
 
 def push(spec: PaneStoreSpec, state: PaneStoreState, groups, keys,
-         n_valid=None) -> PaneStoreState:
+         n_valid=None, counters=None):
     """Stream one batch of tuples through the store, one tuple at a time
     (the first ``n_valid`` only, when given: a tuple past them changes
     nothing).  The loop runs on a host copy, as :func:`scan`'s does.
     Returns the new state on the device of ``state``, which is not
-    modified."""
+    modified.
+
+    With ``counters`` (a :mod:`repro_torch.obs.counters` dict) returns
+    ``(state, counters)``: the evictions and the occupancy high-water mark
+    after every tuple's step, as the JAX package's scan carries them (a
+    dead tuple leaves the occupancy as it was)."""
     groups = torch.as_tensor(groups)
     keys = torch.as_tensor(keys)
-    n = groups.shape[-1]
+    n_all = n = groups.shape[-1]
     if n_valid is not None:
         n = min(max(int(n_valid), 0), n)
-    return scan(spec, state, groups[..., :n], keys[..., :n],
-                push=True).final
+    trace = scan(spec, state, groups[..., :n], keys[..., :n], push=True,
+                 occupancy=counters is not None)
+    if counters is None:
+        return trace.final
+    hwm = trace.occupancy_hwm
+    if hwm is None and n_all > 0:  # dead tuples only
+        hwm = (state.owner != PAD_GROUP).sum(dtype=torch.int32)
+    return trace.final, count_events(counters, trace.events, hwm,
+                                     state.owner.device)
 
 
 class ScanTrace(NamedTuple):
@@ -292,7 +304,9 @@ class ScanTrace(NamedTuple):
     tuple (``None`` without ranks).  A push records neither the plan nor
     the stores after every chunk (``None``).  ``final`` and
     ``final_abase``: the store after the last chunk.  ``events`` ``[2]``
-    int32: the evictions and retirements of the scan."""
+    int32: the evictions and retirements of the scan.  ``occupancy_hwm``:
+    the most occupied slots after any tuple's step, when the scan was asked
+    to count it (``None`` otherwise, or with no tuple)."""
     slots: torch.Tensor | None
     lanes: torch.Tensor | None
     seqs: torch.Tensor | None
@@ -301,12 +315,13 @@ class ScanTrace(NamedTuple):
     final: PaneStoreState
     final_abase: torch.Tensor | None
     events: torch.Tensor
+    occupancy_hwm: int | None = None
 
 
 def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
          keys: torch.Tensor | None = None,
          ranks: torch.Tensor | None = None, *,
-         push: bool = False) -> ScanTrace:
+         push: bool = False, occupancy: bool = False) -> ScanTrace:
     """The per-tuple placement scan, one tuple at a time, over the ``N //
     WA`` full chunks of the stream (the trailing remainder stays unpushed).
     A streaming ``push`` places every tuple (the last chunk may be short)
@@ -315,8 +330,9 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
     With ``keys`` the ring buffers are written and sorted at close, as
     :func:`push` does; without, only the directory moves.  With ``ranks``
     (each tuple's within-group arrival rank) each slot's ``abase`` records
-    the rank of its first tuple.  This loop is the plain version of the placement
-    scan kernel.
+    the rank of its first tuple.  With ``occupancy`` the trace's
+    ``occupancy_hwm`` counts the occupied slots after every tuple.  This
+    loop is the plain version of the placement scan kernel.
 
     One tuple is a few dozen ops on ``[C]`` vectors, microseconds each on
     the host and a kernel launch each on the card, so the loop runs on a
@@ -336,6 +352,8 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
     out = torch.zeros((3, ne, wa), dtype=torch.int32)
     snaps = []
     evictions = retirements = 0
+    occ = int((st.owner != PAD_GROUP).sum()) if occupancy else 0
+    hwm = None
     true = torch.ones((), dtype=torch.bool)
     for e in range(ne):
         for j in range(min(wa, n - e * wa)):
@@ -345,6 +363,9 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
                 groups[i], true)
             evictions += int(ev)
             retirements += int(ret)
+            if occupancy:  # an eviction reuses its slot
+                occ += int(alloc) - int(ev) - int(ret)
+                hwm = occ if hwm is None else max(hwm, occ)
             out[0, e, j] = slot.to(torch.int32)
             out[1, e, j] = lane
             out[2, e, j] = m_g
@@ -374,7 +395,7 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
     final_abase = abase.to(dev) if with_ranks else None
     if push:
         return ScanTrace(None, None, None, None, None, final, final_abase,
-                         events)
+                         events, hwm)
     states = PaneStoreState(
         owner=stack(0, (c,), torch.int32),
         keys=stack(1, (c, wa), st.keys.dtype) if ring else None,
@@ -383,7 +404,7 @@ def scan(spec: PaneStoreSpec, state: PaneStoreState, groups: torch.Tensor,
         stamp=stack(5, (c,), torch.int32), clock=stack(6, (), torch.int32))
     return ScanTrace(out[0].to(dev), out[1].to(dev), out[2].to(dev), states,
                      stack(7, (c,), torch.int32) if with_ranks else None,
-                     final, final_abase, events)
+                     final, final_abase, events, hwm)
 
 
 def _push_one_time(spec: PaneStoreSpec, st: PaneStoreState, g, k, t, lv: bool,
@@ -393,10 +414,10 @@ def _push_one_time(spec: PaneStoreSpec, st: PaneStoreState, g, k, t, lv: bool,
     the first free slot, else the globally oldest (evicted); the lane
     write; the pane's stable key sort when it closes (the timestamp rides
     along); then the retirement of every pane wholly below ``rb``, on dead
-    lanes too.  Returns the evictions and retirements (0 or 1, and a
-    count)."""
+    lanes too.  Returns the evictions, retirements and allocations (0 or
+    1, a count, 0 or 1)."""
     wa = spec.wa
-    evicted = 0
+    evicted = alloc = 0
     if lv:
         pid = torch.div(t, spec.slide, rounding_mode="floor")
         mine_open = (st.owner == g) & (st.base == pid) & (st.count < wa)
@@ -412,6 +433,7 @@ def _push_one_time(spec: PaneStoreSpec, st: PaneStoreState, g, k, t, lv: bool,
         lane = int(st.count[slot]) if has_open else 0
         st.count[slot] = lane + 1
         if not has_open:
+            alloc = 1
             st.owner[slot] = g
             st.base[slot] = pid
             st.stamp[slot] = st.clock
@@ -426,13 +448,16 @@ def _push_one_time(spec: PaneStoreSpec, st: PaneStoreState, g, k, t, lv: bool,
     st.owner.masked_fill_(dead, PAD_GROUP)
     st.count.masked_fill_(dead, 0)
     st.stamp.masked_fill_(dead, -1)
-    return evicted, int(dead.sum())
+    return evicted, int(dead.sum()), alloc
 
 
 def push_time_events(spec: PaneStoreSpec, state: PaneStoreState, groups,
-                     keys, ts, live=None, retire_below=None):
+                     keys, ts, live=None, retire_below=None, *,
+                     occupancy: bool = False):
     """:func:`push_time` with the evictions and retirements it made:
-    ``(state, events [2] int32)``, both on the device of ``state``."""
+    ``(state, events [2] int32)``, both on the device of ``state``.  With
+    ``occupancy``, ``(state, events, hwm)``: ``hwm`` the most occupied
+    slots after any tuple's step (``None`` with no tuple)."""
     if not spec.is_time:
         raise ValueError("push_time needs a time-mode PaneStoreSpec "
                          "(slide/time_range set); use push() for "
@@ -449,27 +474,48 @@ def push_time_events(spec: PaneStoreSpec, state: PaneStoreState, groups,
     rb = torch.as_tensor(TS_FLOOR if retire_below is None else retire_below,
                          dtype=torch.int32).to(host)
     evictions = retirements = 0
+    occ = int((st.owner != PAD_GROUP).sum()) if occupancy else 0
+    hwm = None
     for i in range(n):
-        ev, ret = _push_one_time(spec, st, groups[i], keys[i], ts[i], lv[i],
-                                 rb)
+        ev, ret, alloc = _push_one_time(spec, st, groups[i], keys[i], ts[i],
+                                        lv[i], rb)
         evictions += ev
         retirements += ret
+        if occupancy:  # an eviction reuses its slot
+            occ += alloc - ev - ret
+            hwm = occ if hwm is None else max(hwm, occ)
     events = torch.tensor([evictions, retirements], dtype=torch.int32)
-    return PaneStoreState(*(x.to(dev) for x in st)), events.to(dev)
+    out = PaneStoreState(*(x.to(dev) for x in st)), events.to(dev)
+    return (*out, hwm) if occupancy else out
 
 
 def push_time(spec: PaneStoreSpec, state: PaneStoreState, groups, keys, ts,
-              live=None, retire_below=None, counters=None) -> PaneStoreState:
+              live=None, retire_below=None, counters=None):
     """Stream one batch of timestamped tuples through a time-mode store,
     one tuple at a time on a host copy (``state`` is not modified).
     ``live`` is a full per-lane mask (reorder-buffer emissions are not a
     valid prefix); ``retire_below`` the retirement horizon, normally the
-    watermark less the range (``None`` retires nothing)."""
-    if counters is not None:
-        from repro_torch import query as _q
-        raise _q._later_slice("push_time(counters=)", 6, "observability")
-    return push_time_events(spec, state, groups, keys, ts, live,
-                            retire_below)[0]
+    watermark less the range (``None`` retires nothing).  With
+    ``counters`` returns ``(state, counters)`` (see :func:`push`)."""
+    if counters is None:
+        return push_time_events(spec, state, groups, keys, ts, live,
+                                retire_below)[0]
+    final, events, hwm = push_time_events(spec, state, groups, keys, ts,
+                                          live, retire_below, occupancy=True)
+    return final, count_events(counters, events, hwm, state.owner.device)
+
+
+def count_events(counters, events: torch.Tensor, hwm, device):
+    """``counters`` with a placement's evictions (``events[0]``) and its
+    occupancy high-water mark ``hwm`` (a number, a 0-d tensor, or None: no
+    step)."""
+    from repro_torch.obs import counters as _c
+    counters = _c.ensure(counters, ("pane_evictions", "pane_occupancy_hwm"),
+                         device=device)
+    counters = _c.bump(counters, "pane_evictions", events[0])
+    if hwm is None:
+        return counters
+    return _c.high_water(counters, "pane_occupancy_hwm", hwm)
 
 
 class ReplayRuns(NamedTuple):

@@ -22,9 +22,10 @@ one per-group-window evaluation.  With an event-time window
 (``Window(range=...)``) every push carries timestamps and the carry is a
 reorder buffer and a time-mode pane store: each push emits every group's
 window at the stream's watermark, and ``flush()`` drains the buffer and
-evaluates past the last tuple.  Sharded streams (slice 7) and execution
-statistics (slice 6) come with later slices of the port and raise
-``NotImplementedError`` naming theirs.
+evaluates past the last tuple.  ``collect_stats=True`` threads a
+:mod:`repro_torch.obs.counters` dict beside the carry.  Sharded streams
+come with a later slice of the port (slice 7) and raise
+``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ import torch
 from repro_torch.core import engine as _engine
 from repro_torch.core import segscan
 from repro_torch.core.combiners import Combiner, get_combiner
+from repro_torch.obs import counters as _c
+from repro_torch.obs import trace as _trace
 
 
 class StreamResult(NamedTuple):
@@ -43,9 +46,9 @@ class StreamResult(NamedTuple):
     valid: torch.Tensor       # [N+1] bool
     num_groups: torch.Tensor  # scalar int32
     rr_port: torch.Tensor     # [N+1] round-robin output port (-1 where invalid)
-    #: engine telemetry: ``{"late_dropped": 0-d int32}`` for event-time
-    #: windows (the stream's late tuples so far); otherwise None until the
-    #: observability slice
+    #: engine telemetry: the cumulative counters dict with
+    #: ``collect_stats=True``; else ``{"late_dropped": 0-d int32}`` for
+    #: event-time windows (the stream's late tuples so far), or None
     stats: Any = None
 
 
@@ -147,6 +150,13 @@ class StreamingAggregator:
 
     An event-time window (``Window(range=...)``) takes ``timestamps=`` on
     every push; its results carry ``stats={"late_dropped": ...}``.
+
+    ``collect_stats=True`` threads a :mod:`repro_torch.obs.counters` dict
+    beside the carry and surfaces it (cumulative over the stream, copies
+    on the device) as ``StreamResult.stats`` on every push and on the
+    flush, with ``store_donated_buffers``: the state tensors the pushes
+    so far updated in place (counters included), where the JAX package
+    counts the carry buffers its pushes donate.  Nothing is read back.
     """
 
     def __init__(self, op="sum", *, window=None, key_dtype=torch.int32,
@@ -157,9 +167,6 @@ class StreamingAggregator:
         if mesh is not None or num_shards not in (None, 1):
             raise _q._later_slice("StreamingAggregator(num_shards=, mesh=)",
                                   7, "multi-device")
-        if collect_stats:
-            raise _q._later_slice("StreamingAggregator(collect_stats=True)",
-                                  6, "observability")
         self._one = not isinstance(op, (tuple, list))
         if self._one:
             op = op if isinstance(op, Combiner) else get_combiner(op)
@@ -168,17 +175,33 @@ class StreamingAggregator:
         self.window = window
         self.key_dtype = key_dtype
         self.p_ports = p_ports
+        self.collect_stats = bool(collect_stats)
         self.plan = _q.plan(query, backend=backend, device=device)
-        self.carry = _q.init_stream_state(self.plan, key_dtype)
-        self._step = _q.stream_fn(self.plan, p_ports=p_ports, inplace=True)
+        self.carry = _q.init_stream_state(self.plan, key_dtype,
+                                          collect_stats=self.collect_stats)
+        self._step = _q.stream_fn(self.plan, p_ports=p_ports, inplace=True,
+                                  collect_stats=self.collect_stats)
+        self._donated_buffers = 0
 
     @property
     def _is_time(self) -> bool:
         return self.window is not None and self.window.is_time
 
+    def _base_carry(self):
+        """The engine state, unwrapped from the (state, counters) pair the
+        stats-collecting carry threads."""
+        return self.carry[0] if self.collect_stats else self.carry
+
     def _stats(self):
-        """An event-time window's late-drop count (a copy: the carry is
-        updated in place); None otherwise."""
+        """The stats to surface on a result (copies: the carry is updated
+        in place): the cumulative counters when collecting; else an
+        event-time window's late-drop count; None otherwise."""
+        if self.collect_stats:
+            stats = _c.copy(self.carry[1])  # one launch
+            stats["store_donated_buffers"] = torch.full(
+                (), self._donated_buffers, dtype=torch.int32,
+                device=self.plan.device)
+            return stats
         if self._is_time:
             return {"late_dropped": self.carry[0].dropped.clone()}
         return None
@@ -213,8 +236,12 @@ class StreamingAggregator:
             if timestamps is not None:
                 timestamps = timestamps.reshape(-1)
         extra = (timestamps,) if self._is_time else ()
+        before = _trace.tensors(self.carry) if self.collect_stats else ()
         out, self.carry = self._step(groups, keys, self.carry, n_valid,
                                      *extra)
+        if self.collect_stats:
+            self._donated_buffers += sum(
+                a is b for a, b in zip(before, _trace.tensors(self.carry)))
         return self._result(*out, self._stats())
 
     def flush(self) -> StreamResult:
@@ -223,10 +250,11 @@ class StreamingAggregator:
         and evaluate past the last tuple), reset the carry."""
         from repro_torch import query as _q
         stats = self._stats()
+        carry = self._base_carry()
         if self.window is not None:
-            store, end = self.carry, None
+            store, end = carry, None
             if self._is_time:
-                (_, store), end = _q._time_flush(self.plan, self.carry,
+                (_, store), end = _q._time_flush(self.plan, carry,
                                                  inplace=True)
             g, values, valid, num = _q._store_eval(self.plan, store,
                                                    eval_time=end)
@@ -236,13 +264,13 @@ class StreamingAggregator:
                                     device=valid.device) % self.p_ports,
                 -1).to(torch.int32)
         else:
-            lead = self.carry[0]
+            lead = carry[0]
             dev = lead.group.device
             pad = torch.tensor(_engine.PAD_GROUP, dtype=torch.int32,
                                device=dev)
             g = torch.where(lead.nonempty, lead.group, pad)[None]
             values = {}
-            for comb, cr in zip(_q._combiners(self.plan.query), self.carry):
+            for comb, cr in zip(_q._combiners(self.plan.query), carry):
                 v = comb.finalize(cr.state)
                 values[comb.name] = torch.where(
                     lead.nonempty, v,
@@ -251,5 +279,6 @@ class StreamingAggregator:
             num = lead.nonempty.to(torch.int32)
             rr = torch.where(valid, lead.emitted % self.p_ports,
                              -1).to(torch.int32)
-        self.carry = _q.init_stream_state(self.plan, self.key_dtype)
+        self.carry = _q.init_stream_state(self.plan, self.key_dtype,
+                                          collect_stats=self.collect_stats)
         return self._result(g, values, valid, num, rr, stats)

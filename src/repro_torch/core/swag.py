@@ -306,13 +306,15 @@ def _pergroup_dir_scan(spec, groups: torch.Tensor, ranks: torch.Tensor):
     ``abase`` (the arrival rank of its first tuple; unlike the store-local
     ``base`` it never resets, so windows derived from it map onto positions
     of the group-sorted stream across eviction epochs).  Returns ``(carry,
-    (owner, abase, count) snapshots [NE, C])`` with ``carry = (owner,
-    count, base, abase, stamp, clock)``."""
+    (owner, abase, count) snapshots [NE, C], events [2])`` with ``carry =
+    (owner, count, base, abase, stamp, clock)`` and the scan's evictions
+    and retirements."""
     trace = _panestore.scan(spec, _panestore.init_store(
         spec, device=groups.device), groups, ranks=ranks)
     f = trace.final
     carry = (f.owner, f.count, f.base, trace.final_abase, f.stamp, f.clock)
-    return carry, (trace.states.owner, trace.abase, trace.states.count)
+    return carry, (trace.states.owner, trace.abase, trace.states.count,
+                   trace.events)
 
 
 def _owner_segments(own_s: torch.Tensor):
@@ -521,22 +523,36 @@ def swag_per_group(groups, keys, *, spec, ops, interpolate: bool = False,
 
     Returns ``((groups, values, valid, num_groups), final_state)`` with a
     leading ``[N // WA]`` axis and ``spec.capacity`` rows per evaluation.
+    With ``counters`` (a :mod:`repro_torch.obs.counters` dict) returns
+    ``(out, state, counters)``: the JAX package's gauges (evaluations,
+    replay rows, the ops of each regime), the evictions, and on the merge
+    path the occupancy high-water mark (the partial path's directory scan
+    leaves it 0, as the JAX package's does).
     """
-    if counters is not None:
-        raise NotImplementedError(
-            "swag_per_group(counters=...) is not ported yet; it comes with "
-            "ROADMAP queue 1, slice 6 (observability)")
     names = [op.name if isinstance(op, Combiner) else op for op in ops]
     groups = groups.to(torch.int32)
     dev = groups.device
     ne = groups.shape[-1] // spec.wa
     c = spec.capacity
     psel = _panestore.partial_path_names(names, keys.dtype)
+    partial = all(psel) and state is None
+    if counters is not None:
+        from repro_torch.obs import counters as _c
+        for name, v in (("pergroup_evals_batched", ne),
+                        ("pergroup_replay_rows_per_launch", ne * c),
+                        ("pergroup_partial_dispatch",
+                         len(names) if partial else 0),
+                        ("pergroup_merge_dispatch",
+                         0 if partial else len(names))):
+            counters = _c.put(counters, name,
+                              torch.full((), v, dtype=torch.int32,
+                                         device=dev))
 
-    if all(psel) and state is None and ne > 0:
+    if partial and ne > 0:
         ranks, order, sg = _group_ranks(groups)
         sk = keys[order.long()]
-        carry, (own_s, ab_s, cnt_s) = _pergroup_dir_scan(spec, groups, ranks)
+        carry, (own_s, ab_s, cnt_s, events) = _pergroup_dir_scan(
+            spec, groups, ranks)
         ugroups, num, valid, lo, m = _pergroup_eval_windows(
             spec, own_s, ab_s, cnt_s)
         values = _pergroup_partial_values(spec, names, sk, sg, ugroups, lo,
@@ -544,16 +560,27 @@ def swag_per_group(groups, keys, *, spec, ops, interpolate: bool = False,
         values = {nm: torch.where(valid, v, 0).to(v.dtype)
                   for nm, v in values.items()}
         final = _reconstruct_store(spec, carry, sg, sk)
-        return (ugroups, values, valid, num), final
+        out = (ugroups, values, valid, num)
+        if counters is None:
+            return out, final
+        counters = _c.bump(counters, "pane_evictions", events[0])
+        return out, final, _c.ensure(counters, ("pane_occupancy_hwm",))
 
     if state is None:
         state = _panestore.init_store(spec, keys.dtype, device=dev)
+    if counters is not None:
+        counters = _c.ensure(counters, ("pane_evictions",
+                                        "pane_occupancy_hwm"))
     if ne == 0:
-        return _empty_pergroup(spec, names, state.keys.dtype, dev,
-                               interpolate), state
-    final, runs = per_group_chunk_scan(
-        spec, state, groups, keys.to(state.keys.dtype),
-        lambda st: _panestore.gather_runs(spec, st))
+        out = _empty_pergroup(spec, names, state.keys.dtype, dev,
+                              interpolate)
+        return (out, state) if counters is None else (out, state, counters)
+    trace = _panestore.scan(spec, state, groups, keys.to(state.keys.dtype),
+                            occupancy=counters is not None)
+    final, runs = trace.final, _panestore.gather_runs(spec, trace.states)
+    if counters is not None:
+        counters = _panestore.count_events(counters, trace.events,
+                                           trace.occupancy_hwm, dev)
     length = runs.run_keys.shape[-1]
     mvals, _cnts = _panestore.replay_rows(
         spec, runs.run_keys.reshape(ne * c, length),
@@ -562,4 +589,5 @@ def swag_per_group(groups, keys, *, spec, ops, interpolate: bool = False,
     valid = torch.arange(c, device=dev)[None, :] < runs.num_groups[:, None]
     values = {nm: torch.where(valid, v.reshape(ne, c), 0).to(v.dtype)
               for nm, v in mvals.items()}
-    return (runs.groups, values, valid, runs.num_groups), final
+    out = (runs.groups, values, valid, runs.num_groups)
+    return (out, final) if counters is None else (out, final, counters)

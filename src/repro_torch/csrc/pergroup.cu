@@ -230,6 +230,9 @@ struct ScanArgs {
   int* rs_s;          // [NE, C, WA]
   int* events;        // [2] evictions, retirements (out)
   int* stats;         // [2] batches, batches without an event (out)
+  int* c_evict;       // [] stats on: evictions added (int32, wrapping)
+  int* c_hwm;         // [] stats on: raised to the most occupied slots
+                      // after any tuple's step
 };
 
 // The ring after chunk e, copied by every thread of the block (16 bytes a
@@ -395,8 +398,11 @@ __device__ __forceinline__ void stage_window(const ScanArgs& a,
 
 // RING: keys given, the ring kept; GS: the group tables in shared memory;
 // SNAP: a batch scan, the plan and the store after every chunk recorded
-// (else a push: only the store after the last tuple).
-template <typename K, bool RING, bool GS, bool SNAP>
+// (else a push: only the store after the last tuple); CNT: stats on, the
+// evictions and the occupancy high-water mark counted into c_evict and
+// c_hwm (the occupancy after every tuple's whole step, as the JAX
+// package's scan counts it).
+template <typename K, bool RING, bool GS, bool SNAP, bool CNT>
 __global__ void __launch_bounds__(RING ? SCAN_RING_THREADS : 32)
 pergroup_scan_kernel(ScanArgs a) {
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -461,6 +467,12 @@ pergroup_scan_kernel(ScanArgs a) {
   const unsigned below = (1u << lane) - 1;
   int clock = s_clock;
   int evictions = 0, retired = 0, batches = 0, clean = 0, npend = 0;
+  int occ = 0, hwm = -1;  // CNT: occupied slots, their high-water mark
+  if (CNT) {
+    for (int s0 = 0; s0 < C; s0 += 32)
+      occ += __popc(__ballot_sync(FULL_MASK, s0 + lane < C &&
+                                                 m.own[s0 + lane] >= 0));
+  }
   long long i = 0;
   // windows 0 and 1 resident, 2 in flight
   const long long nwin = (n + SCAN_STAGE - 1) / SCAN_STAGE;
@@ -511,7 +523,12 @@ pergroup_scan_kernel(ScanArgs a) {
     // retires it (horizons rise with rank: later lanes find it gone)
     const unsigned rm = __ballot_sync(FULL_MASK, r1) & before;
     const bool retires = r1 && lane < f && lane == __ffs(rm & peers) - 1;
-    retired += __popc(__ballot_sync(FULL_MASK, retires));
+    const unsigned rbits = __ballot_sync(FULL_MASK, retires);
+    retired += __popc(rbits);
+    if (CNT) {  // the lanes before f only retire: the most after lane 0
+      if (f > 0) hwm = max(hwm, occ - static_cast<int>(rbits & 1u));
+      occ -= __popc(rbits);
+    }
     ++batches;
     clean += evm == 0 ? 1 : 0;
     if (lane < f) {
@@ -587,6 +604,7 @@ pergroup_scan_kernel(ScanArgs a) {
           ++evictions;
         } else {
           slot = ff;
+          if (CNT) ++occ;
         }
         ln = 0;
         if (ring && m.pend[slot]) {  // closed in this chunk: sort it first
@@ -652,8 +670,10 @@ pergroup_scan_kernel(ScanArgs a) {
           m.g_old[dg] = m.next[old];
         }
         ++retired;
+        if (CNT) --occ;
         __syncwarp();
       }
+      if (CNT) hwm = max(hwm, occ);
       i = at + 1;
     } else {
       i += nb;
@@ -681,6 +701,10 @@ pergroup_scan_kernel(ScanArgs a) {
     a.events[1] = retired;
     a.stats[0] = batches;
     a.stats[1] = clean;
+    if (CNT) {
+      *a.c_evict = add_wrap(*a.c_evict, evictions);
+      *a.c_hwm = max(*a.c_hwm, hwm);
+    }
   }
 }
 
@@ -768,6 +792,9 @@ struct TimeScanArgs {
   int hsize;                // index entries (a power of two, >= 2C)
   void* aux;                // device memory for the index and bitmaps, or
                             // null: they sit in shared memory
+  int* c_evict;             // [] stats on: evictions added (wrapping)
+  int* c_hwm;               // [] stats on: raised to the most occupied
+                            // slots after any tuple's step
 };
 
 // The index, bitmaps and list of the time-mode placement (in shared memory,
@@ -902,7 +929,10 @@ __device__ __forceinline__ void sort_pane_time(K* ring_k, int* ring_s,
     sort_row_stable<K>(ring_k, ring_s, slot, wa, bk, bs, bi, lane);
 }
 
-template <typename K>
+// CNT: stats on, the evictions and the occupancy high-water mark counted
+// into c_evict and c_hwm.  Occupancy changes only where a tuple allocates
+// and at the first tuple's retirement pass, so the mark is taken there.
+template <typename K, bool CNT>
 __global__ void __launch_bounds__(TIME_THREADS, 1)
 pergroup_scan_time_kernel(TimeScanArgs a) {
   extern __shared__ __align__(16) unsigned char dyn[];
@@ -946,6 +976,13 @@ pergroup_scan_time_kernel(TimeScanArgs a) {
     const int rb = a.retire_below ? *a.retire_below : TS_FLOOR;
     const unsigned below = (1u << lane) - 1;
     int clock = *a.clock, evictions = 0, retired = 0;
+    int occ = 0, hwm = -1;  // CNT: occupied slots, their high-water mark
+    if (CNT) {
+      for (int s0 = 0; s0 < C; s0 += 32) {
+        const bool o = s0 + lane < C && own[s0 + lane] != PAD_GROUP;
+        occ += __popc(__ballot_sync(FULL_MASK, o));
+      }
+    }
     int used = 0;  // index entries taken, an upper bound
     for (int h = lane; h < H; h += 32) used += x.ht[h].x != PAD_GROUP;
     used = __reduce_add_sync(FULL_MASK, used);
@@ -1005,6 +1042,10 @@ pergroup_scan_time_kernel(TimeScanArgs a) {
       }
       clock = add_wrap(clock, 1);
       retired += behind;
+      if (CNT) {  // a pane behind the horizon leaves at once
+        occ += (!evict && !behind) - (evict && behind);
+        if (i > 0) hwm = max(hwm, occ);  // the first: after its pass
+      }
       used += !behind && WA > 1;
       __syncwarp();
       if (2 * used > H) {  // too many entries of closed panes: anew
@@ -1106,7 +1147,9 @@ pergroup_scan_time_kernel(TimeScanArgs a) {
           const unsigned b = __ballot_sync(FULL_MASK, r);
           if (lane == 0 && b) x.freew[s0 >> 5] |= b;
           retired += __popc(b);
+          if (CNT) occ -= __popc(b);
         }
+        if (CNT) hwm = max(hwm, occ);
         __syncwarp();
         todo &= ~1u;
       }
@@ -1116,6 +1159,10 @@ pergroup_scan_time_kernel(TimeScanArgs a) {
       *a.clock = clock;
       s_events[0] = evictions;
       s_events[1] = retired;
+      if (CNT) {
+        *a.c_evict = add_wrap(*a.c_evict, evictions);
+        *a.c_hwm = max(*a.c_hwm, hwm);
+      }
     }
   }
   __syncthreads();
@@ -1689,21 +1736,23 @@ size_t scan_smem(int c, int wa, int ng, bool ring, int* gsmem, int* nbuf) {
   return base + per * nb;
 }
 
-template <typename K, bool RING, bool GS, bool SNAP>
+template <typename K, bool RING, bool GS, bool SNAP, bool CNT>
 cudaError_t launch_scan_kernel(const ScanArgs& a, size_t smem,
                                cudaStream_t st) {
-  auto kern = pergroup_scan_kernel<K, RING, GS, SNAP>;
+  auto kern = pergroup_scan_kernel<K, RING, GS, SNAP, CNT>;
   cudaError_t err = opt_in_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<1, RING ? SCAN_RING_THREADS : 32, smem, st>>>(a);
   return cudaGetLastError();
 }
 
+// Stats are counted in a push only (a batch scan takes no counters).
 template <typename K, bool RING, bool GS>
 cudaError_t launch_scan_snap(const ScanArgs& a, size_t smem,
                              cudaStream_t st) {
-  return a.snaps ? launch_scan_kernel<K, RING, GS, true>(a, smem, st)
-                 : launch_scan_kernel<K, RING, GS, false>(a, smem, st);
+  if (a.snaps) return launch_scan_kernel<K, RING, GS, true, false>(a, smem, st);
+  return a.c_evict ? launch_scan_kernel<K, RING, GS, false, true>(a, smem, st)
+                   : launch_scan_kernel<K, RING, GS, false, false>(a, smem, st);
 }
 
 template <typename K, bool RING>
@@ -1785,11 +1834,11 @@ int time_index_size(int c) {
   return h;
 }
 
-template <typename K>
+template <typename K, bool CNT>
 cudaError_t launch_scan_time(const TimeScanArgs& a, cudaStream_t st) {
   const size_t smem = time_scan_smem(a.c, a.wa) +
                       (a.aux ? 0 : time_aux_bytes(a.c, a.hsize));
-  auto kern = pergroup_scan_time_kernel<K>;
+  auto kern = pergroup_scan_time_kernel<K, CNT>;
   cudaError_t err = opt_in_smem(kern, smem);
   if (err != cudaSuccess) return err;
   kern<<<1, TIME_THREADS, smem, st>>>(a);
@@ -1815,27 +1864,32 @@ cudaError_t launch_scan_time(const TimeScanArgs& a, cudaStream_t st) {
 // streaming push passes plan and snaps null: the last chunk may be short
 // and only the store after the last tuple is kept.  events [2] gets the
 // evictions and retirements; stats [2] the batches and the batches that
-// committed all their tuples at once.
+// committed all their tuples at once.  c_evict and c_hwm (a push only;
+// both null: stats off) are int32 counters the scan adds its evictions to
+// and raises to the most occupied slots after any tuple.
 extern "C" int rt_pergroup_scan(const int* g, const void* k, int key_type,
                                 int n, int wa, int c, int ng,
                                 const int* gid, const int* slots0, int* gtab,
                                 int* dir, int* clock, void* ring_k,
                                 int* ring_s, int* plan, int* snaps,
                                 int* clock_s, void* rk_s, int* rs_s,
-                                int* events, int* stats, void* stream) {
+                                int* events, int* stats, int* c_evict,
+                                int* c_hwm, void* stream) {
   using namespace rt;
   int gsmem = 0, nbuf = 0;
   const bool ring = k != nullptr;
   if (n < 1 || !pow2(wa) || wa > MAX_ROW || c < 1 || c > MAX_SCAN_SLOTS ||
       ng < 1 || (plan == nullptr) != (snaps == nullptr) ||
-      (plan != nullptr && n % wa != 0))
+      (plan != nullptr && n % wa != 0) ||
+      (c_evict == nullptr) != (c_hwm == nullptr) ||
+      (plan != nullptr && c_evict != nullptr))
     return cudaErrorInvalidValue;
   const int ne = static_cast<int>((static_cast<long long>(n) + wa - 1) / wa);
   const size_t smem = scan_smem(c, wa, ng, ring, &gsmem, &nbuf);
   if (smem == 0) return cudaErrorInvalidValue;
   ScanArgs a{g, k, n, ne, wa, c, ng, gid, slots0, gtab, gsmem, nbuf, dir,
              clock, ring_k, ring_s, plan, snaps, clock_s, rk_s, rs_s, events,
-             stats};
+             stats, c_evict, c_hwm};
   auto st = static_cast<cudaStream_t>(stream);
   if (!ring) return launch_scan<int, false>(a, smem, st);
   if (key_type == KEY_INT32) return launch_scan<int, true>(a, smem, st);
@@ -1942,23 +1996,33 @@ extern "C" int rt_pergroup_replay_ring(
 // the evictions and retirements.  aux: device memory of
 // time_aux_bytes(c, time_index_size(c)) bytes for the index and bitmaps,
 // needed only when they do not fit shared memory beside the directory
-// (else null).  One block: one warp places, seven help.
+// (else null).  c_evict and c_hwm (both null: stats off) are int32
+// counters the placement adds its evictions to and raises to the most
+// occupied slots after any tuple.  One block: one warp places, seven help.
 extern "C" int rt_pergroup_scan_time(
     const int* g, const void* k, const int* ts, const bool* live, int n,
     const int* retire_below, int key_type, int wa, int c, int slide,
     int* owner, int* count, int* base, int* stamp, int* clock, void* ring_k,
-    int* ring_s, int* events, void* aux, void* stream) {
+    int* ring_s, int* events, void* aux, int* c_evict, int* c_hwm,
+    void* stream) {
   using namespace rt;
   const int hsize = c >= 1 && c <= (1 << 28) ? time_index_size(c) : 0;
   if (n < 0 || !pow2(wa) || c < 1 || hsize == 0 || slide < 1 ||
       time_scan_smem(c, wa) > SMEM_BUDGET ||
       (aux == nullptr &&
-       time_scan_smem(c, wa) + time_aux_bytes(c, hsize) > SMEM_BUDGET))
+       time_scan_smem(c, wa) + time_aux_bytes(c, hsize) > SMEM_BUDGET) ||
+      (c_evict == nullptr) != (c_hwm == nullptr))
     return cudaErrorInvalidValue;
   TimeScanArgs a{g, k, ts, live, n, retire_below, wa, c, slide, owner, count,
-                 base, stamp, clock, ring_k, ring_s, events, hsize, aux};
+                 base, stamp, clock, ring_k, ring_s, events, hsize, aux,
+                 c_evict, c_hwm};
   auto st = static_cast<cudaStream_t>(stream);
-  if (key_type == KEY_INT32) return launch_scan_time<int>(a, st);
-  if (key_type == KEY_FLOAT32) return launch_scan_time<float>(a, st);
+  const bool cnt = c_evict != nullptr;
+  if (key_type == KEY_INT32)
+    return cnt ? launch_scan_time<int, true>(a, st)
+               : launch_scan_time<int, false>(a, st);
+  if (key_type == KEY_FLOAT32)
+    return cnt ? launch_scan_time<float, true>(a, st)
+               : launch_scan_time<float, false>(a, st);
   return cudaErrorInvalidValue;
 }

@@ -26,7 +26,10 @@
 //     passed are a prefix of the order, written in it as the [capacity]
 //     tail of the emissions (the drain lanes past them dead, zero).
 // Keys ride as 32-bit words and are never compared.  A flush is the same
-// launch with no tuple and every held slot drained.  Bound: the latency
+// launch with no tuple and every held slot drained.  With stats on (a
+// template flag), each cycle also counts a pop that a full buffer forced
+// past the release gate and raises the depth high-water mark to the held
+// entries after it, as the JAX package's counters do.  Bound: the latency
 // of one warp, a few shuffles, one warp sum and a ballot a tuple; bytes
 // (about 30 a tuple) leave the card's memory idle.
 #include "tile.cuh"
@@ -58,6 +61,9 @@ struct ReorderArgs {
   int c, lateness;
   int *o_ts, *o_g, *o_k;  // [n + C] emissions
   bool *o_live, *o_late;  // [n + C]
+  int* c_forced;          // [] stats on: forced pops added (wrapping)
+  int* c_depth;           // [] stats on: raised to the held entries after
+                          // any cycle
 };
 
 // An entry of the buffer's order: (ts, arrival seq, slot).  Each lane holds
@@ -166,7 +172,7 @@ __device__ __forceinline__ int first_free(unsigned occw, unsigned wmask,
   return fb ? fl * 32 + __ffs(fw) - 1 : C;
 }
 
-template <int S>
+template <int S, bool CNT>
 __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
   extern __shared__ __align__(16) int sm[];
   const int C = a.c, lane = threadIdx.x, n = a.n, nw = (C + 31) / 32;
@@ -219,6 +225,7 @@ __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
   int max_ts = *a.in.max_ts, last_emit = *a.in.last_emit;
   int seq_clock = *a.in.seq_clock, dropped = *a.in.dropped;
   const int nv = a.nvalid_dev ? *a.nvalid_dev : a.nvalid;
+  int forced = 0, depth = -1;  // CNT
 
   int nt = 0, ng = 0, nk = 0;  // the next 32 tuples, one a lane
   if (lane < n) {
@@ -250,6 +257,7 @@ __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
       const bool pop_inc = inc_min && (t <= wm || full);
       const bool pop_buf =
           !pop_inc && any_occ && (m0.t <= wm || (full && insert));
+      if (CNT) forced += (pop_inc && t > wm) || (pop_buf && m0.t > wm);
       int et = t, d = -1;  // d: the rank released from the buffer
       Entry gone = m0;
       if (pop_buf) {
@@ -309,6 +317,7 @@ __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
       if (ev) last_emit = max(last_emit, et);
       max_ts = mx;
       if (late) dropped = add_wrap(dropped, 1);
+      if (CNT) depth = max(depth, held);
     }
     if (lane < nb) {
       a.o_ts[i0 + lane] = ot;
@@ -363,13 +372,20 @@ __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
     *a.out.last_emit = last_emit;
     *a.out.seq_clock = seq_clock;
     *a.out.dropped = dropped;
+    if (CNT) {
+      *a.c_forced = add_wrap(*a.c_forced, forced);
+      *a.c_depth = max(*a.c_depth, depth);
+    }
   }
 }
 
 template <int S>
 cudaError_t launch_reorder(const ReorderArgs& a, cudaStream_t st) {
   const size_t smem = 6 * sizeof(int) * static_cast<size_t>(a.c);
-  reorder_kernel<S><<<1, 32, smem, st>>>(a);
+  if (a.c_forced)
+    reorder_kernel<S, true><<<1, 32, smem, st>>>(a);
+  else
+    reorder_kernel<S, false><<<1, 32, smem, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -383,7 +399,9 @@ cudaError_t launch_reorder(const ReorderArgs& a, cudaStream_t st) {
 // push; every held slot when drain_all).  The buffer is read from the i_*
 // pointers (slots ts, grp, val, seq, occ; scalars max_ts, last_emit,
 // seq_clock, dropped) and written to the o_* ones (the same pointers: in
-// place); e_* [n + c] get the emissions.  One warp.
+// place); e_* [n + c] get the emissions.  c_forced and c_depth (both null:
+// stats off) are int32 counters the cycles add their forced pops to and
+// raise to the held entries after any cycle.  One warp.
 extern "C" int rt_reorder(const int* ts, const int* g, const void* k, int n,
                           int nvalid, const int* nvalid_dev,
                           const int* drain, int drain_all, int* i_ts,
@@ -394,10 +412,12 @@ extern "C" int rt_reorder(const int* ts, const int* g, const void* k, int n,
                           int* o_last_emit, int* o_seq_clock, int* o_dropped,
                           int c, int lateness, int* e_ts, int* e_g,
                           void* e_k, bool* e_live, bool* e_late,
-                          void* stream) {
+                          int* c_forced, int* c_depth, void* stream) {
   using namespace rt;
   if (n < 0 || c < 1 || c > MAX_REORDER || (c & (c - 1)) != 0 ||
-      lateness < 0 || (n > 0 && (ts == nullptr || g == nullptr || k == nullptr)))
+      lateness < 0 ||
+      (n > 0 && (ts == nullptr || g == nullptr || k == nullptr)) ||
+      (c_forced == nullptr) != (c_depth == nullptr))
     return cudaErrorInvalidValue;
   const ReorderBuf in{i_ts, i_grp, static_cast<int*>(i_val), i_seq, i_occ,
                       i_max_ts, i_last_emit, i_seq_clock, i_dropped};
@@ -405,7 +425,7 @@ extern "C" int rt_reorder(const int* ts, const int* g, const void* k, int n,
                        o_max_ts, o_last_emit, o_seq_clock, o_dropped};
   ReorderArgs a{ts, g, static_cast<const int*>(k), n, nvalid, nvalid_dev,
                 drain, drain_all, in, out, c, lateness, e_ts, e_g,
-                static_cast<int*>(e_k), e_live, e_late};
+                static_cast<int*>(e_k), e_live, e_late, c_forced, c_depth};
   auto st = static_cast<cudaStream_t>(stream);
   switch (c <= 32 ? 1 : c / 32) {  // slots a lane
     case 1: return launch_reorder<1>(a, st);

@@ -81,7 +81,8 @@ def from_numpy(groups, keys, device="cuda"):
 
 
 def result_to_numpy(res: AggResult) -> AggResult:
-    """A port result with numpy arrays in place of tensors."""
+    """A port result with numpy arrays in place of tensors (its stats
+    too)."""
     from repro_torch.query import AggResult
 
     def np_(x):
@@ -89,7 +90,17 @@ def result_to_numpy(res: AggResult) -> AggResult:
 
     return AggResult(np_(res.groups),
                      {name: np_(v) for name, v in res.values.items()},
-                     np_(res.valid), np_(res.num_groups), res.stats)
+                     np_(res.valid), np_(res.num_groups),
+                     stats_to_numpy(res.stats))
+
+
+def stats_to_numpy(stats):
+    """A stats dict (``collect_stats=True``) with numpy arrays in place of
+    tensors (copies; plain numbers kept); ``None`` stays ``None``."""
+    if stats is None:
+        return None
+    return {name: _np_copy(v) if hasattr(v, "detach") else v
+            for name, v in stats.items()}
 
 
 def pane_state_from_numpy(state_arrays, device="cuda") -> PaneStoreState:

@@ -44,8 +44,9 @@ _SIGNATURES = {
     # g, k, key_type, nrows, T, og, ok, stream
     "rt_sort_rows": [_P, _P, _I, _I, _I, _P, _P, _P],
     # g, k, key_type, n, wa, c, ng, gid, slots0, gtab, dir, clock, ring_k,
-    # ring_s, plan, snaps, clock_s, rk_s, rs_s, events, stats, stream
-    "rt_pergroup_scan": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 15,
+    # ring_s, plan, snaps, clock_s, rk_s, rs_s, events, stats, c_evict,
+    # c_hwm, stream
+    "rt_pergroup_scan": [_P, _P, _I, _I, _I, _I, _I] + [_P] * 17,
     # wk, wq, start, endp, own, cnt, lo, ug, perm, key_type, ne, wa, c,
     # codes, outs, nops, stream
     "rt_pergroup_fused": [_P] * 9 + [_I, _I, _I, _I, ctypes.POINTER(_I),
@@ -58,14 +59,14 @@ _SIGNATURES = {
     "rt_pergroup_replay_ring": [_P] * 10 + [_I] * 6 + [
         ctypes.POINTER(_I), ctypes.POINTER(_P), _I, _P],
     # g, k, ts, live, n, retire_below, key_type, wa, c, slide, owner, count,
-    # base, stamp, clock, ring_k, ring_s, events, aux, stream
-    "rt_pergroup_scan_time": [_P] * 4 + [_I, _P, _I, _I, _I, _I] + [_P] * 10,
+    # base, stamp, clock, ring_k, ring_s, events, aux, c_evict, c_hwm, stream
+    "rt_pergroup_scan_time": [_P] * 4 + [_I, _P, _I, _I, _I, _I] + [_P] * 12,
     # ts, g, k, n, nvalid, nvalid_dev, drain, drain_all, the buffer read
     # (ts, grp, val, seq, occ, max_ts, last_emit, seq_clock, dropped) and
     # the buffer written (the same nine), capacity, max_lateness, out ts,
-    # groups, keys, live, late, stream
+    # groups, keys, live, late, c_forced, c_depth, stream
     "rt_reorder": [_P, _P, _P, _I, _I, _P, _P, _I] + [_P] * 18 + [_I, _I]
-    + [_P] * 6,
+    + [_P] * 8,
     # keys, okeys, nk, float_keys, pays, opays, psize, np, R, T, stream
     "rt_bitonic_sort": [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I,
                         ctypes.POINTER(_P), ctypes.POINTER(_P),

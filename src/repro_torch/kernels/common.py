@@ -113,3 +113,21 @@ def check_kernel_inputs(name: str, groups: torch.Tensor,
                          f"{tuple(keys.shape)} differ in shape")
     if groups.stride(-1) != 1 or keys.stride(-1) != 1:
         raise ValueError(f"{name}: the last axis must have unit stride")
+
+
+def counter_slots(counters: dict, names, device: torch.device) -> list:
+    """The 0-d int32 tensors of ``counters`` named ``names`` (made 0 on
+    ``device`` where missing; the dict is updated): what a kernel's
+    wrapper hands its launch, which counts into them where they lie."""
+    out = []
+    for name in names:
+        t = counters.get(name)
+        if t is None:
+            t = counters[name] = torch.zeros((), dtype=torch.int32,
+                                             device=device)
+        if t.dtype != torch.int32 or t.device != device or t.numel() != 1:
+            raise ValueError(f"counter {name!r} must be one int32 on "
+                             f"{device}, got {t.dtype} {tuple(t.shape)} on "
+                             f"{t.device}")
+        out.append(t)
+    return out

@@ -29,24 +29,37 @@ from repro_torch.core import eventtime as _eventtime
 from repro_torch.kernels import _build
 from repro_torch.kernels import common
 from repro_torch.kernels.swag.kernel import _store_into
+from repro_torch.obs import counters as _counters
 
 #: the most slots the kernel's warp holds (32 ranks a lane, in registers)
 MAX_REORDER_CAPACITY = 1024
+#: the counters the reorder kernel counts: forced pops, depth mark
+REORDER_COUNTERS = ("reorder_forced_pops", "reorder_depth_hwm")
 
 
 def reorder_push_plain(spec, state, ts, groups, keys, *, n_valid=None,
-                       drain_wm=None, inplace=False):
+                       drain_wm=None, inplace=False, counters=None):
     """Plain torch version of :func:`reorder_push`."""
-    emit, new = _eventtime.reorder_push(
-        spec, state, ts, groups, keys, n_valid=n_valid, drain_wm=drain_wm)
+    if counters is None:
+        emit, new = _eventtime.reorder_push(
+            spec, state, ts, groups, keys, n_valid=n_valid,
+            drain_wm=drain_wm)
+    else:
+        emit, new, counted = _eventtime.reorder_push(
+            spec, state, ts, groups, keys, n_valid=n_valid,
+            drain_wm=drain_wm, counters=dict(counters))
+        _counters.store_into(counters, counted)
     if inplace:
         _store_into(state, new)
         new = state
     return emit, new
 
 
-def reorder_flush_plain(spec, state, *, inplace=False):
-    """Plain torch version of :func:`reorder_flush`."""
+def reorder_flush_plain(spec, state, *, inplace=False, counters=None):
+    """Plain torch version of :func:`reorder_flush` (a flush has no cycle
+    to count: ``counters`` only gains its missing keys)."""
+    if counters is not None:
+        common.counter_slots(counters, REORDER_COUNTERS, state.ts.device)
     emit, new = _eventtime.reorder_flush(spec, state)
     if inplace:
         _store_into(state, new)
@@ -91,7 +104,7 @@ def _empty_state(state, c: int):
 
 
 def _launch(spec, state, ts, groups, keys, nvalid, drain_wm,
-            drain_all: bool, inplace: bool):
+            drain_all: bool, inplace: bool, counters=None):
     c = spec.capacity
     dev = state.ts.device
     n = 0 if ts is None else ts.shape[0]
@@ -108,6 +121,10 @@ def _launch(spec, state, ts, groups, keys, nvalid, drain_wm,
         nv_host = min(max(int(nvalid), 0), n)
     drain = None if drain_wm is None else torch.as_tensor(
         drain_wm, dtype=torch.int32).to(dev).reshape(())
+    c_forced = c_depth = None
+    if counters is not None:
+        c_forced, c_depth = common.counter_slots(counters, REORDER_COUNTERS,
+                                                 dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -118,14 +135,15 @@ def _launch(spec, state, ts, groups, keys, nvalid, drain_wm,
             ptr(ts), ptr(groups), ptr(keys), n, nv_host, ptr(nv_dev),
             ptr(drain), int(drain_all), *(t.data_ptr() for t in state),
             *(t.data_ptr() for t in new), c, spec.max_lateness,
-            *(t.data_ptr() for t in out), _build.stream_handle(dev))
+            *(t.data_ptr() for t in out), ptr(c_forced), ptr(c_depth),
+            _build.stream_handle(dev))
     _build.check(err, "reorder")
     reorder_push.launches += 1
     return out, new
 
 
 def reorder_push(spec, state, ts, groups, keys, *, n_valid=None,
-                 drain_wm=None, inplace=False):
+                 drain_wm=None, inplace=False, counters=None):
     """One push of ``N`` tuples (``ts``, ``groups``, ``keys``; the first
     ``n_valid`` live) through the reorder buffer ``state`` (a
     :class:`repro_torch.core.eventtime.ReorderState`): a cycle a tuple,
@@ -133,11 +151,18 @@ def reorder_push(spec, state, ts, groups, keys, *, n_valid=None,
     the watermark after the push).  Returns ``(ReorderEmit [N +
     capacity], state)``: ``state`` itself, updated where it lies, when
     ``inplace``, else an updated copy.  One launch; ``n_valid`` and
-    ``drain_wm`` may be 0-d tensors on the card."""
+    ``drain_wm`` may be 0-d tensors on the card.
+
+    ``counters`` (a :mod:`repro_torch.obs.counters` dict of 0-d int32
+    tensors on the card): the kernel adds the pops a full buffer forced
+    past the release gate to ``reorder_forced_pops`` and raises
+    ``reorder_depth_hwm`` to the held entries after any cycle, where they
+    lie (missing keys are added); nothing is read back.  ``None``: stats
+    off, the launch counts nothing."""
     if ts.device.type == "cpu":
         return reorder_push_plain(spec, state, ts, groups, keys,
                                   n_valid=n_valid, drain_wm=drain_wm,
-                                  inplace=inplace)
+                                  inplace=inplace, counters=counters)
     _check_state(spec, state)
     n = ts.shape[-1]
     ts, groups = (torch.as_tensor(x).to(ts.device, torch.int32).contiguous()
@@ -149,17 +174,20 @@ def reorder_push(spec, state, ts, groups, keys, *, n_valid=None,
                          f"buffer's card, got {tuple(ts.shape)}, "
                          f"{tuple(groups.shape)}, {tuple(keys.shape)}")
     return _launch(spec, state, ts, groups, keys, n_valid, drain_wm, False,
-                   inplace)
+                   inplace, counters)
 
 
-def reorder_flush(spec, state, *, inplace=False):
+def reorder_flush(spec, state, *, inplace=False, counters=None):
     """Drain the buffer: every held tuple, sorted by (ts, seq), as one
     ``[capacity]`` emission batch, the buffer left empty — the launch of
-    :func:`reorder_push` with no input and every slot released."""
+    :func:`reorder_push` with no input and every slot released (so no
+    cycle: ``counters`` only gains its missing keys)."""
     if state.ts.device.type == "cpu":
-        return reorder_flush_plain(spec, state, inplace=inplace)
+        return reorder_flush_plain(spec, state, inplace=inplace,
+                                   counters=counters)
     _check_state(spec, state)
-    return _launch(spec, state, None, None, None, None, None, True, inplace)
+    return _launch(spec, state, None, None, None, None, None, True, inplace,
+                   counters)
 
 
 #: kernel launches since the count was last set to 0 (pushes and flushes)

@@ -20,7 +20,10 @@ package's registry).
                       event-time streams: a push is one reorder launch,
                       one time-mode placement and one replay at the
                       watermark
-  * ``auto``        — ``cuda-panestore`` for per-group and streaming
+  * ``auto``        — the fastest capable backend by observed tuples/s
+                      (``repro_torch.obs.registry.METRICS``) once two or
+                      more have been measured for the query's shape;
+                      else ``cuda-panestore`` for per-group and streaming
                       windows, else ``cuda-panes`` when the window shape
                       allows, else ``cuda``, else ``reference``, for
                       tensors on the card; ``reference`` on the CPU
@@ -213,13 +216,30 @@ def unsupported_error(name: str, reason: str) -> ValueError:
 
 
 def choose_backend(query, device: torch.device) -> str:
-    """Resolve ``auto`` for one query on ``device``: the kernels on the
-    card (the pane store for per-group and streaming windows, panes when
-    the window shape allows), the reference on the CPU.  Routing by measured cost comes with
-    the port's observability slice."""
+    """Resolve ``auto`` for one query on ``device``: **measured-cost
+    routing** over the backends whose probe accepts the query, with the
+    static choice as fallback.
+
+    Among the candidates, consult
+    :data:`repro_torch.obs.registry.METRICS` for observed tuples/s at this
+    query's fingerprint and pick the fastest, but only when **two or
+    more** candidates have measured cells: one cell proves nothing about
+    the others (on the CPU it would mostly be the reference's own
+    telemetry re-electing itself).  Otherwise the static choice: the
+    kernels on the card (the pane store for per-group and streaming
+    windows, panes when the window shape allows), the reference on the
+    CPU, where the kernel backends run their plain versions."""
+    from repro_torch.obs.registry import METRICS, query_fingerprint
+    candidates = [name for name in ("cuda-panestore", "cuda-panes", "cuda",
+                                    "reference")
+                  if BACKENDS[name].supports(query) is None]
+    fp = query_fingerprint(query)
+    measured = [name for name in candidates
+                if METRICS.tuples_per_s(name, fp)]
+    if len(measured) >= 2:
+        best = METRICS.best_backend(fp, among=candidates)
+        if best is not None:
+            return best
     if device.type != "cuda":
         return "reference"
-    for name in ("cuda-panestore", "cuda-panes", "cuda"):
-        if BACKENDS[name].supports(query) is None:
-            return name
-    return "reference"
+    return candidates[0]

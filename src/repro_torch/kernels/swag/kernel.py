@@ -42,6 +42,7 @@ from repro_torch.core.combiners import get_combiner, out_dtype
 from repro_torch.core.engine import PAD_GROUP
 from repro_torch.kernels import _build
 from repro_torch.kernels import common
+from repro_torch.obs import counters as _counters
 
 INT32_MIN = torch.iinfo(torch.int32).min
 #: the longest row the CUDA kernels take: a row of (int32 group, 4-byte
@@ -363,10 +364,19 @@ def _store_into(state, new) -> None:
             dst.copy_(src)
 
 
+#: the counters the placement kernels count: evictions, occupancy mark
+PANE_COUNTERS = ("pane_evictions", "pane_occupancy_hwm")
+
+
 def pergroup_scan_plain(spec, state, groups, keys=None, *, push=False,
-                        inplace=False):
+                        inplace=False, counters=None):
     """Plain torch version of :func:`pergroup_scan`: the per-tuple loop."""
-    trace = _panestore.scan(spec, state, groups, keys, push=push)
+    trace = _panestore.scan(spec, state, groups, keys, push=push,
+                            occupancy=counters is not None)
+    if counters is not None:
+        _counters.store_into(counters, _panestore.count_events(
+            dict(counters), trace.events, trace.occupancy_hwm,
+            state.owner.device))
     if inplace:
         _store_into(state, trace.final)
         trace = trace._replace(final=state)
@@ -426,7 +436,7 @@ def _scan_groups(spec, state, groups: torch.Tensor):
 
 def pergroup_scan(spec, state, groups: torch.Tensor,
                   keys: torch.Tensor | None = None, *, push: bool = False,
-                  inplace: bool = False):
+                  inplace: bool = False, counters: dict | None = None):
     """Place the ``N // WA`` full chunks of ``groups`` into the pane
     store ``state`` (a :class:`repro_torch.core.panestore.PaneStoreState`
     the scan or a push made, or an empty one), in one warp, 32 tuples at a
@@ -440,10 +450,17 @@ def pergroup_scan(spec, state, groups: torch.Tensor,
     copied in, and the trace's ``final`` is ``state``.  One host sync (:func:`_scan_groups`).  The
     kernel's batches, and how many of them placed all their tuples at
     once, are left in ``pergroup_scan.batch_stats`` ([2] int32 on the
-    card)."""
+    card).
+
+    ``counters`` (a push only; a :mod:`repro_torch.obs.counters` dict of
+    0-d int32 tensors on the card): the kernel adds its evictions to
+    ``pane_evictions`` and raises ``pane_occupancy_hwm`` to the most
+    occupied slots after any tuple, where they lie (missing keys are added
+    to the dict); nothing is read back.  ``None``: stats off, the launch
+    counts nothing."""
     if groups.device.type == "cpu":
         return pergroup_scan_plain(spec, state, groups, keys, push=push,
-                                   inplace=inplace)
+                                   inplace=inplace, counters=counters)
     wa, c = spec.wa, spec.capacity
     n = groups.shape[-1] if push else groups.shape[-1] // wa * wa
     ne = -(-n // wa)
@@ -454,6 +471,8 @@ def pergroup_scan(spec, state, groups: torch.Tensor,
         raise ValueError(f"pergroup_scan takes a [N] stream of at least "
                          f"{1 if push else wa} tuples, got "
                          f"{tuple(groups.shape)}")
+    if counters is not None and not push:
+        raise ValueError("pergroup_scan counts stats in a push only")
     if keys is not None and (keys.dtype != state.keys.dtype
                              or keys.dtype not in common.KEY_TYPES
                              or keys.device != groups.device
@@ -491,6 +510,9 @@ def pergroup_scan(spec, state, groups: torch.Tensor,
             rs_s = torch.empty((ne, c, wa), dtype=torch.int32, device=dev)
     events = torch.empty((2,), dtype=torch.int32, device=dev)
     stats = torch.empty((2,), dtype=torch.int32, device=dev)
+    c_evict = c_hwm = None
+    if counters is not None:
+        c_evict, c_hwm = common.counter_slots(counters, PANE_COUNTERS, dev)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -502,8 +524,8 @@ def pergroup_scan(spec, state, groups: torch.Tensor,
             n, wa, c, ids.shape[0], ids.data_ptr(), slots0.data_ptr(),
             gtab.data_ptr(), direc.data_ptr(), clock.data_ptr(), ptr(ring_k),
             ptr(ring_s), ptr(plan), ptr(snaps), ptr(clock_s), ptr(rk_s),
-            ptr(rs_s), events.data_ptr(), stats.data_ptr(),
-            _build.stream_handle(dev))
+            ptr(rs_s), events.data_ptr(), stats.data_ptr(), ptr(c_evict),
+            ptr(c_hwm), _build.stream_handle(dev))
     _build.check(err, "pergroup_scan")
     pergroup_scan.launches += 1
     pergroup_scan.batch_stats = stats
@@ -546,11 +568,19 @@ def time_aux_bytes(c: int) -> int:
 
 
 def pergroup_scan_time_plain(spec, state, groups, keys, ts, live,
-                             retire_below=None, *, inplace=False):
+                             retire_below=None, *, inplace=False,
+                             counters=None):
     """Plain torch version of :func:`pergroup_scan_time`: the per-tuple
     loop of :func:`repro_torch.core.panestore.push_time`."""
-    final, events = _panestore.push_time_events(spec, state, groups, keys,
-                                                ts, live, retire_below)
+    if counters is None:
+        final, events = _panestore.push_time_events(
+            spec, state, groups, keys, ts, live, retire_below)
+    else:
+        final, events, hwm = _panestore.push_time_events(
+            spec, state, groups, keys, ts, live, retire_below,
+            occupancy=True)
+        _counters.store_into(counters, _panestore.count_events(
+            dict(counters), events, hwm, state.owner.device))
     if inplace:
         _store_into(state, final)
         final = state
@@ -560,7 +590,7 @@ def pergroup_scan_time_plain(spec, state, groups, keys, ts, live,
 def pergroup_scan_time(spec, state, groups: torch.Tensor,
                        keys: torch.Tensor, ts: torch.Tensor,
                        live: torch.Tensor, retire_below=None, *,
-                       inplace: bool = False):
+                       inplace: bool = False, counters: dict | None = None):
     """Place ``N`` timestamped tuples (a reorder buffer's emission: the
     lanes ``live`` marks, in order) into the time-mode pane store
     ``state``: each into its (group, ``ts // slide``) slot with room, else
@@ -571,10 +601,11 @@ def pergroup_scan_time(spec, state, groups: torch.Tensor,
     evictions and retirements): ``state`` itself, updated where it lies,
     when ``inplace``, else an updated copy.  One launch (one warp places,
     seven more build its pane index and sort the panes that close);
-    nothing read back."""
+    nothing read back.  ``counters``: as :func:`pergroup_scan`'s."""
     if groups.device.type == "cpu":
         return pergroup_scan_time_plain(spec, state, groups, keys, ts, live,
-                                        retire_below, inplace=inplace)
+                                        retire_below, inplace=inplace,
+                                        counters=counters)
     if not spec.is_time:
         raise ValueError("pergroup_scan_time places time-mode panes; a "
                          "count-mode store takes pergroup_scan")
@@ -611,17 +642,22 @@ def pergroup_scan_time(spec, state, groups: torch.Tensor,
         aux = torch.empty((time_aux_bytes(c),), dtype=torch.uint8,
                           device=dev)
     return state, time_scan_launch(spec, state, groups, keys, ts, live, rb,
-                                   aux=aux)
+                                   aux=aux, counters=counters)
 
 
-def time_scan_launch(spec, state, groups, keys, ts, live, rb, *, aux=None):
+def time_scan_launch(spec, state, groups, keys, ts, live, rb, *, aux=None,
+                     counters=None):
     """The launch of :func:`pergroup_scan_time` alone, on ``state`` where
     it lies, ``rb`` a 0-d int32 device tensor or None: the events ``[2]``.
     ``aux``: device memory of :func:`time_aux_bytes` bytes for the pane
     index and bitmaps, or None: they join the directory in shared memory
-    (the wrapper passes device memory only where they do not fit)."""
+    (the wrapper passes device memory only where they do not fit).
+    ``counters``: as :func:`pergroup_scan`'s."""
     dev = groups.device
     events = torch.empty((2,), dtype=torch.int32, device=dev)
+    c_evict = c_hwm = None
+    if counters is not None:
+        c_evict, c_hwm = common.counter_slots(counters, PANE_COUNTERS, dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.rt_pergroup_scan_time(
@@ -634,6 +670,8 @@ def time_scan_launch(spec, state, groups, keys, ts, live, rb, *, aux=None):
             state.clock.data_ptr(), state.keys.data_ptr(),
             state.seqs.data_ptr(), events.data_ptr(),
             None if aux is None else aux.data_ptr(),
+            None if c_evict is None else c_evict.data_ptr(),
+            None if c_hwm is None else c_hwm.data_ptr(),
             _build.stream_handle(dev))
     _build.check(err, "pergroup_scan_time")
     pergroup_scan_time.launches += 1

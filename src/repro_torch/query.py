@@ -47,14 +47,19 @@ timestamp seen less ``L``):
     >>> res, state = execute(q, g1, k1, timestamps=t1)
     >>> res, state = execute(q, g2, k2, state=state, timestamps=t2)
 
-Execution statistics and sharded execution belong to later slices of the
-port and raise ``NotImplementedError`` naming the ROADMAP slice that
-brings them.
+``execute(..., collect_stats=True)`` surfaces the engine's counters as
+``AggResult.stats`` (:mod:`repro_torch.obs`): a streaming state then
+carries a counters dict beside the engine state, the placement, reorder
+and time-placement kernels count into it on the card, and nothing is read
+back until the caller reads ``stats``.  Sharded execution belongs to a
+later slice of the port and raises ``NotImplementedError`` naming the
+ROADMAP slice that brings it.
 """
 from __future__ import annotations
 
 import dataclasses
 import functools
+import time as _time
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -80,6 +85,8 @@ from repro_torch.kernels.swag.ops import (_engine_median_kernel_exec,
                                           _swag_kernel_exec,
                                           _swag_pergroup_kernel_exec,
                                           _timeframe_kernel_exec)
+from repro_torch.obs import counters as _c
+from repro_torch.obs import trace as _trace
 
 #: spelling conveniences accepted anywhere an op name is
 OP_ALIASES = {
@@ -319,6 +326,8 @@ class AggResult(NamedTuple):
     values: dict              # {op name: [N] aggregate column}
     valid: torch.Tensor       # [N] bool
     num_groups: torch.Tensor  # scalar int32 (per window when windowed)
+    #: engine telemetry (``execute(..., collect_stats=True)``): a dict of
+    #: :mod:`repro_torch.obs.counters` values — None when stats are off
     stats: Any = None
 
 
@@ -424,81 +433,134 @@ def _combiners(query: Query) -> tuple:
                  for op in query.ops)
 
 
+def _init_stream_counters(p: Plan) -> dict:
+    """The zeroed counters dict a stats-collecting stream starts from, on
+    the plan's device: every key the step will touch, those of the JAX
+    package's single-device streams."""
+    dev = torch.device(p.device)
+    w = p.query.window
+    if w is not None and w.is_time:
+        return _c.init(dev, reorder_depth_hwm=0, reorder_forced_pops=0,
+                       pane_evictions=0, pane_occupancy_hwm=0,
+                       late_dropped=0, watermark=_eventtime.TS_MIN)
+    if w is not None:
+        return _c.init(dev, pane_evictions=0, pane_occupancy_hwm=0,
+                       pergroup_partial_ops=0, pergroup_merge_ops=0)
+    return _c.init(dev, stream_tuples=0, stream_emitted=0)
+
+
 def init_stream_state(p: Plan, key_dtype=torch.int32,
                       collect_stats: bool = False):
     """Fresh state for a streaming plan, on its device: one
     :class:`repro_torch.core.segscan.Carry` an op, a pane store when the
     query is windowed, or the pair ``(reorder buffer, time-mode pane
-    store)`` for an event-time window."""
-    if collect_stats:
-        raise _later_slice("init_stream_state(collect_stats=True)", 6,
-                           "observability")
+    store)`` for an event-time window.
+
+    ``collect_stats=True`` wraps the state as ``(state, counters)``, the
+    shape ``stream_fn(..., collect_stats=True)`` threads; pass the same
+    flag to both (``execute`` does)."""
     if p.path != "stream":
         raise ValueError("init_stream_state needs a streaming plan")
     dev = torch.device(p.device)
     w = p.query.window
     if w is not None and w.is_time:
-        return (_eventtime.init_reorder(w.reorder_spec(), key_dtype, dev),
-                _panestore.init_store(w.store_spec(), key_dtype, device=dev))
-    if w is not None:
-        return _panestore.init_store(p.query.window.store_spec(), key_dtype,
-                                     device=dev)
-    return tuple(_segscan.init_carry(c, key_dtype, dev)
-                 for c in _combiners(p.query))
+        state = (_eventtime.init_reorder(w.reorder_spec(), key_dtype, dev),
+                 _panestore.init_store(w.store_spec(), key_dtype,
+                                       device=dev))
+    elif w is not None:
+        state = _panestore.init_store(w.store_spec(), key_dtype, device=dev)
+    else:
+        state = tuple(_segscan.init_carry(c, key_dtype, dev)
+                      for c in _combiners(p.query))
+    if collect_stats:
+        return state, _init_stream_counters(p)
+    return state
 
 
-def _store_push(p: Plan, state, groups, keys, n_valid, inplace: bool):
+def _store_push(p: Plan, state, groups, keys, n_valid, inplace: bool,
+                counters=None):
     """Place a batch (its first ``n_valid`` tuples) into the pane store:
     on ``cuda-panestore`` one placement scan launch from the carried store
     (``inplace``: the store's own ring and directory are updated); on the
-    reference the per-tuple loop on a host copy."""
+    reference the per-tuple loop on a host copy.  ``counters`` (or None)
+    is updated where it lies."""
     spec = p.query.window.store_spec()
     if p.backend != "cuda-panestore":
-        return _panestore.push(spec, state, groups, keys, n_valid=n_valid)
+        if counters is None:
+            return _panestore.push(spec, state, groups, keys,
+                                   n_valid=n_valid)
+        state, new = _panestore.push(spec, state, groups, keys,
+                                     n_valid=n_valid,
+                                     counters=dict(counters))
+        _c.store_into(counters, new)
+        return state
     n = groups.shape[-1]
     if n_valid is not None:
         n = min(max(int(n_valid), 0), n)
     if n == 0:
+        if counters is not None and groups.shape[-1] > 0:
+            # dead tuples only: each step leaves the occupancy as it was
+            _c.store_into(counters, _c.high_water(
+                _c.ensure(counters, _swag_kernel.PANE_COUNTERS),
+                "pane_occupancy_hwm",
+                (state.owner != _engine.PAD_GROUP).sum(dtype=torch.int32)))
         return state
     keys = keys[:n].to(state.keys.dtype).contiguous()
     return _swag_kernel.pergroup_scan(
         spec, state, groups[:n].to(torch.int32).contiguous(), keys,
-        push=True, inplace=inplace).final
+        push=True, inplace=inplace, counters=counters).final
 
 
-def _time_place(p: Plan, pstate, emit, retire_below, inplace: bool):
+def _time_place(p: Plan, pstate, emit, retire_below, inplace: bool,
+                counters=None):
     """Place a reorder buffer's emission into the time-mode pane store: on
     ``cuda-panestore`` one time-mode placement launch, else the plain
-    per-tuple loop on a host copy."""
+    per-tuple loop on a host copy.  ``counters`` (or None) is updated
+    where it lies."""
     spec = p.query.window.store_spec()
     if p.backend != "cuda-panestore":
-        return _panestore.push_time(spec, pstate, emit.groups, emit.keys,
-                                    emit.ts, live=emit.live,
-                                    retire_below=retire_below)
+        if counters is None:
+            return _panestore.push_time(spec, pstate, emit.groups, emit.keys,
+                                        emit.ts, live=emit.live,
+                                        retire_below=retire_below)
+        pstate, new = _panestore.push_time(
+            spec, pstate, emit.groups, emit.keys, emit.ts, live=emit.live,
+            retire_below=retire_below, counters=dict(counters))
+        _c.store_into(counters, new)
+        return pstate
     return _swag_kernel.pergroup_scan_time(
         spec, pstate, emit.groups, emit.keys, emit.ts, emit.live,
-        retire_below, inplace=inplace)[0]
+        retire_below, inplace=inplace, counters=counters)[0]
 
 
 def _time_push(p: Plan, state, groups, keys, timestamps, n_valid,
-               inplace: bool):
+               inplace: bool, counters=None):
     """An event-time push: the batch through the reorder buffer, what it
     releases into the time-mode store, panes wholly behind the horizon
     (the watermark less the range) retired.  Returns ``(state, wm)``, the
     watermark a 0-d device tensor (nothing is read back).  On
-    ``cuda-panestore`` a reorder launch and a placement launch."""
+    ``cuda-panestore`` a reorder launch and a placement launch, which
+    count into ``counters`` (or None) where it lies."""
     w = p.query.window
     rspec = w.reorder_spec()
     rstate, pstate = state
     if p.backend == "cuda-panestore":
         emit, rstate = _et_kernel.reorder_push(
             rspec, rstate, timestamps, groups, keys, n_valid=n_valid,
-            inplace=inplace)
-    else:
+            inplace=inplace, counters=counters)
+    elif counters is None:
         emit, rstate = _eventtime.reorder_push(rspec, rstate, timestamps,
                                                groups, keys, n_valid=n_valid)
+    else:
+        emit, rstate, new = _eventtime.reorder_push(
+            rspec, rstate, timestamps, groups, keys, n_valid=n_valid,
+            counters=dict(counters))
+        _c.store_into(counters, new)
     wm = rstate.max_ts - w.max_lateness
-    pstate = _time_place(p, pstate, emit, wm - w.range, inplace)
+    pstate = _time_place(p, pstate, emit, wm - w.range, inplace, counters)
+    if counters is not None:
+        _c.store_into(counters, {"late_dropped": rstate.dropped,
+                                 "watermark": wm})
     return (rstate, pstate), wm
 
 
@@ -555,15 +617,30 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
     buffer, time-mode store)`` (reorder the batch, place what it releases,
     evaluate at the watermark).  The given state is left as it was,
     unless ``inplace``, which lets a ``cuda-panestore`` push update its
-    buffers where they lie."""
+    buffers where they lie.
+
+    ``collect_stats=True`` expects (and returns) the wrapped state
+    ``(engine state, counters dict)`` of ``init_stream_state(...,
+    collect_stats=True)``: the counters accumulate across pushes, on the
+    device (:mod:`repro_torch.obs.counters`); with ``inplace`` they are
+    updated where they lie, else the step counts into copies.  The default
+    runs exactly the stats-off step."""
     if p.path != "stream":
         raise ValueError("stream_fn needs a streaming plan")
     if mesh is not None:
         raise _later_slice("stream_fn(mesh=)", 7, "multi-device")
-    if collect_stats:
-        raise _later_slice("stream_fn(collect_stats=True)", 6,
-                           "observability")
     q = p.query
+
+    def unwrap(state):
+        """The engine state and the counters the step counts into."""
+        if not collect_stats:
+            return state, None
+        inner, counters = state
+        return inner, counters if inplace else _c.copy(counters)
+
+    def wrap(state, counters):
+        return state if counters is None else (state, counters)
+
     if q.window is not None and q.window.is_time:
         c = q.window.store_spec().capacity
 
@@ -571,13 +648,14 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
             if timestamps is None:
                 raise ValueError("event-time streaming pushes need "
                                  "timestamps=")
+            state, counters = unwrap(state)
             ts = _as_tensor(timestamps, groups.device)
             state, wm = _time_push(p, state, groups, keys, ts, n_valid,
-                                   inplace)
+                                   inplace, counters)
             g, values, valid, num = _store_eval(p, state[1], eval_time=wm)
             lane = torch.arange(c, dtype=torch.int32, device=valid.device)
             rr = torch.where(valid, lane % p_ports, -1).to(torch.int32)
-            return (g, values, valid, num, rr), state
+            return (g, values, valid, num, rr), wrap(state, counters)
 
         return time_step
 
@@ -585,11 +663,20 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
         c = q.window.store_spec().capacity
 
         def store_step(groups, keys, state, n_valid=None):
-            state = _store_push(p, state, groups, keys, n_valid, inplace)
+            state, counters = unwrap(state)
+            state = _store_push(p, state, groups, keys, n_valid, inplace,
+                                counters)
+            if counters is not None:
+                # which ops each evaluation serves on the per-pane partial
+                # path and which by merge-replay (a gauge per plan)
+                psel = _panestore.partial_path_names(q.op_names,
+                                                     state.keys.dtype)
+                _c.fill(counters, pergroup_partial_ops=sum(psel),
+                        pergroup_merge_ops=len(psel) - sum(psel))
             g, values, valid, num = _store_eval(p, state)
             lane = torch.arange(c, dtype=torch.int32, device=valid.device)
             rr = torch.where(valid, lane % p_ports, -1).to(torch.int32)
-            return (g, values, valid, num, rr), state
+            return (g, values, valid, num, rr), wrap(state, counters)
 
         return store_step
 
@@ -599,9 +686,17 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
         if p.backend == "cuda" else _segscan.segmented_scan
 
     def step(groups, keys, carries, n_valid=None):
-        return _streaming.stream_push(groups, keys, carries, combiners,
-                                      n_valid=n_valid, p_ports=p_ports,
-                                      scan=scan)
+        carries, counters = unwrap(carries)
+        out, carries = _streaming.stream_push(groups, keys, carries,
+                                              combiners, n_valid=n_valid,
+                                              p_ports=p_ports, scan=scan)
+        if counters is not None:
+            pushed = groups.shape[-1] if n_valid is None else n_valid
+            if isinstance(pushed, torch.Tensor):
+                pushed = pushed.to(groups.device, torch.int32)
+            new = _c.bump(counters, "stream_tuples", pushed)
+            _c.store_into(counters, _c.bump(new, "stream_emitted", out[3]))
+        return out, wrap(carries, counters)
 
     return step
 
@@ -665,7 +760,7 @@ def _execute_engine(p: Plan, groups, keys, n_valid, *, tile: int):
     return AggResult(shared[0], values, shared[1], shared[2])
 
 
-def _execute_window(p: Plan, groups, keys):
+def _execute_window(p: Plan, groups, keys, counters=None):
     q = p.query
     w = q.window
     if w.per_group:
@@ -674,7 +769,24 @@ def _execute_window(p: Plan, groups, keys):
             og, ovs, valid, num = _swag_pergroup_kernel_exec(
                 groups, keys, spec=spec, ops=q.op_names,
                 regime=_registry.pergroup_kernel_path(q, keys.dtype))
-            return AggResult(og, ovs, valid, num)
+            if counters is None:
+                return AggResult(og, ovs, valid, num)
+            # the JAX package's pallas-panestore gauges: evaluations,
+            # replay rows and the ops of each regime
+            names = q.op_names
+            psel = _panestore.partial_path_names(names, keys.dtype)
+            ne = groups.shape[-1] // spec.wa
+            fused = bool(psel) and all(psel)
+            return AggResult(og, ovs, valid, num, _c.init(
+                keys.device, pergroup_evals_batched=ne,
+                pergroup_replay_rows_per_launch=ne * spec.capacity,
+                pergroup_partial_dispatch=len(names) if fused else 0,
+                pergroup_merge_dispatch=0 if fused else len(names)))
+        if counters is not None:
+            (og, values, valid, num), _, counters = swag_per_group(
+                groups, keys, spec=spec, ops=q.ops,
+                interpolate=q.interpolate, counters=counters)
+            return AggResult(og, values, valid, num, counters)
         (og, values, valid, num), _ = swag_per_group(
             groups, keys, spec=spec, ops=q.ops, interpolate=q.interpolate)
         return AggResult(og, values, valid, num)
@@ -789,28 +901,36 @@ def execute(plan_or_query, groups, keys=None, *, state=None,
       timestamps: [N] integer event times of a ``Window(range=...)``
         query (numpy or torch; required by it, refused by the others;
         int32 in a stream).
-      mesh, num_shards, collect_stats: later slices of the port.
+      mesh, num_shards: a later slice of the port (multi-device).
+      collect_stats: surface the engine's counters
+        (:mod:`repro_torch.obs.counters`) as ``AggResult.stats``, and
+        record the call's observed tuples/s in
+        :data:`repro_torch.obs.registry.METRICS` under ``(backend, plan
+        fingerprint)`` (waiting for the result on the device to time it).
+        It never changes a result.  Streaming queries keep the flag
+        constant across a stream (the counters live in the state): pass
+        ``state=None`` to toggle it.
 
     Returns ``(AggResult, new_state)``; ``new_state`` is ``None`` unless
     the query streams.
     """
+    t0 = _time.perf_counter()
     if mesh is not None or num_shards not in (None, 1):
         raise _later_slice("sharded execution (mesh=, num_shards=)", 7,
                            "multi-device")
-    if collect_stats:
-        raise _later_slice("execute(collect_stats=True)", 6,
-                           "observability")
     device = _common.require_cuda(device)
-    if isinstance(plan_or_query, Plan):
-        p = plan_or_query
-        want = backend if backend is not None else p.backend
-        if want != p.backend or torch.device(p.device) != device:
-            p = plan(p.query, backend=want, device=device)
-    else:
-        p = plan(plan_or_query, backend=backend, device=device)
+    with _trace.span("plan"):
+        if isinstance(plan_or_query, Plan):
+            p = plan_or_query
+            want = backend if backend is not None else p.backend
+            if want != p.backend or torch.device(p.device) != device:
+                p = plan(p.query, backend=want, device=device)
+        else:
+            p = plan(plan_or_query, backend=backend, device=device)
 
     groups, keys, n_valid = _prepare_inputs(p.query, groups, keys, n_valid,
                                             device)
+    n = groups.shape[-1]
     is_time = p.query.window is not None and p.query.window.is_time
     if is_time and timestamps is None:
         raise ValueError("Window(range=...) queries aggregate by event "
@@ -820,18 +940,63 @@ def execute(plan_or_query, groups, keys=None, *, state=None,
                          "(Window(range=...)) only")
     if p.path == "stream":
         if state is None:
-            state = init_stream_state(p, keys.dtype)
+            state = init_stream_state(p, keys.dtype,
+                                      collect_stats=collect_stats)
+        elif collect_stats != _state_collects_stats(state):
+            raise ValueError(
+                "collect_stats must stay constant across a stream — the "
+                "counters live in the threaded state; pass state=None to "
+                "start a new stream with the other setting")
         extra = (timestamps,) if is_time else ()
-        (g, values, valid, num, _rr), new_state = stream_fn(p, tile=tile)(
-            groups, keys, state, n_valid, *extra)
-        return AggResult(g, values, valid, num), new_state
+        step = stream_fn(p, tile=tile, collect_stats=collect_stats)
+        with _trace.span(f"dispatch:{p.backend}/stream") as sp:
+            (g, values, valid, num, _rr), new_state = step(
+                groups, keys, state, n_valid, *extra)
+            sp.attach((values, new_state))
+        stats = dict(new_state[1]) if collect_stats else None
+        res = AggResult(g, values, valid, num, stats)
+        if collect_stats:
+            _observe_throughput(p, res, n, t0)
+        return res, new_state
     if state is not None:
         raise ValueError("state= applies to streaming queries "
                          "(Query(streaming=True))")
+    counters = {} if collect_stats else None
     if p.path == "window":
         if n_valid is not None:
             raise ValueError("n_valid applies to non-windowed queries")
-        if is_time:
-            return _execute_time_window(p, groups, keys, timestamps), None
-        return _execute_window(p, groups, keys), None
-    return _execute_engine(p, groups, keys, n_valid, tile=tile), None
+        with _trace.span(f"dispatch:{p.backend}/window") as sp:
+            if is_time:
+                res = _execute_time_window(p, groups, keys, timestamps)
+            else:
+                res = _execute_window(p, groups, keys, counters)
+            sp.attach(res)
+    else:
+        with _trace.span(f"dispatch:{p.backend}/engine") as sp:
+            res = _execute_engine(p, groups, keys, n_valid, tile=tile)
+            sp.attach(res)
+    if collect_stats:
+        stats = dict(res.stats) if res.stats else {}
+        stats["tuples"] = n
+        stats["num_shards"] = 1  # one device (sharding: a later slice)
+        res = res._replace(stats=stats)
+        _observe_throughput(p, res, n, t0)
+    return res, None
+
+
+def _state_collects_stats(state) -> bool:
+    """Whether a streaming state is the ``(state, counters)`` wrapping of
+    ``collect_stats=True`` (a dict second element — no engine state ever
+    holds one)."""
+    return (isinstance(state, tuple) and len(state) == 2
+            and isinstance(state[1], dict))
+
+
+def _observe_throughput(p: Plan, res: AggResult, tuples: int,
+                        t0: float) -> None:
+    """Record one observed-throughput sample in the process registry,
+    once the result is ready on its device."""
+    from repro_torch.obs.registry import METRICS, plan_fingerprint
+    _trace.synchronize((res.groups, res.values))
+    METRICS.observe(p.backend, plan_fingerprint(p), tuples=int(tuples),
+                    seconds=_time.perf_counter() - t0)

@@ -318,13 +318,22 @@ def backend_reason(name, ops, window=None, query=None):
 
 
 def swag_per_group_counters():
-    """``swag_per_group(counters=...)``: raises until observability is
-    ported."""
+    """``swag_per_group(counters=...)`` of one group's 8 tuples: the
+    counters, read back."""
     from repro_torch.core.swag import swag_per_group as run
 
     g = torch.zeros(8, dtype=torch.int32)
-    run(g, g, spec=_spec(dict(wa=4, capacity=8, default_ws=8)), ops=["sum"],
-        counters={})
+    _, _, counters = run(g, g, spec=_spec(dict(wa=4, capacity=8,
+                                               default_ws=8)),
+                         ops=["sum"], counters={})
+    return {name: int(v) for name, v in sorted(counters.items())}
+
+
+def execute_stats(ops, g, k, **kw):
+    """The stats of ``execute(..., collect_stats=True)`` on the CPU."""
+    res, _ = tq.execute(_query(ops, None, None), g, k, device="cpu",
+                        collect_stats=True, **kw)
+    return res.stats
 
 
 # --------------------------------------------------------------- streaming
@@ -446,14 +455,17 @@ def aggregator_later_slice(what):
     elif what == "mesh":
         StreamingAggregator("sum", mesh=object(), device="cpu")
     elif what == "stats":
-        StreamingAggregator("sum", collect_stats=True, device="cpu")
+        return StreamingAggregator("sum", collect_stats=True,
+                                   device="cpu").collect_stats
     elif what == "timestamps":
         agg = StreamingAggregator("sum", device="cpu")
         agg.push(np.zeros(4, np.int32), np.zeros(4, np.int32),
                  timestamps=np.zeros(4, np.int32))
     elif what == "time window stats":
-        StreamingAggregator("sum", window=tq.Window(range=10),
-                            collect_stats=True, device="cpu")
+        agg = StreamingAggregator("sum", window=tq.Window(range=10),
+                                  collect_stats=True, device="cpu")
+        g = np.zeros(4, np.int32)
+        return sorted(agg.push(g, g, timestamps=np.arange(4)).stats)
     elif what == "table":
         stream_push_table(None, (), ("sum",), first_group=0, any_real=True)
 
@@ -621,3 +633,255 @@ def segmented_scan_cuda(flags, leaves, op, tile):
     out = run(_t(flags), state if len(state) > 1 else state[0], op,
               tile=tile)
     return _np(out if isinstance(out, tuple) else (out,)), ssk.segscan.launches
+
+
+# ---------------------------------------------------------- observability
+
+def execute_on_off(ops, g, k, *, backend, window=None, query=None, **kw):
+    """``execute`` with stats off, then on (on the CPU): both results in
+    numpy, their stats included."""
+    q = _query(ops, window, query)
+    out = []
+    for on in (False, True):
+        res, _ = tq.execute(q, g, k, backend=backend, device="cpu",
+                            collect_stats=on, **kw)
+        r = result_to_numpy(res)
+        out.append(SimpleNamespace(groups=r.groups, values=r.values,
+                                   valid=r.valid, num_groups=r.num_groups,
+                                   stats=r.stats))
+    return out
+
+
+def stream_on_off(ops, batches, *, backend, window=None, n_valids=None):
+    """A stream through ``execute(state=)`` twice, with stats off and on
+    (``batches`` as :func:`stream_steps`'s): per push both results and
+    states, and the stats, in numpy."""
+    from repro_torch.interop import stats_to_numpy
+
+    p = _stream_plan(ops, window, None, backend)
+    st_off = st_on = None
+    n_valids = n_valids or [None] * len(batches)
+    out = []
+    for (g, k, *ts), nv in zip(batches, n_valids):
+        kw = {"timestamps": ts[0]} if ts else {}
+        off, st_off = tq.execute(p, g, k, state=st_off, n_valid=nv,
+                                 device="cpu", **kw)
+        on, st_on = tq.execute(p, g, k, state=st_on, n_valid=nv,
+                               device="cpu", collect_stats=True, **kw)
+        out.append({"off": _np(tuple(result_to_numpy(off)[:4])),
+                    "on": _np(tuple(result_to_numpy(on)[:4])),
+                    "state_off": _state_np(st_off),
+                    "state_on": _state_np(st_on[0]),
+                    "stats": stats_to_numpy(on.stats),
+                    "carried": stats_to_numpy(st_on[1])})
+    return out
+
+
+def aggregator_stats(op, batches, *, backend, window=None):
+    """A ``StreamingAggregator(collect_stats=True)`` on the CPU: the stats
+    of every push, of the flush and of one more push after it, and the
+    count of tensors in its carry."""
+    from repro_torch.core import StreamingAggregator
+    from repro_torch.interop import stats_to_numpy
+    from repro_torch.obs import trace
+
+    agg = StreamingAggregator(
+        op, window=None if window is None else tq.Window(**window),
+        collect_stats=True, device="cpu", backend=backend)
+    leaves = len(trace.tensors(agg.carry))
+    stats = [stats_to_numpy(agg.push(g, k, timestamps=ts[0] if ts else None)
+                            .stats) for g, k, *ts in batches]
+    stats.append(stats_to_numpy(agg.flush().stats))
+    g, k, *ts = batches[0]
+    stats.append(stats_to_numpy(
+        agg.push(g, k, timestamps=ts[0] if ts else None).stats))
+    return stats, leaves
+
+
+def stats_off_paths(g, k, ts):
+    """Every stats-off path of the port with the counter helpers of
+    :mod:`repro_torch.obs.counters` made to raise: the results' stats (all
+    must be None, but an event-time aggregator's late-drop count)."""
+    from repro_torch.core import StreamingAggregator
+    from repro_torch.obs import counters
+
+    def boom(*a, **kw):
+        raise AssertionError("a counter helper ran with stats off")
+
+    names = ("init", "ensure", "bump", "high_water", "put", "copy",
+             "store_into")
+    saved = {n: getattr(counters, n) for n in names}
+    for n in names:
+        setattr(counters, n, boom)
+    time_w = tq.Window(range=32, slide=8, max_lateness=4,
+                       reorder_capacity=8)
+    count_w = tq.Window(ws=16, wa=8, capacity=8)
+    seen = {}
+    try:
+        for backend in ("reference", "cuda", "cuda-panes"):
+            if backend != "cuda-panes":
+                res, _ = tq.execute(tq.Query(ops=("sum", "min")),
+                                    np.sort(g), k, backend=backend,
+                                    device="cpu")
+                seen[f"engine/{backend}"] = res.stats
+            res, _ = tq.execute(tq.Query(ops=("sum", "min"),
+                                         window=tq.Window(ws=32, wa=8)),
+                                g, k, backend=backend, device="cpu")
+            seen[f"window/{backend}"] = res.stats
+        for backend in ("reference", "cuda-panestore"):
+            res, _ = tq.execute(
+                tq.Query(ops=("sum", "median"), window=tq.Window(
+                    ws=32, wa=8, ws_per_group={0: 16})),
+                g, k, backend=backend, device="cpu")
+            seen[f"pergroup/{backend}"] = res.stats
+        res, _ = tq.execute(tq.Query(ops="min", group_by=False,
+                                     window=tq.Window(range=32, slide=8)),
+                            None, k, timestamps=ts, backend="cuda",
+                            device="cpu")
+        seen["time window/cuda"] = res.stats
+        for backend, window in (("reference", None), ("cuda", None),
+                                ("reference", count_w),
+                                ("cuda-panestore", count_w),
+                                ("reference", time_w),
+                                ("cuda-panestore", time_w)):
+            agg = StreamingAggregator(("sum",), window=window, device="cpu",
+                                      backend=backend)
+            kind = ("plain" if window is None
+                    else "time" if window is time_w else "store")
+            r = agg.push(np.sort(g) if window is None else g, k,
+                         timestamps=ts if window is time_w else None)
+            seen[f"stream {kind}/{backend}"] = r.stats
+            seen[f"flush {kind}/{backend}"] = agg.flush().stats
+    finally:
+        for n, f in saved.items():
+            setattr(counters, n, f)
+    return {name: None if s is None else sorted(s)
+            for name, s in seen.items()}
+
+
+def fingerprints(cases):
+    """``query_fingerprint`` of each ``(ops, window, query, num_shards)``,
+    and the ``plan_fingerprint`` of its reference plan (one shard)."""
+    from repro_torch.obs.registry import plan_fingerprint, query_fingerprint
+
+    out = []
+    for ops, window, query, shards in cases:
+        q = _query(ops, window, query)
+        pfp = (plan_fingerprint(tq.plan(q, backend="reference",
+                                        device="cpu"))
+               if shards == 1 else None)
+        out.append((query_fingerprint(q, num_shards=shards), pfp))
+    return out
+
+
+def prometheus_text(cells, stats):
+    """The port's Prometheus text of a registry fed ``cells`` ([(backend,
+    fingerprint, tuples, seconds)]) and of ``stats`` (numpy values become
+    tensors)."""
+    from repro_torch.obs import export
+    from repro_torch.obs.registry import MetricsRegistry
+
+    reg = MetricsRegistry()
+    for backend, fp, tuples, seconds in cells:
+        reg.observe(backend, fp, tuples=tuples, seconds=seconds)
+    return export.prometheus_metrics(
+        registry=reg,
+        stats={k: torch.as_tensor(np.asarray(v)) for k, v in stats.items()})
+
+
+def backend_routing(ops, window):
+    """``choose_backend`` (on the CPU) and the ``auto`` plan as the
+    process registry is fed, step by step as the JAX package's test
+    feeds its own."""
+    from repro_torch.kernels.registry import choose_backend
+    from repro_torch.obs.registry import METRICS, query_fingerprint
+
+    q = _query(ops, window, None)
+    fp = query_fingerprint(q)
+    cpu = torch.device("cpu")
+    seen = []
+    METRICS.reset()
+    try:
+        seen.append(choose_backend(q, cpu))
+        METRICS.observe("reference", fp, tuples=1_000, seconds=1.0)
+        seen.append(choose_backend(q, cpu))
+        METRICS.observe("cuda-panestore", fp, tuples=50_000, seconds=1.0)
+        seen.append(choose_backend(q, cpu))
+        seen.append(tq.plan(q, device="cpu").backend)
+        # a stale cell of a backend that cannot run this query never wins
+        METRICS.observe("cuda", fp, tuples=10_000_000, seconds=1.0)
+        seen.append(choose_backend(q, cpu))
+        METRICS.observe("reference", fp, tuples=10, seconds=1.0)
+        seen.append(choose_backend(q, cpu))
+    finally:
+        METRICS.reset()
+    seen.append(choose_backend(q, cpu))
+    return seen
+
+
+def obs_substrate(g, k, jsonl_path):
+    """The host-side pieces on the port: a capture's spans around
+    ``execute``, the shared no-op span, the process registry fed by
+    ``execute(collect_stats=True)``, the counter helpers and a JSONL round
+    trip of a result's stats."""
+    from repro_torch.obs import counters, export, trace
+    from repro_torch.obs.registry import (METRICS, MetricsRegistry,
+                                          plan_fingerprint)
+
+    out = {}
+    with trace.capture() as tr:
+        tq.execute(tq.Query(ops=("sum",)), g, k, device="cpu")
+    out["spans"] = [(s.name, s.depth, s.duration_s) for s in tr.spans]
+    out["report"] = tr.report()
+    out["null_shared"] = trace.span("x") is trace.span("y")
+
+    reg = MetricsRegistry()
+    reg.observe("reference", "fp", tuples=1000, seconds=1.0)
+    reg.observe("reference", "fp", tuples=1000, seconds=1.0)
+    reg.observe("cuda", "fp", tuples=4000, seconds=1.0)
+    out["registry"] = (reg.tuples_per_s("reference", "fp"),
+                       reg.snapshot()[("reference", "fp")],
+                       reg.best_backend("fp"), reg.best_backend("other"))
+    reg.observe("x", "fp", tuples=1, seconds=0.0)  # ignored, not a div0
+    reg.reset()
+    out["reset"] = reg.snapshot()
+
+    p = tq.plan(tq.Query(ops=("sum",)), backend="reference", device="cpu")
+    fp = plan_fingerprint(p)
+    before = METRICS.snapshot().get(("reference", fp), {"calls": 0})["calls"]
+    tq.execute(p, g, k, device="cpu", collect_stats=True)
+    cell = METRICS.snapshot()[("reference", fp)]
+    out["observed"] = (cell["calls"] - before, cell["tuples_per_s"])
+
+    c = counters.ensure(counters.init(), ("a", "b"))
+    c2 = counters.bump(c, "a", torch.tensor(3, dtype=torch.int32))
+    c3 = counters.high_water(c2, "b", torch.tensor(7, dtype=torch.int32))
+    c3 = counters.high_water(c3, "b", 4)
+    out["helpers"] = {
+        "none": [counters.bump(None, "x", 1), counters.high_water(None, "x", 1),
+                 counters.put(None, "x", 1), counters.ensure(None, ("x",))],
+        "keys": sorted(c), "a": (int(c2["a"]), int(c["a"])),
+        "b": int(c3["b"]), "dtype": str(c["a"].dtype)}
+
+    res, _ = tq.execute(tq.Query(ops=("sum",), window=tq.Window(
+        ws=16, wa=8, ws_per_group={0: 8})), g, k, device="cpu",
+        collect_stats=True)
+    export.write_jsonl([{"name": "t", "engine_stats": res.stats}], jsonl_path)
+    out["jsonl"] = export.read_jsonl(jsonl_path)
+    return out
+
+
+def execute_stats_toggled():
+    """The errors of a stream whose ``collect_stats`` flips: on then off,
+    and off then on."""
+    q = tq.Query(ops=("sum",), streaming=True)
+    g = np.zeros(8, np.int32)
+    errors = []
+    for first in (True, False):
+        _, state = tq.execute(q, g, g, device="cpu", collect_stats=first)
+        try:
+            tq.execute(q, g, g, state=state, device="cpu",
+                       collect_stats=not first)
+        except ValueError as e:
+            errors.append(str(e))
+    return errors

@@ -7,13 +7,16 @@ on CPU tensors).
 
 Tolerance: every array equal (int32 keys, and float min/max/count);
 float sum/mean within rtol = atol = 1e-5 (``_torch_parity``).  The JAX
-side of a time query runs eagerly — its window count and width are shapes
-of the concrete timestamps — so the streams stay small (N <= 512,
-wcap <= 64) and the Pallas kernel runs once, in interpret mode, as the
-JAX package's own test does.  The port runs in its own process
+side of a time query frames its windows from the concrete timestamps (its
+window count and width are shapes), so whole queries are jitted with the
+timestamps closed over as constants, once a case; the streams stay small
+(N <= 512, wcap <= 64) and the Pallas kernel runs once, in interpret mode,
+as the JAX package's own test does.  The port runs in its own process
 (``_torch_parity.port``).
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import pytest
@@ -151,17 +154,34 @@ QUERY_CASES = [
 ]
 
 
-@pytest.mark.parametrize("backend", ["reference", "cuda"])
-@pytest.mark.parametrize("case", range(len(QUERY_CASES)))
-def test_execute_matches_jax_reference(port, case, backend):
-    from repro import query as jq
-
+def _query_case(case):
     ops, group_by, dtype, window = QUERY_CASES[case]
     g, k, ts = _stream(10 + case, 400, offset=-200)
     k = k.astype(dtype) / (3 if dtype == np.float32 else 1)
-    g_in = g if group_by else None
+    return ops, group_by, dtype, window, g if group_by else None, k, ts
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_query_case(case):
+    """The JAX reference result of a query case, computed once a process:
+    one jit of the whole query (the timestamps, which frame the windows on
+    the host, closed over as constants); eager, every primitive of the
+    grouped replay compiles on its own."""
+    import jax
+
+    from repro import query as jq
+
+    ops, group_by, _, window, g_in, k, ts = _query_case(case)
     q = jq.Query(ops=ops, group_by=group_by, window=jq.Window(**window))
-    want, _ = jq.execute(q, g_in, k, backend="reference", timestamps=ts)
+    return jax.jit(lambda g, k: jq.execute(q, g, k, backend="reference",
+                                           timestamps=ts)[0])(g_in, k)
+
+
+@pytest.mark.parametrize("backend", ["reference", "cuda"])
+@pytest.mark.parametrize("case", range(len(QUERY_CASES)))
+def test_execute_matches_jax_reference(port, case, backend):
+    ops, group_by, dtype, window, g_in, k, ts = _query_case(case)
+    want = _jax_query_case(case)
     got = port.execute(ops, g_in, k, backend=backend, window=window,
                        query={"group_by": group_by}, timestamps=ts)
     assert_result_same(want, got, float_keys=dtype == np.float32)

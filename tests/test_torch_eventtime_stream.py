@@ -392,11 +392,25 @@ def _jax_aggregator(op, window, batches):
                     "rr": np.asarray(r.rr_port),
                     "late": int(r.stats["late_dropped"]),
                     "state": _pair_np(agg.carry)})
-    r = agg.flush()
-    return out, {"groups": np.asarray(r.groups),
-                 "values": np.asarray(r.values), "valid": np.asarray(r.valid),
-                 "num": np.asarray(r.num_groups), "rr": np.asarray(r.rr_port),
-                 "late": int(r.stats["late_dropped"])}
+    # the flush (repro.core.streaming.StreamingAggregator.flush): drain the
+    # reorder buffer, place what it releases, replay past the last tuple;
+    # jitted (eager, its every primitive compiles on its own)
+    w = jq.Window(**window)
+    spec, rspec = w.store_spec(), w.reorder_spec()
+
+    def flush(rstate, pstate):
+        emit, rstate = jet.reorder_flush(rspec, rstate)
+        pstate = jps.push_time(spec, pstate, emit.groups, emit.keys,
+                               emit.ts, live=emit.live)
+        return jps.replay(spec, pstate, (agg.combiner,),
+                          eval_time=rstate.max_ts + 1)
+
+    g, values, valid, num = jax.jit(flush)(*agg.carry)
+    rr = np.where(valid, np.arange(spec.capacity) % 4, -1).astype(np.int32)
+    return out, {"groups": np.asarray(g),
+                 "values": np.asarray(values[agg.combiner.name]),
+                 "valid": np.asarray(valid), "num": np.asarray(num),
+                 "rr": rr, "late": int(agg.carry[0].dropped)}
 
 
 @pytest.mark.parametrize("backend", ["reference", "cuda-panestore"])

@@ -1586,3 +1586,147 @@ def _same_stream_result(got, want, what):
                     what=f"{what} {name}")
     assert_same(got.stats["late_dropped"], want.stats["late_dropped"],
                 what=f"{what} late_dropped")
+
+
+# ---------------------------------------------------- counters (stats on)
+
+def _counters_np(counters):
+    return {name: int(v) for name, v in sorted(counters.items())}
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", PERGROUP_CASES)
+def test_pergroup_scan_counters_vs_plain(cuda, case, dtype):
+    # a push with stats on counts its evictions and the occupancy mark on
+    # the card, equal to the plain loop's; the store is bit-identical to
+    # the stats-off launch's; the counters accumulate across two pushes
+    # (the evictions from near INT32_MAX, wrapping as int32 does)
+    import torch
+
+    from repro_torch.core import panestore as ps
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec, st, g, k = _pergroup_stream(case, dtype, cuda)
+    half = g.shape[0] // 2
+    got_c = {"pane_evictions": torch.tensor(2**31 - 3, dtype=torch.int32,
+                                            device=cuda)}
+    want_c = {name: v.clone() for name, v in got_c.items()}
+    mine, ref, off = (ps.PaneStoreState(*(x.clone() for x in st))
+                      for _ in range(3))
+    for part in (slice(0, half), slice(half, None)):
+        gp, kp = g[part].contiguous(), k[part].contiguous()
+        sk.pergroup_scan.launches = 0
+        got = sk.pergroup_scan(spec, mine, gp, kp, push=True, inplace=True,
+                               counters=got_c)
+        assert sk.pergroup_scan.launches == 1
+        plain = sk.pergroup_scan(spec, off, gp, kp, push=True, inplace=True)
+        want = sk.pergroup_scan_plain(spec, ref, gp, kp, push=True,
+                                      inplace=True, counters=want_c)
+        torch.cuda.synchronize()
+        _assert_trees(got.final, plain.final, "stats on vs off")
+        _assert_trees(got.final, want.final, "kernel vs plain")
+        assert _counters_np(got_c) == _counters_np(want_c), case
+    assert set(got_c) == set(sk.PANE_COUNTERS)
+    if case == CHURN:
+        assert int(want_c["pane_evictions"]) < 0  # wrapped past INT32_MAX
+    assert 0 < int(want_c["pane_occupancy_hwm"]) <= spec.capacity
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", PLACE_CASES)
+def test_pergroup_scan_time_counters_vs_plain(cuda, case, dtype):
+    # the time-mode placement with stats on: its evictions and occupancy
+    # mark (after every lane, dead ones too) equal the plain loop's,
+    # accumulated over the case's pushes; the store and the events are
+    # bit-identical to the stats-off launch's
+    import torch
+
+    from repro_torch.core import panestore as ps
+    from repro_torch.kernels.swag import kernel as sk
+
+    spec, pushes = _time_store_pushes(case, dtype, cuda)
+    kdt = torch.float32 if dtype == np.float32 else torch.int32
+    st, off, ref = (ps.init_store(spec, kdt, device=cuda) for _ in range(3))
+    if case == "clock_wrap":
+        for s in (st, off, ref):
+            s.clock.fill_(2**31 - 8)
+    got_c, want_c = {}, {}
+    for i, (g, k, ts, live, rb) in enumerate(pushes):
+        st, ev = sk.pergroup_scan_time(spec, st, g, k, ts, live, rb,
+                                       inplace=True, counters=got_c)
+        off, ev_off = sk.pergroup_scan_time(spec, off, g, k, ts, live, rb,
+                                            inplace=True)
+        ref, wev = sk.pergroup_scan_time_plain(spec, ref, g, k, ts, live, rb,
+                                               counters=want_c)
+        torch.cuda.synchronize()
+        assert_same(ev, ev_off, what=f"{case} push {i} events on/off")
+        assert_same(ev, wev, what=f"{case} push {i} events")
+        _assert_trees(tuple(_bits(x) for x in st),
+                      tuple(_bits(x) for x in off), f"{case} on/off {i}")
+        _assert_trees(tuple(_bits(x) for x in st),
+                      tuple(_bits(x) for x in ref), f"{case} store {i}")
+        assert _counters_np(got_c) == _counters_np(want_c), (case, i)
+    if case in ("evictions", "evict_all", "clock_wrap"):
+        assert int(want_c["pane_evictions"]) > 0
+    if case in ("evict_all", "clock_wrap"):  # a full store stays full
+        assert int(want_c["pane_occupancy_hwm"]) == spec.capacity
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("case", sorted(REORDER_CARD_CASES))
+def test_reorder_counters_vs_plain(cuda, case, dtype):
+    # the reorder kernel with stats on: the pops a full buffer forced past
+    # the gate and the depth mark after every cycle equal the plain loop's
+    # (from near INT32_MAX where the buffers stay full: the sum wraps as
+    # int32 does);
+    # emissions and buffer are bit-identical to the stats-off launch's; a
+    # flush counts nothing
+    import torch
+
+    from repro_torch.core import eventtime as et
+    from repro_torch.kernels.eventtime import kernel as ek
+
+    capacity, lateness, pushes, *opts = REORDER_CARD_CASES[case]
+    opts = opts[0] if opts else {}
+    spec = et.ReorderSpec(capacity, lateness)
+    kdt = torch.float32 if dtype == np.float32 else torch.int32
+    st, off, ref = (et.init_reorder(spec, kdt, cuda) for _ in range(3))
+    if "clock" in opts:
+        for s in (st, off, ref):
+            s.seq_clock.fill_(opts["clock"])
+    start = 2**31 - 5 if case.startswith("full") else 0
+    got_c = {"reorder_forced_pops": torch.tensor(start, dtype=torch.int32,
+                                                 device=cuda)}
+    want_c = {name: v.clone() for name, v in got_c.items()}
+    for i, (n, late, nv, dw) in enumerate(pushes):
+        ts, g, k = _time_tuples(100 + i, n, dtype, cuda, offset=n * i,
+                                late=late, special=True,
+                                jitter=opts.get("jitter", (-14, 14)))
+        if nv == "tensor":
+            nv = torch.tensor(n - 50, dtype=torch.int32, device=cuda)
+        gate = None if dw is None else ts.max() + dw
+        ek.reorder_push.launches = 0
+        got, st = ek.reorder_push(spec, st, ts, g, k, n_valid=nv,
+                                  drain_wm=gate, inplace=True,
+                                  counters=got_c)
+        assert ek.reorder_push.launches == 1
+        plain, off = ek.reorder_push(spec, off, ts, g, k, n_valid=nv,
+                                     drain_wm=gate, inplace=True)
+        want, ref = ek.reorder_push_plain(spec, ref, ts, g, k, n_valid=nv,
+                                          drain_wm=gate, counters=want_c)
+        torch.cuda.synchronize()
+        _assert_emit_same(got, plain, n, f"{case} push {i} on/off")
+        _assert_emit_same(got, want, n, f"{case} push {i}")
+        _assert_trees(tuple(_bits(x) for x in st),
+                      tuple(_bits(x) for x in off), f"{case} on/off {i}")
+        assert _counters_np(got_c) == _counters_np(want_c), (case, i)
+    before = _counters_np(got_c)
+    _, st = ek.reorder_flush(spec, st, counters=got_c)
+    torch.cuda.synchronize()
+    assert _counters_np(got_c) == before
+    if case in ("forced_pops", "capacity_1"):
+        assert int(want_c["reorder_forced_pops"]) > 0, case
+    if case.startswith("full") or case in ("forced_pops", "capacity_1"):
+        assert int(want_c["reorder_depth_hwm"]) == capacity, case
+    if case.startswith("full"):  # wrapped past INT32_MAX
+        assert int(want_c["reorder_forced_pops"]) < 0, case

@@ -73,15 +73,19 @@ def test_later_slices_raise_not_implemented(port):
     g = np.zeros(8, np.int32)
     # streaming (slice 3) is ported: auto plans the reference on the CPU
     assert port.plan_backend("sum", query={"streaming": True}) == "reference"
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        port.swag_per_group_counters()
+    # so are observability's counters (slice 6): swag_per_group counts
+    assert port.swag_per_group_counters() == {
+        "pane_evictions": 0, "pane_occupancy_hwm": 0,
+        "pergroup_evals_batched": 2, "pergroup_merge_dispatch": 0,
+        "pergroup_partial_dispatch": 1,
+        "pergroup_replay_rows_per_launch": 16}
     # so is event-time streaming (slice 5b), with the JAX package's note
     assert port.plan_backend("sum", window={"range": 10},
                              query={"streaming": True}) == "reference"
     assert "watermark" in port.plan_note("sum", window={"range": 10},
                                          query={"streaming": True})
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        port.execute("sum", g, g, backend=None, collect_stats=True)
+    # and execute(collect_stats=True) (slice 6); sharding still raises
+    assert port.execute_stats("sum", g, g) == {"tuples": 8, "num_shards": 1}
     with pytest.raises(NotImplementedError, match="slice 7"):
         port.execute("sum", g, g, backend=None, num_shards=2)
 

@@ -150,11 +150,26 @@ def _jax_aggregator(op, batches, *, window=None, n_valids=None,
                     "num": np.asarray(r.num_groups),
                     "rr": np.asarray(r.rr_port),
                     "state": _jax_state_np(agg.carry)})
-    r = agg.flush()
-    return out, {"groups": np.asarray(r.groups),
-                 "values": np.asarray(r.values), "valid": np.asarray(r.valid),
-                 "num": np.asarray(r.num_groups),
-                 "rr": np.asarray(r.rr_port)}
+    if window is None:
+        r = agg.flush()
+        return out, {"groups": np.asarray(r.groups),
+                     "values": np.asarray(r.values),
+                     "valid": np.asarray(r.valid),
+                     "num": np.asarray(r.num_groups),
+                     "rr": np.asarray(r.rr_port)}
+    # a windowed flush is the replay of the store the pushes left
+    # (repro.core.streaming.StreamingAggregator.flush), jitted: eager, its
+    # every primitive compiles on its own
+    from repro.core import panestore as jps
+
+    spec = jq.Window(**window).store_spec()
+    g, values, valid, num = jax.jit(lambda st: jps.replay(
+        spec, st, (agg.combiner,)))(agg.carry)
+    rr = np.where(valid, np.arange(spec.capacity) % 4, -1).astype(np.int32)
+    return out, {"groups": np.asarray(g),
+                 "values": np.asarray(values[agg.combiner.name]),
+                 "valid": np.asarray(valid), "num": np.asarray(num),
+                 "rr": rr}
 
 
 def _same_aggregator(want, got, name, what, backends=("reference", "cuda"),
@@ -369,8 +384,7 @@ def test_streaming_median_without_a_window_is_refused(port):
 @pytest.mark.parametrize("what,slice_no", [
     ("shards", "7"), ("mesh", "7"), ("table", "7"), ("stats", "6"),
     # event-time streaming is ported (slice 5b): timestamps without a time
-    # window are the JAX package's ValueError, and what still waits is the
-    # statistics of a time window (slice 6)
+    # window are the JAX package's ValueError
     pytest.param("timestamps", None, id="timestamps-5b"),
     pytest.param("time window stats", "6", id="time window-5b")])
 def test_later_slices_raise_naming_theirs(port, what, slice_no):
@@ -378,6 +392,16 @@ def test_later_slices_raise_naming_theirs(port, what, slice_no):
         with pytest.raises(ValueError, match="timestamps apply to "
                            "event-time windows"):
             port.aggregator_later_slice(what)
+        return
+    if slice_no == "6":
+        # observability is ported (slice 6): the aggregator collects stats,
+        # a time window's the JAX package's keys (tests/test_torch_obs.py
+        # holds the values to it)
+        want = True if what == "stats" else [
+            "late_dropped", "pane_evictions", "pane_occupancy_hwm",
+            "reorder_depth_hwm", "reorder_forced_pops",
+            "store_donated_buffers", "watermark"]
+        assert port.aggregator_later_slice(what) == want
         return
     with pytest.raises(NotImplementedError, match=f"slice {slice_no} "):
         port.aggregator_later_slice(what)
