@@ -127,7 +127,24 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    with counters on and off; a ``capture()`` report of (a) and of (o);
    ``auto`` choosing the faster of two measured backends for (b)'s
    query;
-6. prints a ``phases`` line, a ``kernels`` line, the card's name and power
+6. the ``sharded`` phase (``sharded_phase``), the two-phase pipeline of
+   ``repro_torch.distributed.query_exec`` with ``num_shards=4``:
+     (p) (a)'s stream and ops less dc on ``cuda``: a groupagg launch a
+         shard, the combine tree in torch; also on a mesh of four entries
+         of the card; and (a)'s full ops through ``auto``, which falls back
+         to the reference (dc's groupagg output is not its partial state);
+     (q) (c)'s window on ``cuda`` (a swag launch a shard over its block of
+         whole windows) and (b)'s window on ``cuda-panes`` (sort_panes +
+         swag_panes a shard);
+     (r) (m)'s stream, 16 pushes of 2^20, on ``cuda``: a segmented_scan
+         launch an op a shard a push, stats on and off;
+   each against one device's ``execute`` on the same backend in the same
+   call (the windows and the stream element for element, push by push
+   with the carries; the engine on the valid lanes), timed over 7 calls
+   (7 streams) with the stage spans of one call (partition, local, merge,
+   finalize; synchronized) and the merge's share; and each kernel at a
+   shard's shape against its plain version on every shard, timed;
+7. prints a ``phases`` line, a ``kernels`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Needs the repository beside it (``src/repro_torch``) and a CUDA card; it
@@ -175,6 +192,11 @@ EVENT_WINDOW = dict(range=4096, slide=1024, wa=16, capacity=1024,
 EVENT_STREAM = dict(n=1 << 16, n_groups=64, key_max=1 << 20, density=0.875,
                     jitter=64)
 EVENT_PUSH = 1024
+#: runs (p), (q), (r): the sharded phase's shard count, and the ops of
+#: (a) that ``cuda`` shards (dc's groupagg output is not its partial
+#: state; the JAX package refuses it on ``pallas`` too)
+SHARDS = 4
+SHARD_OPS = ("min", "max", "sum", "count")
 #: ns a tuple of the event-time kernels' first design at run (o)'s push
 #: (PERF.md §6, rows 11 and 12), printed beside this run's
 PARENT_NS = {"reorder": 1101.0, "pergroup_scan_time": 2597.0}
@@ -2126,6 +2148,336 @@ def float_key_checks(torch, sk, data, dev) -> dict:
     return out
 
 
+def _span_ms(torch, fn) -> dict:
+    """ms of each stage span of one call of ``fn`` under
+    ``trace.capture()`` (a span waits for its tensors), summed by name."""
+    from repro_torch.obs import trace
+
+    torch.cuda.synchronize()
+    with trace.capture() as tr:
+        fn()
+    return {name: sec * 1e3 for name, sec in tr.durations().items()}
+
+
+def _same_result(torch, a, b) -> bool:
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("groups", "valid", "num_groups")) \
+        and set(a.values) == set(b.values) \
+        and all(a.values[nm].dtype == b.values[nm].dtype
+                and torch.equal(a.values[nm], b.values[nm])
+                for nm in a.values)
+
+
+def _shard_slices(torch, g, k, ws: int, wa: int):
+    """The window path's shard slices (``query_exec._window_partitioned``):
+    each shard's block of whole windows, as ``[SHARDS, len]`` columns,
+    and the windows a shard."""
+    n = g.shape[0]
+    nw = (n - ws) // wa + 1
+    wps = -(-nw // SHARDS)
+    slice_len = (wps - 1) * wa + ws
+    idx = (torch.arange(SHARDS, device=g.device)[:, None] * (wps * wa)
+           + torch.arange(slice_len, device=g.device)[None, :])
+    live = idx < n
+    idx = idx.clamp(max=n - 1)
+    return (torch.where(live, g[idx], 2**31 - 1),
+            torch.where(live, k[idx], 0), wps)
+
+
+def sharded_phase(torch, data, dev, wrappers, run_launches, identity):
+    """Runs (p), (q) and (r), the sharded pipeline on the card with
+    ``num_shards=4``: (a)'s stream and ops less dc on ``cuda`` (a groupagg
+    launch a shard, the combine tree in torch; also on a mesh of four
+    entries of the card) and (a)'s full ops through ``auto``, which falls
+    back to the reference for dc; (c)'s window on ``cuda`` (a swag launch
+    a shard) and (b)'s on ``cuda-panes`` (sort_panes + swag_panes a
+    shard); (m)'s stream (a segmented_scan launch an op a shard a push),
+    stats on and off.  Each held to one device's ``execute`` on the same
+    backend in the same call (windows and the stream element for element,
+    the engine on the valid lanes), each kernel at a shard's shape to its
+    plain version.  Returns (phases, kernel rows at the shard shapes)."""
+    from repro_torch.core.combiners import get_combiner
+    from repro_torch.core.segscan import segment_starts
+    from repro_torch.kernels.groupagg import kernel as gk
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.kernels.swag import kernel as sk
+    from repro_torch.query import Query, Window, execute, plan
+
+    phases, rows = [], []
+
+    def batch_run(tag, backend, q, which, expect, exact, mesh_too=False):
+        g, k = data[which]
+
+        def fn():
+            return execute(q, g, k, backend=backend, num_shards=SHARDS)
+
+        (res, _), counts, peak = counted_call(torch, fn, wrappers)
+        want_counts = {nm: expect.get(nm, 0) for nm in wrappers}
+        if counts != want_counts:
+            raise AssertionError(f"run ({tag}) launched {counts}, not "
+                                 f"{want_counts}")
+        run_launches[tag] = counts
+        t1 = time.perf_counter()
+        one, _ = execute(q, g, k, backend=backend)
+        if exact:
+            if not _same_result(torch, res, one):
+                raise AssertionError(f"run ({tag}) differs from one device")
+        else:
+            check_against_reference(torch, res, one, f"run ({tag})")
+        if mesh_too:
+            on_mesh, _ = execute(q, g, k, backend=backend,
+                                 mesh=[dev] * SHARDS)
+            if not _same_result(torch, on_mesh, res):
+                raise AssertionError(f"run ({tag}) on a mesh of "
+                                     f"{SHARDS} differs")
+            del on_mesh
+        check_s = time.perf_counter() - t1
+        del res, one
+        times = timed_all(torch, fn, 7)[1]
+        ms = times[len(times) // 2]
+        spans = _span_ms(torch, fn)
+        staged = sum(spans.get(nm, 0.0)
+                     for nm in ("partition", "local", "merge", "finalize"))
+        tree = spans.get("merge", 0.0) / staged if staged else None
+        n = k.shape[0]
+        row = {"run": tag, "backend": backend, "tuples": n,
+               "num_shards": SHARDS, "ops": list(q.op_names),
+               "window": window_desc(q.window), "ms": ms, "ms_min": times[0],
+               "ms_max": times[-1], "calls": len(times),
+               "tuples_per_s": n / (ms / 1e3), "peak_bytes": peak,
+               "launches": counts, "span_ms": spans,
+               "combine_tree_share": tree, "check_s": check_s,
+               "equal_to_one_device": "every lane" if exact
+               else "valid lanes", "on_mesh": mesh_too, "card": identity}
+        phases.append(row)
+        launched = {nm: c for nm, c in counts.items() if c}
+        shown = ", ".join(f"{nm} {t:.3f}" for nm, t in spans.items())
+        print(f"run ({tag}) {backend}, {SHARDS} shards: {n} tuples in "
+              f"{ms:.3f} ms (median of {len(times)}, {times[0]:.3f}-"
+              f"{times[-1]:.3f}) = {row['tuples_per_s']:.4g} tuples/s, peak "
+              f"{peak / 2**30:.2f} GiB, launches {launched}; spans (one "
+              f"call, synchronized) {shown}"
+              + ("" if tree is None else f"; merge {tree:.1%} of the stages")
+              + f"; equal to one device ({row['equal_to_one_device']})"
+              + (f" and on a mesh of {SHARDS}" if mesh_too else "")
+              + f" [{identity}]", flush=True)
+
+    # run (p): (a)'s stream, its ops that cuda can shard
+    batch_run("p", "cuda", Query(ops=SHARD_OPS), "sorted",
+              {"groupagg": SHARDS}, exact=False, mesh_too=True)
+    # (a)'s full ops: dc's groupagg output is not its partial state, so
+    # auto falls back to the reference (plain torch on the card)
+    g, k = data["sorted"]
+    pa = plan(Query(ops=OPS), num_shards=SHARDS)
+    if pa.backend != "reference" or "cannot shard" not in pa.note:
+        raise AssertionError(f"run (p) auto with dc: {pa}")
+    got, _ = execute(pa, g, k)
+    one, _ = execute(Query(ops=OPS), g, k, backend="cuda")
+    check_against_reference(torch, got, one, "run (p), auto with dc")
+    del got, one
+    _, auto_times = timed_all(torch, lambda: execute(pa, g, k), 3)
+    phases.append({"run": "p-auto", "backend": pa.backend,
+                   "note": pa.note, "num_shards": SHARDS, "ops": list(OPS),
+                   "ms": auto_times[1], "ms_min": auto_times[0],
+                   "ms_max": auto_times[-1], "calls": 3,
+                   "tuples_per_s": N / (auto_times[1] / 1e3),
+                   "equal_to_one_device": "valid lanes", "card": identity})
+    print(f"run (p) with dc, auto on {SHARDS} shards -> {pa.backend} "
+          f"({pa.note}): {auto_times[1]:.3f} ms (median of 3), equal to "
+          f"(a) on cuda on the valid lanes [{identity}]", flush=True)
+
+    # run (q): (c)'s window on cuda, (b)'s on cuda-panes
+    wops = OPS + ("median",)
+    batch_run("q", "cuda", Query(ops=wops, window=Window(ws=1024, wa=256)),
+              "stream", {"swag": SHARDS}, exact=True)
+    batch_run("q-panes", "cuda-panes",
+              Query(ops=wops, window=Window(ws=4096, wa=1024)), "stream",
+              {"sort_panes": SHARDS, "swag_panes": SHARDS}, exact=True)
+
+    # run (r): (m)'s stream on 4 shards, stats off and on
+    g, k = data["sorted"]
+    qs = Query(ops=OPS, streaming=True)
+    names = qs.op_names
+    b = N // STREAM_BATCHES
+    batches = [(g[i * b:(i + 1) * b], k[i * b:(i + 1) * b])
+               for i in range(STREAM_BATCHES)]
+
+    def stream_r(shards=SHARDS, stats=False):
+        state, outs = None, []
+        for bg, bk in batches:
+            res, state = execute(qs, bg, bk, state=state, backend="cuda",
+                                 num_shards=shards, collect_stats=stats)
+            outs.append(res)
+        return outs, state
+
+    (outs, state), counts, peak = counted_call(torch, stream_r, wrappers)
+    want = len(names) * SHARDS * STREAM_BATCHES
+    if counts["segmented_scan"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"run (r) launched {counts}, not one "
+                             f"segmented_scan an op a shard a push ({want})")
+    run_launches["r"] = counts
+    t1 = time.perf_counter()
+    one_outs, one_state = stream_r(shards=1)
+    on_outs, (on_state, stats) = stream_r(stats=True)
+    for i, (a, r, o) in enumerate(zip(outs, one_outs, on_outs)):
+        if not (_same_result(torch, a, r) and _same_result(torch, o, a)):
+            raise AssertionError(f"run (r) push {i} differs from one "
+                                 f"device's stream or with stats on")
+
+    def leaves(carry):
+        st = carry.state if isinstance(carry.state, tuple) else (carry.state,)
+        return (carry.group, carry.nonempty, carry.emitted, *st)
+
+    for a, r, o in zip(state, one_state, on_state):
+        if not all(torch.equal(x, y) and torch.equal(x, z)
+                   for x, y, z in zip(leaves(a), leaves(r), leaves(o))):
+            raise AssertionError("run (r): the carries differ from one "
+                                 "device's stream")
+    stats = {nm: v.tolist() for nm, v in stats.items()}
+    if stats["stream_tuples"] != N or stats["combine_rounds"] != 2:
+        raise AssertionError(f"run (r) stats: {stats}")
+    check_s = time.perf_counter() - t1
+    del outs, state, one_outs, one_state, on_outs, on_state
+    spans = _span_ms(torch, stream_r)
+    _, on_times = timed_all(torch, lambda: stream_r(stats=True), 7)
+    phases.append(_stream_phase(
+        torch, "r", f"execute(state=, num_shards={SHARDS})", "cuda",
+        stream_r, N, STREAM_BATCHES, counts, peak, check_s, identity,
+        ops=list(names), num_shards=SHARDS, span_ms=spans,
+        stats_on_ms=on_times[len(on_times) // 2],
+        stats_on_ms_min=on_times[0], stats_on_ms_max=on_times[-1],
+        stats=stats, equal_to_one_device="every lane, every push"))
+    tree = spans.get("merge", 0.0) / sum(spans.get(nm, 0.0) for nm in
+                                         ("local", "merge", "finalize"))
+    print(f"run (r) spans over a stream (synchronized): "
+          + ", ".join(f"{nm} {t:.3f}" for nm, t in spans.items())
+          + f" ms; merge {tree:.1%} of local + merge + finalize; stats on "
+          f"{on_times[len(on_times) // 2]:.3f} ms a stream ({on_times[0]:.3f}"
+          f"-{on_times[-1]:.3f}), counters {stats} [{identity}]", flush=True)
+
+    # the kernels at a shard's shape against their plain versions
+    gs, ks = (x.reshape(SHARDS, -1) for x in data["sorted"])
+    n_s = gs.shape[1]
+    err = max(max_abs_err(torch, flat(gk.groupagg_flat(
+        gs[s], ks[s], SHARD_OPS, tile=1024)[:3]), flat(gk.groupagg_flat_plain(
+            gs[s], ks[s], SHARD_OPS, tile=1024)[:3])) for s in range(SHARDS))
+    _, ms = timed(torch, lambda: gk.groupagg_flat(gs[0], ks[0], SHARD_OPS,
+                                                  tile=1024), 5)
+    b2b_ms = back_to_back_ms(torch, lambda: gk.groupagg_flat(
+        gs[0], ks[0], SHARD_OPS, tile=1024))
+    _, plain_ms = timed(torch, lambda: gk.groupagg_flat_plain(
+        gs[0], ks[0], SHARD_OPS, tile=1024))
+    bnd, by = bound_ms(n_s * 8 + n_s * (4 + 1 + 4 * len(SHARD_OPS)),
+                       n_s * 4.0 * len(SHARD_OPS))
+    rows.append({"name": "groupagg", "layout": "flat",
+                 "ops": list(SHARD_OPS), "ms": ms, "ms_back_to_back": b2b_ms,
+                 "plain_ms": plain_ms, "library_ms": None,
+                 "max_abs_err": err, "bound_ms": bnd, "bound_by": by,
+                 "shape": [n_s // 1024, 1024], "runs": ["p"],
+                 "shards_checked": SHARDS})
+    del gs, ks
+
+    g, k = data["stream"]
+    wnames = Query(ops=wops).op_names
+    gs, ks, wps = _shard_slices(torch, g, k, 1024, 256)
+    rows_of = [(x.unfold(0, 1024, 256), y.unfold(0, 1024, 256))
+               for x, y in zip(gs, ks)]
+    err = max(max_abs_err(torch, flat(sk.swag(fg, fk, wnames)),
+                          flat(sk.swag_plain(fg, fk, wnames)))
+              for fg, fk in rows_of)
+    fg, fk = rows_of[0]
+    _, ms = timed(torch, lambda: sk.swag(fg, fk, wnames), 3)
+    _, plain_ms = timed(torch, lambda: sk.swag_plain(fg, fk, wnames))
+    bnd, by = bound_ms(gs.shape[1] * 8 + wps * 1024 * 4 * (1 + len(wnames))
+                       + wps * 4, network_exchanges(wps, 1024) * 4
+                       + wps * 1024 * 2 * len(wnames))
+    rows.append({"name": "swag", "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": None, "max_abs_err": err, "bound_ms": bnd,
+                 "bound_by": by, "shape": [wps, 1024], "runs": ["q"],
+                 "shards_checked": SHARDS})
+    del rows_of, gs, ks
+
+    p, wa = 4, 1024
+    gs, ks, wps = _shard_slices(torch, g, k, 4096, wa)
+    np_ = wps + p - 1
+    panes = [(x[:np_ * wa].reshape(np_, wa), y[:np_ * wa].reshape(np_, wa))
+             for x, y in zip(gs, ks)]
+    sorted_ = [sk.sort_panes(pg, pk) for pg, pk in panes]
+    err = max(max_abs_err(torch, out, sk.sort_panes_plain(pg, pk))
+              for out, (pg, pk) in zip(sorted_, panes))
+    pg, pk = panes[0]
+    _, ms = timed(torch, lambda: sk.sort_panes(pg, pk), 5)
+    _, plain_ms = timed(torch, lambda: sk.sort_panes_plain(pg, pk))
+
+    def library_sort():
+        by_key = torch.sort(pk, dim=-1, stable=True).indices
+        g1 = torch.gather(pg, -1, by_key)
+        by_group = torch.sort(g1, dim=-1, stable=True).indices
+        return (torch.gather(g1, -1, by_group),
+                torch.gather(torch.gather(pk, -1, by_key), -1, by_group))
+
+    lib_out, lib_ms = timed(torch, library_sort, 5)
+    if max_abs_err(torch, lib_out, sorted_[0]) != 0.0:
+        raise AssertionError("library sort disagrees with sort_panes")
+    bnd, by = bound_ms(np_ * wa * 16, network_exchanges(np_, wa) * 4)
+    rows.append({"name": "sort_panes", "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": lib_ms,
+                 "library": "two stable torch.sort passes + gathers",
+                 "max_abs_err": err, "bound_ms": bnd, "bound_by": by,
+                 "shape": [np_, wa], "runs": ["q-panes"],
+                 "shards_checked": SHARDS})
+    err = max(max_abs_err(torch, flat(sk.swag_panes(sg, skk, wnames, p=p)),
+                          flat(sk.swag_panes_plain(sg, skk, wnames, p=p)))
+              for sg, skk in sorted_)
+    sg, skk = sorted_[0]
+    _, ms = timed(torch, lambda: sk.swag_panes(sg, skk, wnames, p=p), 3)
+    _, plain_ms = timed(torch, lambda: sk.swag_panes_plain(sg, skk, wnames,
+                                                           p=p))
+    bnd, by = bound_ms(np_ * wa * 8 + wps * 4096 * 4 * (1 + len(wnames))
+                       + wps * 4, network_exchanges(wps, 4096, wa) * 4
+                       + wps * 4096 * 2 * len(wnames))
+    rows.append({"name": "swag_panes", "ms": ms, "plain_ms": plain_ms,
+                 "library_ms": None, "max_abs_err": err, "bound_ms": bnd,
+                 "bound_by": by, "shape": [wps, 4096], "runs": ["q-panes"],
+                 "shards_checked": SHARDS})
+    del panes, sorted_, lib_out, gs, ks
+
+    # segmented_scan at (r)'s shard of a push, every op
+    bg, bk = (x.reshape(SHARDS, -1)[0] for x in batches[0])
+    flags = segment_starts(bg)
+    lifted = {}
+    for nm in names:
+        st = get_combiner(nm).lift(bk)
+        lifted[nm] = st if isinstance(st, tuple) else (st,)
+
+    def shard_scans():
+        return [x for nm in names
+                for x in ssk.segscan(flags, lifted[nm], nm, tile=1024)]
+
+    out, ms = timed(torch, shard_scans, 5)
+    b2b_ms = back_to_back_ms(torch, shard_scans)
+    ref, plain_ms = timed(torch, lambda: [
+        x for nm in names
+        for x in ssk.segscan_plain(flags, lifted[nm], get_combiner(nm))])
+    err = max_abs_err(torch, out, ref)
+    bs = bg.shape[0]
+    nbytes = sum(bs * (1 + 2 * sum(x.element_size() for x in lv))
+                 for lv in lifted.values())
+    nops = sum(bs * 2.0 * len(lv) for lv in lifted.values())
+    bnd, by = bound_ms(nbytes, nops)
+    rows.append({"name": "segmented_scan", "ops": list(names), "ms": ms,
+                 "ms_back_to_back": b2b_ms, "plain_ms": plain_ms,
+                 "library_ms": None, "max_abs_err": err, "bound_ms": bnd,
+                 "bound_by": by, "shape": [bs // 1024, 1024], "runs": ["r"]})
+    for row in rows:
+        print(f"{row['name']} at a shard of ({row['runs'][0]}) "
+              f"{row['shape'][0]} x {row['shape'][1]}: {row['ms']:.4f} ms, "
+              f"plain {row['plain_ms']:.3f}, bound {row['bound_ms']:.4f} "
+              f"({row['bound_by']}), equal to plain (max |err| "
+              f"{row['max_abs_err']}) [{identity}]", flush=True)
+    return phases, rows
+
+
 def main() -> int:
     t_main = time.perf_counter()
     try:
@@ -2307,6 +2659,12 @@ def main() -> int:
     phases += stream_phases
     kernels += rows
     phases.append(stats_phase(torch, data, dev, identity, kernels))
+    t0 = time.perf_counter()
+    shard_phases, rows = sharded_phase(torch, data, dev, wrappers,
+                                       run_launches, identity)
+    phases += shard_phases
+    kernels += rows
+    print(f"sharded phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # groupagg as run (a) launches it: the flat layout, every op of (a) in
     # one launch over the unpadded stream

@@ -153,6 +153,122 @@ def multi_engine_step(groups: torch.Tensor, keys: torch.Tensor, ops, *,
     return (out_groups, values, out_valid, num), tuple(new_carries)
 
 
+class PartialTable(NamedTuple):
+    """A compact per-group partial result table: the engine stopped one
+    step before ``finalize``, the unit of two-phase (mergeable-state)
+    execution.  Each shard or pane reduces its range of the stream to one,
+    tables merge with :func:`combine_partial_tables` until one remains,
+    which then finalizes.  Rows are ascending unique group ids with a
+    ``PAD_GROUP`` tail; invalid rows hold the combiner identity.  Every
+    field may carry leading batch axes (shards, windows, panes)."""
+    groups: torch.Tensor      # [..., C] int32 — ascending ids (PAD tail)
+    states: dict              # {op name: state, each leaf [..., C]}
+    valid: torch.Tensor       # [..., C] bool
+    num_groups: torch.Tensor  # [...] int32
+
+
+def _scatter_states(scanned, combiner: Combiner, key_dtype, scatter_idx,
+                    n: int):
+    """Compact a scanned state by the shared permutation; dropped slots
+    hold the combiner identity (cast to each leaf's dtype)."""
+    ident = combiner.identity(tuple(scatter_idx.shape[:-1]) + (n + 1,),
+                              key_dtype, scatter_idx.device)
+    return tree_map(
+        lambda buf, leaf: buf.to(leaf.dtype).scatter_(-1, scatter_idx,
+                                                      leaf)[..., :n],
+        ident, scanned)
+
+
+def multi_engine_partials(groups: torch.Tensor, keys: torch.Tensor, ops, *,
+                          n_valid=None,
+                          scan=segscan.segmented_scan) -> PartialTable:
+    """The local phase of two-phase execution: one engine pass that stops
+    before ``finalize`` and returns the compact per-group partial-state
+    table of this range of the stream.  The contract of
+    :func:`multi_engine_step` (sorted by group, ``n_valid`` a real prefix,
+    ``scan`` its step (c)), without carries."""
+    combiners = tuple(_resolve(op) for op in ops)
+    names = [c.name for c in combiners]
+    if len(set(names)) != len(names):
+        raise ValueError(f"duplicate combiner names in ops: {names}")
+    n = groups.shape[-1]
+    groups = groups.to(torch.int32)
+    if n_valid is not None:
+        groups = torch.where(_prefix_mask(n, n_valid, groups.device), groups,
+                             PAD_GROUP)
+    starts = segscan.segment_starts(groups)
+    emit = segscan.segment_ends(groups) & (groups != PAD_GROUP)
+    scatter_idx, out_groups, num, out_valid = _compact_layout(groups, emit)
+    states = {c.name: _scatter_states(scan(starts, c.lift(keys), c), c,
+                                      keys.dtype, scatter_idx, n)
+              for c in combiners}
+    return PartialTable(out_groups, states, out_valid, num)
+
+
+def combine_partial_tables(a: PartialTable, b: PartialTable, ops, *,
+                           key_dtype) -> PartialTable:
+    """Merge two per-range partial tables (``a`` the earlier range): one
+    node of the combine tree.  A stable sort of the concatenated rows by
+    group keeps ``a``'s row before ``b``'s within a group (the
+    order-sensitive merges, dc's boundary rule and first/last, need it),
+    each op's :meth:`Combiner.partial_merge` folds them and the shared
+    compaction re-packs the result.  The output is as wide as both inputs
+    together.
+
+    Each table holds a group in one row at most, so a live group's rows
+    form a run of one or two after the sort: its fold is one merge of a
+    row with the row before it, where the segmented scan of the JAX
+    package takes log2(width) rounds to the same states (only the runs of
+    padding rows, which are dropped, are longer)."""
+    combiners = tuple(_resolve(op) for op in ops)
+    g = torch.cat([a.groups, b.groups], dim=-1).to(torch.int32)
+    order = torch.sort(g, dim=-1, stable=True).indices
+    g = torch.gather(g, -1, order)
+    n = g.shape[-1]
+    second = ~segscan.segment_starts(g)   # a row whose group continues
+    emit = segscan.segment_ends(g) & (g != PAD_GROUP)
+    scatter_idx, out_groups, num, out_valid = _compact_layout(g, emit)
+    states = {}
+    for c in combiners:
+        joined = tree_map(
+            lambda x, y: torch.gather(torch.cat([x, y], dim=-1), -1, order),
+            a.states[c.name], b.states[c.name])
+        merged = c.partial_merge(
+            tree_map(lambda x: torch.roll(x, 1, dims=-1), joined), joined)
+        folded = tree_map(lambda m, x: torch.where(second, m, x), merged,
+                          joined)
+        states[c.name] = _scatter_states(folded, c, key_dtype, scatter_idx,
+                                         n)
+    return PartialTable(out_groups, states, out_valid, num)
+
+
+def empty_partial_table(width: int, ops, key_dtype, device="cpu",
+                        lead: tuple = ()) -> PartialTable:
+    """The identity of :func:`combine_partial_tables`: what an empty shard
+    contributes to the combine tree (``lead``: leading batch axes)."""
+    shape = tuple(lead) + (width,)
+    states = {c.name: c.identity(shape, key_dtype, device)
+              for c in (_resolve(op) for op in ops)}
+    return PartialTable(
+        groups=torch.full(shape, PAD_GROUP, dtype=torch.int32, device=device),
+        states=states,
+        valid=torch.zeros(shape, dtype=torch.bool, device=device),
+        num_groups=torch.zeros(tuple(lead), dtype=torch.int32, device=device))
+
+
+def finalize_partial_table(table: PartialTable, ops):
+    """The last stage of the two-phase pipeline: each op's ``finalize`` on
+    the merged table, invalid rows zeroed.  Returns ``(groups, {name:
+    values}, valid, num_groups)``."""
+    values = {}
+    for c in (_resolve(op) for op in ops):
+        v = c.finalize(table.states[c.name])
+        values[c.name] = torch.where(table.valid, v,
+                                     torch.zeros((), dtype=v.dtype,
+                                                 device=v.device))
+    return table.groups, values, table.valid, table.num_groups
+
+
 def engine_step(groups: torch.Tensor, keys: torch.Tensor, op, *,
                 carry: segscan.Carry | None = None, open_tail: bool = False,
                 n_valid=None) -> tuple[GroupAggResult, segscan.Carry]:

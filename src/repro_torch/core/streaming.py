@@ -23,9 +23,12 @@ one per-group-window evaluation.  With an event-time window
 reorder buffer and a time-mode pane store: each push emits every group's
 window at the stream's watermark, and ``flush()`` drains the buffer and
 evaluates past the last tuple.  ``collect_stats=True`` threads a
-:mod:`repro_torch.obs.counters` dict beside the carry.  Sharded streams
-come with a later slice of the port (slice 7) and raise
-``NotImplementedError`` naming it.
+:mod:`repro_torch.obs.counters` dict beside the carry.  A rolling stream
+without a window shards (``num_shards=`` or ``mesh=``): each push reduces
+its shards' slices to partial tables, merges them in the combine tree
+(:func:`stream_push_table` folds the carry in), and emits the same slots
+as one device.  A sharded event-time stream comes with a later slice of
+the port (slice 7b) and raises ``NotImplementedError`` naming it.
 """
 from __future__ import annotations
 
@@ -35,7 +38,7 @@ import torch
 
 from repro_torch.core import engine as _engine
 from repro_torch.core import segscan
-from repro_torch.core.combiners import Combiner, get_combiner
+from repro_torch.core.combiners import Combiner, get_combiner, tree_map
 from repro_torch.obs import counters as _c
 from repro_torch.obs import trace as _trace
 
@@ -122,11 +125,77 @@ def stream_push(groups: torch.Tensor, keys: torch.Tensor, carries,
 
 def stream_push_table(table, carries, combiners, *, first_group, any_real,
                       p_ports: int = 4):
-    """The emission half of a *sharded* rolling push: it consumes the
-    merged per-group partial table of the cross-shard combine tree, which
-    comes with the port's multi-device slice."""
-    from repro_torch import query as _q
-    raise _q._later_slice("stream_push_table", 7, "multi-device")
+    """The emission half of a sharded rolling push: given the batch's
+    merged per-group :class:`repro_torch.core.engine.PartialTable` (the
+    cross-shard combine tree's, ``repro_torch.distributed.query_exec``),
+    fold in the rolling carry, emit every group but the open tail, and roll
+    the tail into the new carry.
+
+    Mirrors :func:`stream_push` slot for slot (the closed-carry slot first,
+    round-robin ports, the carry's bookkeeping), so a sharded stream equals
+    the single-device one for exactly-mergeable ops.  ``first_group`` is
+    the raw batch's leading group id (it decides whether the carry
+    closes), ``any_real`` a 0-d bool tensor, False for an all-padding
+    batch (``n_valid == 0``).  Nothing is read back."""
+    combiners = tuple(c if isinstance(c, Combiner) else get_combiner(c)
+                      for c in combiners)
+    c_slots = table.groups.shape[-1]
+    dev = table.groups.device
+    lead = carries[0]
+    emitted_before = lead.emitted
+
+    closes_carry = (lead.nonempty & any_real
+                    & (first_group.to(torch.int32) != lead.group))
+    carried_group = lead.group
+    carried_values = {c.name: c.finalize(cr.state)
+                      for c, cr in zip(combiners, carries)}
+
+    # the carry continues into the batch's first group: fold its state
+    # into table row 0 (the earlier range on the left)
+    applies = lead.nonempty & any_real & ~closes_carry
+    num_t = table.num_groups
+    idx = torch.arange(c_slots, device=dev)
+    emit_row = table.valid & (idx < num_t - 1)   # withhold the open tail
+    num = (torch.clamp(num_t - 1, min=0)
+           + closes_carry.to(torch.int32)).to(torch.int32)
+    tail_idx = torch.clamp(num_t - 1, min=0).to(torch.int64)
+
+    out_values = {}
+    new_carries = []
+    for c, cr in zip(combiners, carries):
+        st = table.states[c.name]
+        merged0 = c.partial_merge(tree_map(lambda x: x[None], cr.state),
+                                  tree_map(lambda x: x[:1], st))
+        st = tree_map(lambda m, x: torch.cat([torch.where(applies, m, x[:1]),
+                                              x[1:]]), merged0, st)
+        vals = c.finalize(st)
+        zero = torch.zeros((), dtype=vals.dtype, device=dev)
+        cv = carried_values[c.name]
+        out_values[c.name] = torch.cat([
+            torch.where(closes_carry, cv, zero.to(cv.dtype))[None],
+            torch.where(emit_row, vals, zero)])
+        new_carries.append(segscan.Carry(
+            group=torch.where(any_real, table.groups[tail_idx],
+                              cr.group).to(torch.int32),
+            state=tree_map(lambda x, old: torch.where(any_real, x[tail_idx],
+                                                      old), st, cr.state),
+            nonempty=cr.nonempty | any_real,
+            emitted=(emitted_before + num).to(torch.int32),
+        ))
+
+    # prepend the carried group's slot; rotate so valid entries stay dense
+    shift = (~closes_carry).to(torch.int64)
+    out_idx = torch.arange(c_slots + 1, device=dev)
+    src = torch.clamp(out_idx + shift, 0, c_slots)
+    pad = torch.tensor(_engine.PAD_GROUP, dtype=torch.int32, device=dev)
+    row_groups = torch.where(emit_row, table.groups, pad)
+    out_groups = torch.cat([torch.where(closes_carry, carried_group,
+                                        pad)[None], row_groups])[src]
+    out_values = {name: col[src] for name, col in out_values.items()}
+    out_valid = out_idx < num
+    rr = torch.where(out_valid, (emitted_before + out_idx) % p_ports,
+                     -1).to(torch.int32)
+    return (out_groups, out_values, out_valid, num, rr), tuple(new_carries)
 
 
 class StreamingAggregator:
@@ -151,6 +220,12 @@ class StreamingAggregator:
     An event-time window (``Window(range=...)``) takes ``timestamps=`` on
     every push; its results carry ``stats={"late_dropped": ...}``.
 
+    ``num_shards`` / ``mesh`` (a sequence of devices, one shard each; the
+    carry lives on the first) run every push of a stream without a window
+    through the two-phase pipeline of
+    :mod:`repro_torch.distributed.query_exec`; ``push`` also takes the
+    batch pre-cut as ``[num_shards, L]`` slices.
+
     ``collect_stats=True`` threads a :mod:`repro_torch.obs.counters` dict
     beside the carry and surfaces it (cumulative over the stream, copies
     on the device) as ``StreamResult.stats`` on every push and on the
@@ -164,9 +239,15 @@ class StreamingAggregator:
                  mesh=None, collect_stats: bool = False, device="cuda",
                  backend: str | None = None):
         from repro_torch import query as _q
-        if mesh is not None or num_shards not in (None, 1):
-            raise _q._later_slice("StreamingAggregator(num_shards=, mesh=)",
-                                  7, "multi-device")
+        if mesh is not None:
+            if num_shards is not None and num_shards != len(mesh):
+                raise ValueError(
+                    f"num_shards={num_shards} contradicts the mesh's "
+                    f"{len(mesh)} devices")
+            num_shards = len(mesh)
+            device = mesh[0]
+        self.num_shards = num_shards or 1
+        self.mesh = mesh
         self._one = not isinstance(op, (tuple, list))
         if self._one:
             op = op if isinstance(op, Combiner) else get_combiner(op)
@@ -176,10 +257,12 @@ class StreamingAggregator:
         self.key_dtype = key_dtype
         self.p_ports = p_ports
         self.collect_stats = bool(collect_stats)
-        self.plan = _q.plan(query, backend=backend, device=device)
+        self.plan = _q.plan(query, backend=backend, device=device,
+                            num_shards=self.num_shards, devices=mesh)
         self.carry = _q.init_stream_state(self.plan, key_dtype,
                                           collect_stats=self.collect_stats)
-        self._step = _q.stream_fn(self.plan, p_ports=p_ports, inplace=True,
+        self._step = _q.stream_fn(self.plan, p_ports=p_ports, mesh=mesh,
+                                  inplace=True,
                                   collect_stats=self.collect_stats)
         self._donated_buffers = 0
 
@@ -227,10 +310,10 @@ class StreamingAggregator:
             timestamps = _q._as_tensor(timestamps, dev)
         if groups.dim() == 2:
             # per-shard pushes: [num_shards, L] slices of one batch
-            if groups.shape[0] != 1:
+            if groups.shape[0] != self.num_shards:
                 raise ValueError(
                     f"per-shard push has {groups.shape[0]} slices but the "
-                    f"aggregator shards 1 ways")
+                    f"aggregator shards {self.num_shards} ways")
             groups = groups.reshape(-1)
             keys = keys.reshape(-1)
             if timestamps is not None:

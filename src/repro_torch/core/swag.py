@@ -223,6 +223,17 @@ def window_tails(g, k, pairs, *, interpolate: bool = False):
     return shared[0], out, shared[1], shared[2]
 
 
+def pane_partials(pane_groups, pane_keys, ops):
+    """The local phase of sharded SWAG over ``WA``-wide panes (leading axes
+    a batch of panes): sort each pane once and stop before finalize.
+    Returns ``(sorted_groups, sorted_keys, table)``, ``table`` each pane's
+    per-group :class:`~repro_torch.core.engine.PartialTable` over ``ops``
+    (which may be empty: a query of run-channel ops only still needs the
+    sorted panes)."""
+    g, k = sorter.sort_pairs(pane_groups, pane_keys, full_width=True)
+    return g, k, _engine.multi_engine_partials(g, k, ops)
+
+
 def pane_table_channel(ops, key_dtype: torch.dtype, p: int) -> list[bool]:
     """Which ops take the per-pane partial-table channel (True) vs the
     merged-window channel (False) on the pane path: PARTIAL_OPS when panes

@@ -1,8 +1,9 @@
 """Data in and results out: seeded streams in numpy, tensors on a device,
 results in the numpy layout of ``repro.query.AggResult``, pane-store
 states in the field order of ``repro.core.panestore.PaneStoreState``,
-reorder buffers in that of ``repro.core.eventtime.ReorderState``, and
-streaming carries (one ``repro.core.segscan.Carry`` an op, or an event-time
+reorder buffers in that of ``repro.core.eventtime.ReorderState``, partial
+tables in that of ``repro.core.engine.PartialTable``, and streaming
+carries (one ``repro.core.segscan.Carry`` an op, or an event-time
 stream's (reorder buffer, pane store) pair) in the field order of the JAX
 package's — so the same inputs can go through both
 packages, their full outputs (padded tails included) be compared, and a
@@ -16,6 +17,7 @@ from typing import TYPE_CHECKING
 import numpy as np
 
 if TYPE_CHECKING:
+    from repro_torch.core.engine import PartialTable
     from repro_torch.core.eventtime import ReorderState
     from repro_torch.core.panestore import PaneStoreState
     from repro_torch.query import AggResult
@@ -26,6 +28,9 @@ PANE_STATE_FIELDS = ("owner", "keys", "seqs", "count", "base", "stamp",
 #: the fields of a rolling carry, in order; ``state`` is one array or the
 #: tuple of the combiner's state arrays (the JAX treedef's order)
 CARRY_FIELDS = ("group", "state", "nonempty", "emitted")
+#: the fields of a partial table, in order; ``states`` maps each op name
+#: to one array or the tuple of its combiner's state arrays
+PARTIAL_TABLE_FIELDS = ("groups", "states", "valid", "num_groups")
 #: the fields of a reorder buffer, in order
 REORDER_FIELDS = ("ts", "grp", "val", "seq", "occ", "max_ts", "last_emit",
                   "seq_clock", "dropped")
@@ -213,3 +218,35 @@ def carries_to_numpy(carries) -> tuple:
                             else _np_copy(c.state)),
                   "nonempty": _np_copy(c.nonempty),
                   "emitted": _np_copy(c.emitted)} for c in carries)
+
+
+def partial_table_from_numpy(arrays, device="cuda") -> PartialTable:
+    """A partial table from numpy arrays — a mapping of
+    :data:`PARTIAL_TABLE_FIELDS` or a sequence in that order (a JAX
+    ``PartialTable`` converted leaf by leaf), each op's state one array or
+    a tuple of arrays; leading batch axes (shards) kept — on ``device``."""
+    import torch
+
+    from repro_torch.core.engine import PartialTable
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    groups, states, valid, num = _fields(arrays, PARTIAL_TABLE_FIELDS,
+                                         "partial table")
+    return PartialTable(
+        t(groups),
+        {name: (tuple(t(x) for x in st) if isinstance(st, (tuple, list))
+                else t(st)) for name, st in states.items()},
+        t(valid), t(num))
+
+
+def partial_table_to_numpy(table: PartialTable) -> dict:
+    """A partial table as ``{field: numpy}`` (``states`` as ``{name:
+    array or tuple of arrays}``; copies)."""
+    return {"groups": _np_copy(table.groups),
+            "states": {name: (tuple(_np_copy(x) for x in st)
+                              if isinstance(st, tuple) else _np_copy(st))
+                       for name, st in table.states.items()},
+            "valid": _np_copy(table.valid),
+            "num_groups": _np_copy(table.num_groups)}

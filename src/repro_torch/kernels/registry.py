@@ -215,31 +215,46 @@ def unsupported_error(name: str, reason: str) -> ValueError:
         f"[available backends: {', '.join(sorted(available_backends()))}]")
 
 
-def choose_backend(query, device: torch.device) -> str:
-    """Resolve ``auto`` for one query on ``device``: **measured-cost
-    routing** over the backends whose probe accepts the query, with the
-    static choice as fallback.
+def _on_cpu(devices) -> bool:
+    """Whether execution lands off the card: the first of ``devices`` (one
+    device or a sequence, e.g. a mesh's) is not a CUDA device."""
+    if devices is None:
+        return not torch.cuda.is_available()
+    if isinstance(devices, (str, torch.device)):
+        devices = [devices]
+    devices = list(devices)
+    return not devices or torch.device(devices[0]).type != "cuda"
+
+
+def choose_backend(query, devices=None, num_shards: int = 1) -> str:
+    """Resolve ``auto`` for one query: **measured-cost routing** over the
+    backends whose probe accepts the query, with the static choice as
+    fallback.
 
     Among the candidates, consult
     :data:`repro_torch.obs.registry.METRICS` for observed tuples/s at this
-    query's fingerprint and pick the fastest, but only when **two or
-    more** candidates have measured cells: one cell proves nothing about
-    the others (on the CPU it would mostly be the reference's own
-    telemetry re-electing itself).  Otherwise the static choice: the
-    kernels on the card (the pane store for per-group and streaming
-    windows, panes when the window shape allows), the reference on the
-    CPU, where the kernel backends run their plain versions."""
+    query's fingerprint (``num_shards`` included) and pick the fastest,
+    but only when **two or more** candidates have measured cells: one cell
+    proves nothing about the others (on the CPU it would mostly be the
+    reference's own telemetry re-electing itself).  Otherwise the static
+    choice: the kernels on the card (the pane store for per-group and
+    streaming windows, panes when the window shape allows), the reference
+    on the CPU, where the kernel backends run their plain versions.
+
+    ``devices`` (one device, or a sequence such as a mesh's) makes the
+    probe answer for the devices the query runs on: CPU devices get
+    ``reference``, CUDA devices the kernel backends."""
     from repro_torch.obs.registry import METRICS, query_fingerprint
     candidates = [name for name in ("cuda-panestore", "cuda-panes", "cuda",
                                     "reference")
                   if BACKENDS[name].supports(query) is None]
-    fp = query_fingerprint(query)
+    fp = query_fingerprint(query, num_shards=num_shards)
     measured = [name for name in candidates
                 if METRICS.tuples_per_s(name, fp)]
     if len(measured) >= 2:
         best = METRICS.best_backend(fp, among=candidates)
         if best is not None:
             return best
-    if device.type != "cuda":
+    if _on_cpu(devices):
         return "reference"
     return candidates[0]

@@ -118,7 +118,7 @@ def query_fingerprint(query, *, path: Optional[str] = None,
 
 
 def plan_fingerprint(plan) -> str:
-    """:func:`query_fingerprint` of a plan: its query with the plan's path,
-    on one shard (the port plans for one device; sharding is a later
-    slice)."""
-    return query_fingerprint(plan.query, path=plan.path)
+    """:func:`query_fingerprint` of a plan: its query with the plan's path
+    and shard count."""
+    return query_fingerprint(plan.query, path=plan.path,
+                             num_shards=plan.num_shards)

@@ -51,9 +51,16 @@ timestamp seen less ``L``):
 ``AggResult.stats`` (:mod:`repro_torch.obs`): a streaming state then
 carries a counters dict beside the engine state, the placement, reorder
 and time-placement kernels count into it on the card, and nothing is read
-back until the caller reads ``stats``.  Sharded execution belongs to a
-later slice of the port and raises ``NotImplementedError`` naming the
-ROADMAP slice that brings it.
+back until the caller reads ``stats``.
+
+Sharded execution (``execute(..., num_shards=S)`` or ``mesh=[device,
+...]``, one shard a device) runs the two-phase pipeline of
+:mod:`repro_torch.distributed.query_exec`: per-shard partial tables, one
+combine tree, one finalize, for batch queries with and without a count
+window and for rolling streams without one.  On the card the shards'
+local phases launch the same kernels as one device, once a shard.  A
+sharded event-time stream belongs to a later slice of the port and raises
+``NotImplementedError`` naming the ROADMAP slice that brings it.
 """
 from __future__ import annotations
 
@@ -333,19 +340,84 @@ class AggResult(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """A Query lowered onto a concrete backend for one device."""
+    """A Query lowered onto a concrete backend and stage pipeline.
+
+    ``stages`` is the explicit execution pipeline: one device runs
+    ``("local", "finalize")``; sharded plans (``num_shards > 1``) the
+    two-phase ``("partition", "local", "merge", "finalize")`` of
+    :mod:`repro_torch.distributed.query_exec`.  ``device`` is where the
+    inputs and the result live (a mesh's first device)."""
     query: Query
     backend: str            # concrete registry name (never "auto")
     path: str               # "engine" | "window" | "stream"
     device: str
     note: str = ""
+    num_shards: int = 1
+    stages: tuple = ("local", "finalize")
 
 
-def plan(query: Query, *, backend: str | None = None,
-         device="cuda") -> Plan:
-    """Validate ``query`` and choose a backend (``None`` means ``auto``).
-    Raises ``ValueError`` when an explicitly requested backend cannot run
-    the query (never a silent fallback).
+def _validate_sharded(query: Query, backend: str) -> None:
+    """Reject, at plan time and with the reason, a query whose states
+    cannot merge across shards (never a silent wrong answer)."""
+    w = query.window
+    if w is not None and w.per_group:
+        raise ValueError(
+            "per-group windows (Window(ws_per_group=...)) replay one shared "
+            "evicting pane store — a sequential structure with no "
+            "cross-shard merge; run them single-device")
+    if w is not None and query.streaming and not w.is_time:
+        raise ValueError(
+            "streaming windowed queries thread one shared pane store as "
+            "their carry and cannot shard; stream the non-windowed query "
+            "per shard instead")
+    if w is not None and w.is_time and not query.streaming:
+        raise ValueError(
+            "batch time-range windows frame by concrete host-side "
+            "timestamps and run single-device; shard the streaming path "
+            "(Query(streaming=True)) instead — per-shard reorder buffers "
+            "release against the min-merged watermark")
+    if query.presorted:
+        raise ValueError("presorted conflicts with sharded execution — the "
+                         "local phase sorts per shard/pane")
+    if w is not None and w.is_time:
+        raise _later_slice("a sharded event-time stream (num_shards=, "
+                           "mesh=)", "7b", "multi-device event time")
+    for op, nm in zip(query.ops, query.op_names):
+        if nm == "median":
+            if query.streaming:
+                raise ValueError("streaming median has no mergeable carry")
+            continue
+        comb = op if isinstance(op, Combiner) else get_combiner(nm)
+        if not comb.mergeable:
+            raise ValueError(
+                f"op {nm!r} has no cross-shard partial-state merge (its "
+                f"lifted positions are shard-local); run it single-device")
+    if backend == "cuda" and w is None and not query.streaming:
+        # median rides the sorted-run channel, never the group-by kernel; a
+        # rolling push's local phase is the engine pass with the scan
+        # kernel, whose states are partial states for every op it scans
+        from repro_torch.distributed.query_exec import KERNEL_STATE_OPS
+        bad = sorted(set(query.op_names) - set(KERNEL_STATE_OPS)
+                     - {"median"})
+        if bad:
+            raise ValueError(
+                f"the cuda group-by kernel emits finalized values; only "
+                f"{sorted(KERNEL_STATE_OPS)} coincide with their partial "
+                f"states, so {bad} cannot shard on this backend — use "
+                f"reference")
+
+
+def plan(query: Query, *, backend: str | None = None, device="cuda",
+         num_shards: int = 1, devices=None) -> Plan:
+    """Validate ``query``, choose a backend (``None`` means ``auto``) and
+    lay out the stage pipeline.  Raises ``ValueError`` when an explicitly
+    requested backend cannot run the query (never a silent fallback).
+
+    ``num_shards > 1`` plans the two-phase pipeline (``partition -> local
+    -> merge -> finalize``); ``devices`` (a mesh's devices) makes ``auto``
+    answer for the devices the shards run on, ``device`` by default.  An
+    ``auto`` kernel backend that cannot shard the query falls back to the
+    reference (the note says so); an explicit one raises.
 
     Streaming windowed queries run on the per-group pane store: with a
     plain ``Window(ws)`` the window counts each group's *own* last ``ws``
@@ -394,11 +466,29 @@ def plan(query: Query, *, backend: str | None = None,
     name = "auto" if backend is None else backend
     note = ""
     if name == "auto":
-        name = _registry.choose_backend(query, device)
+        name = _registry.choose_backend(
+            query, device if devices is None else devices,
+            num_shards=num_shards)
         note = "auto"
     reason = _registry.get_backend(name).supports(query)
     if reason is not None:
         raise _registry.unsupported_error(name, reason)
+    if num_shards < 1:
+        raise ValueError(f"num_shards must be >= 1, got {num_shards}")
+    stages = ("local", "finalize")
+    if num_shards > 1:
+        try:
+            _validate_sharded(query, name)
+        except ValueError:
+            # an auto-chosen kernel backend must not turn a shardable query
+            # into a plan failure: fall back to the reference (an explicit
+            # backend still raises)
+            if note != "auto" or name == "reference":
+                raise
+            name = "reference"
+            _validate_sharded(query, name)
+            note = "auto; kernel backend cannot shard this query"
+        stages = ("partition", "local", "merge", "finalize")
     path = ("stream" if query.streaming
             else "window" if query.window is not None
             else "engine")
@@ -423,7 +513,7 @@ def plan(query: Query, *, backend: str | None = None,
             "reference: per-tuple placement on the host" + \
             (f" (cuda-panestore: {why})" if why else "")
     return Plan(query=query, backend=name, path=path, device=str(device),
-                note=note)
+                note=note, num_shards=num_shards, stages=stages)
 
 
 def _combiners(query: Query) -> tuple:
@@ -443,6 +533,16 @@ def _init_stream_counters(p: Plan) -> dict:
         return _c.init(dev, reorder_depth_hwm=0, reorder_forced_pops=0,
                        pane_evictions=0, pane_occupancy_hwm=0,
                        late_dropped=0, watermark=_eventtime.TS_MIN)
+    if p.num_shards > 1:
+        # the combine tree's telemetry: seeded with the plan's round count
+        # (log2 of the next power of two), so every push keeps its keys
+        rounds = (p.num_shards - 1).bit_length()
+        counters = _c.init(dev, stream_tuples=0, combine_rounds=rounds)
+        for name, dtype in (("combine_round_width", torch.int32),
+                            ("combine_round_groups", torch.int32),
+                            ("combine_round_bytes", torch.float32)):
+            counters[name] = torch.zeros((rounds,), dtype=dtype, device=dev)
+        return counters
     if w is not None:
         return _c.init(dev, pane_evictions=0, pane_occupancy_hwm=0,
                        pergroup_partial_ops=0, pergroup_merge_ops=0)
@@ -619,6 +719,13 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
     unless ``inplace``, which lets a ``cuda-panestore`` push update its
     buffers where they lie.
 
+    Sharded plans (``num_shards > 1``) take the same whole batch, reduce
+    each shard's slice to a partial table (over ``mesh``, a sequence of
+    devices, when given; on ``cuda`` with the segmented-scan kernel, one
+    launch an op a shard), merge them in the combine tree (which reads
+    the tables' group counts back, once a push) and fold the carry in at
+    emit time: the same slots as one device.
+
     ``collect_stats=True`` expects (and returns) the wrapped state
     ``(engine state, counters dict)`` of ``init_stream_state(...,
     collect_stats=True)``: the counters accumulate across pushes, on the
@@ -627,8 +734,9 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
     runs exactly the stats-off step."""
     if p.path != "stream":
         raise ValueError("stream_fn needs a streaming plan")
-    if mesh is not None:
-        raise _later_slice("stream_fn(mesh=)", 7, "multi-device")
+    if mesh is not None and len(mesh) != p.num_shards:
+        raise ValueError(f"the plan shards {p.num_shards} ways but the mesh "
+                         f"holds {len(mesh)} devices")
     q = p.query
 
     def unwrap(state):
@@ -681,6 +789,22 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
         return store_step
 
     combiners = _combiners(q)
+    if p.num_shards > 1:
+        from repro_torch.distributed import query_exec as _qx
+
+        def sharded_step(groups, keys, carries, n_valid=None):
+            carries, counters = unwrap(carries)
+            out = _qx.stream_push_sharded(
+                q, groups, keys, carries, combiners,
+                num_shards=p.num_shards, mesh=mesh, n_valid=n_valid,
+                p_ports=p_ports, counters=counters, backend=p.backend,
+                tile=tile)
+            if counters is not None:
+                _c.store_into(counters, out[2])
+            return out[0], wrap(out[1], counters)
+
+        return sharded_step
+
     # step (c) on the segmented-scan kernel, one launch an op
     scan = functools.partial(segmented_scan_cuda, tile=tile) \
         if p.backend == "cuda" else _segscan.segmented_scan
@@ -812,6 +936,31 @@ def _execute_window(p: Plan, groups, keys, counters=None):
     return AggResult(r.groups, {name: r.values}, r.valid, r.num_groups)
 
 
+def _execute_sharded(p: Plan, groups, keys, n_valid, *, mesh, tile: int,
+                     counters=None):
+    """A batch query through the two-phase pipeline of
+    :mod:`repro_torch.distributed.query_exec`."""
+    from repro_torch.distributed import query_exec as _qx
+    q = p.query
+    if p.path == "window":
+        if n_valid is not None:
+            raise ValueError("n_valid applies to non-windowed queries")
+        # the per-window combine trees run batched (one tiny tree a
+        # window): no shard-tree telemetry to record there
+        g, values, valid, num = _qx._window_sharded(
+            q, groups, keys, num_shards=p.num_shards, mesh=mesh,
+            backend=p.backend)
+    elif counters is not None:
+        g, values, valid, num, counters = _qx._engine_sharded(
+            q, groups, keys, n_valid, num_shards=p.num_shards, mesh=mesh,
+            backend=p.backend, tile=tile, counters=counters)
+    else:
+        g, values, valid, num = _qx._engine_sharded(
+            q, groups, keys, n_valid, num_shards=p.num_shards, mesh=mesh,
+            backend=p.backend, tile=tile)
+    return AggResult(g, values, valid, num, counters)
+
+
 def _execute_time_window(p: Plan, groups, keys, timestamps):
     """A batch of ``Window(range=..., slide=...)``: sort by timestamp once
     (window count and width are shapes, read back from the device), then
@@ -901,7 +1050,15 @@ def execute(plan_or_query, groups, keys=None, *, state=None,
       timestamps: [N] integer event times of a ``Window(range=...)``
         query (numpy or torch; required by it, refused by the others;
         int32 in a stream).
-      mesh, num_shards: a later slice of the port (multi-device).
+      mesh: a sequence of devices (``torch.device`` or their names), one
+        shard each: the two-phase pipeline with shard *s*'s local phase on
+        ``mesh[s]`` and the combine tree on ``mesh[0]``, where the inputs
+        and the result live (``device`` is then ``mesh[0]``).
+      num_shards: the shard count without a mesh: the same pipeline on
+        ``device`` (the kernels launched once a shard).  With ``mesh`` it
+        must match the mesh's length (or be omitted).  The sharded result
+        equals one device's on the valid lanes, for the exactly-mergeable
+        ops on int32 keys.
       collect_stats: surface the engine's counters
         (:mod:`repro_torch.obs.counters`) as ``AggResult.stats``, and
         record the call's observed tuples/s in
@@ -915,18 +1072,31 @@ def execute(plan_or_query, groups, keys=None, *, state=None,
     the query streams.
     """
     t0 = _time.perf_counter()
-    if mesh is not None or num_shards not in (None, 1):
-        raise _later_slice("sharded execution (mesh=, num_shards=)", 7,
-                           "multi-device")
+    devices = None
+    if mesh is not None:
+        from repro_torch.distributed import query_exec as _qx
+        mesh_shards = _qx.mesh_num_shards(mesh)
+        if num_shards is not None and num_shards != mesh_shards:
+            raise ValueError(
+                f"num_shards={num_shards} contradicts the mesh's "
+                f"{mesh_shards} devices; pass one or the other")
+        num_shards = mesh_shards
+        devices = [_common.require_cuda(d) for d in mesh]
+        device = devices[0]
     device = _common.require_cuda(device)
     with _trace.span("plan"):
         if isinstance(plan_or_query, Plan):
             p = plan_or_query
             want = backend if backend is not None else p.backend
-            if want != p.backend or torch.device(p.device) != device:
-                p = plan(p.query, backend=want, device=device)
+            shards = num_shards if num_shards is not None else p.num_shards
+            if want != p.backend or torch.device(p.device) != device \
+                    or shards != p.num_shards:
+                p = plan(p.query, backend=want, device=device,
+                         num_shards=shards, devices=devices)
         else:
-            p = plan(plan_or_query, backend=backend, device=device)
+            p = plan(plan_or_query, backend=backend, device=device,
+                     num_shards=1 if num_shards is None else num_shards,
+                     devices=devices)
 
     groups, keys, n_valid = _prepare_inputs(p.query, groups, keys, n_valid,
                                             device)
@@ -948,7 +1118,8 @@ def execute(plan_or_query, groups, keys=None, *, state=None,
                 "counters live in the threaded state; pass state=None to "
                 "start a new stream with the other setting")
         extra = (timestamps,) if is_time else ()
-        step = stream_fn(p, tile=tile, collect_stats=collect_stats)
+        step = stream_fn(p, tile=tile, mesh=mesh,
+                         collect_stats=collect_stats)
         with _trace.span(f"dispatch:{p.backend}/stream") as sp:
             (g, values, valid, num, _rr), new_state = step(
                 groups, keys, state, n_valid, *extra)
@@ -962,7 +1133,12 @@ def execute(plan_or_query, groups, keys=None, *, state=None,
         raise ValueError("state= applies to streaming queries "
                          "(Query(streaming=True))")
     counters = {} if collect_stats else None
-    if p.path == "window":
+    if p.num_shards > 1:
+        with _trace.span(f"dispatch:{p.backend}/{p.path}/sharded") as sp:
+            res = _execute_sharded(p, groups, keys, n_valid, mesh=mesh,
+                                   tile=tile, counters=counters)
+            sp.attach(res)
+    elif p.path == "window":
         if n_valid is not None:
             raise ValueError("n_valid applies to non-windowed queries")
         with _trace.span(f"dispatch:{p.backend}/window") as sp:
@@ -978,7 +1154,7 @@ def execute(plan_or_query, groups, keys=None, *, state=None,
     if collect_stats:
         stats = dict(res.stats) if res.stats else {}
         stats["tuples"] = n
-        stats["num_shards"] = 1  # one device (sharding: a later slice)
+        stats["num_shards"] = p.num_shards
         res = res._replace(stats=stats)
         _observe_throughput(p, res, n, t0)
     return res, None

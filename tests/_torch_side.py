@@ -330,17 +330,20 @@ def swag_per_group_counters():
 
 
 def execute_stats(ops, g, k, **kw):
-    """The stats of ``execute(..., collect_stats=True)`` on the CPU."""
+    """The stats of ``execute(..., collect_stats=True)`` on the CPU (numpy
+    in place of tensors)."""
+    from repro_torch.interop import stats_to_numpy
+
     res, _ = tq.execute(_query(ops, None, None), g, k, device="cpu",
                         collect_stats=True, **kw)
-    return res.stats
+    return stats_to_numpy(res.stats)
 
 
 # --------------------------------------------------------------- streaming
 
-def _stream_plan(ops, window, query, backend):
+def _stream_plan(ops, window, query, backend, num_shards=1):
     return tq.plan(_query(ops, window, dict(query or {}, streaming=True)),
-                   backend=backend, device="cpu")
+                   backend=backend, device="cpu", num_shards=num_shards)
 
 
 def _stream_state(p, state, key_dtype):
@@ -365,36 +368,47 @@ def _state_np(state):
 
 
 def stream_steps(ops, batches, *, backend, window=None, query=None,
-                 state=None, n_valids=None):
+                 state=None, n_valids=None, num_shards=1, mesh=None,
+                 collect_stats=False):
     """Push ``batches`` ([(groups, keys)], or [(groups, keys, timestamps)]
     for an event-time window) through the streaming step of the plan
-    (``stream_fn``), from ``state`` (numpy) or a fresh one; per push, its
-    full outputs (with ``rr_port``) and the state it left, in numpy."""
-    p = _stream_plan(ops, window, query, backend)
+    (``stream_fn``, sharded ``num_shards`` ways or over ``mesh``), from
+    ``state`` (numpy) or a fresh one; per push, its full outputs (with
+    ``rr_port``) and the state it left (and with ``collect_stats`` the
+    counters), in numpy."""
+    from repro_torch.interop import stats_to_numpy
+
+    p = _stream_plan(ops, window, query, backend, num_shards)
     st = _stream_state(p, state, _t(batches[0][1]).dtype)
-    step = tq.stream_fn(p)
+    if collect_stats:
+        st = (st, tq._init_stream_counters(p))
+    step = tq.stream_fn(p, mesh=mesh, collect_stats=collect_stats)
     n_valids = n_valids or [None] * len(batches)
     out = []
     for (g, k, *ts), nv in zip(batches, n_valids):
         (og, ov, valid, num, rr), st = step(_t(g), _t(k), st, nv,
                                             *(_t(t) for t in ts))
+        inner, stats = st if collect_stats else (st, None)
         out.append({"groups": og.numpy(), "values": _np(ov),
                     "valid": valid.numpy(), "num": num.numpy(),
-                    "rr": rr.numpy(), "state": _state_np(st)})
+                    "rr": rr.numpy(), "state": _state_np(inner),
+                    "stats": stats_to_numpy(stats)})
     return out
 
 
 def aggregator_stream(op, batches, *, backend, window=None,
-                      float_keys=False, n_valids=None):
+                      float_keys=False, n_valids=None, num_shards=None):
     """``StreamingAggregator``'s pushes and flush on the CPU: per push its
     result (``stats`` included) and carry, then the flush's result, in
-    numpy.  An event-time window's batches carry timestamps third."""
+    numpy.  An event-time window's batches carry timestamps third; a
+    sharded aggregator's batches may come as ``[num_shards, L]``
+    slices."""
     from repro_torch.core import StreamingAggregator
 
     agg = StreamingAggregator(
         op, window=None if window is None else tq.Window(**window),
         key_dtype=torch.float32 if float_keys else torch.int32,
-        device="cpu", backend=backend)
+        device="cpu", backend=backend, num_shards=num_shards)
     n_valids = n_valids or [None] * len(batches)
     out = []
     for (g, k, *ts), nv in zip(batches, n_valids):
@@ -446,14 +460,24 @@ def stream_evictions(window, batches) -> int:
 
 
 def aggregator_later_slice(what):
-    """The pieces of streaming that wait for later slices."""
+    """The pieces of streaming that came with, or wait for, later slices:
+    what a sharded aggregator or the table push return, or the raise."""
     from repro_torch.core import StreamingAggregator
+    from repro_torch.core.engine import multi_engine_partials
+    from repro_torch.core.segscan import init_carry
+    from repro_torch.core.combiners import get_combiner
     from repro_torch.core.streaming import stream_push_table
 
+    g = np.repeat(np.arange(4, dtype=np.int32), 2)
     if what == "shards":
-        StreamingAggregator("sum", num_shards=2, device="cpu")
+        agg = StreamingAggregator("sum", num_shards=2, device="cpu")
+        return _np(agg.push(g, g).values)
     elif what == "mesh":
-        StreamingAggregator("sum", mesh=object(), device="cpu")
+        agg = StreamingAggregator("sum", mesh=["cpu", "cpu"])
+        return _np(agg.push(g.reshape(2, 4), g.reshape(2, 4)).values)
+    elif what == "time window shards":
+        StreamingAggregator("sum", window=tq.Window(range=10), num_shards=2,
+                            device="cpu")
     elif what == "stats":
         return StreamingAggregator("sum", collect_stats=True,
                                    device="cpu").collect_stats
@@ -467,7 +491,11 @@ def aggregator_later_slice(what):
         g = np.zeros(4, np.int32)
         return sorted(agg.push(g, g, timestamps=np.arange(4)).stats)
     elif what == "table":
-        stream_push_table(None, (), ("sum",), first_group=0, any_real=True)
+        t = multi_engine_partials(_t(g), _t(g), ("sum",))
+        (og, ov, _, num, _), _ = stream_push_table(
+            t, (init_carry(get_combiner("sum"), torch.int32),), ("sum",),
+            first_group=_t(g)[0], any_real=torch.tensor(True))
+        return _np((og, ov["sum"], num))
 
 
 # ------------------------------------------------------ time-range windows
@@ -885,3 +913,100 @@ def execute_stats_toggled():
         except ValueError as e:
             errors.append(str(e))
     return errors
+
+
+# ------------------------------------------------- sharded execution (7a)
+
+def _table_np(t):
+    from repro_torch.interop import partial_table_to_numpy
+
+    return partial_table_to_numpy(t)
+
+
+def partials_algebra(g, k, ops, cut):
+    """The partial tables of the whole stream, of its first ``cut`` tuples
+    and of the rest (each a masked prefix of a full-width stream), their
+    merge, and the finalized whole and merge (numpy)."""
+    from repro_torch.core import engine as E
+
+    g, k = _t(g), _t(k)
+    n = g.shape[0]
+    full = E.multi_engine_partials(g, k, ops)
+    pa = E.multi_engine_partials(g, k, ops, n_valid=cut)
+    pb = E.multi_engine_partials(torch.roll(g, -cut), torch.roll(k, -cut),
+                                 ops, n_valid=n - cut)
+    merged = E.combine_partial_tables(pa, pb, ops, key_dtype=k.dtype)
+    return ([_table_np(t) for t in (full, pa, pb, merged)],
+            [_np(E.finalize_partial_table(t, ops)) for t in (full, merged)])
+
+
+def combine_tables(tables, ops, key_dtype="int32"):
+    """Stacked partial tables (numpy, through ``interop``) merged by the
+    combine tree, then finalized, and the tree's counters."""
+    from repro_torch.core import engine as E
+    from repro_torch.distributed import query_exec as qx
+    from repro_torch.interop import partial_table_from_numpy
+
+    merged, c = qx.combine_tree(partial_table_from_numpy(tables, "cpu"), ops,
+                                key_dtype=getattr(torch, key_dtype),
+                                counters={})
+    return (_table_np(merged), _np(E.finalize_partial_table(merged, ops)),
+            _np(c))
+
+
+def empty_identity(g, k, ops, width):
+    """The empty table of ``width`` rows (numpy), and the finalized
+    partials of the stream, alone and merged after the empty table."""
+    from repro_torch.core import engine as E
+
+    empty = E.empty_partial_table(width, ops, _t(k).dtype)
+    pb = E.multi_engine_partials(_t(g), _t(k), ops)
+    merged = E.combine_partial_tables(empty, pb, ops, key_dtype=_t(k).dtype)
+    return (_table_np(empty),
+            [_np(E.finalize_partial_table(t, ops)) for t in (pb, merged)])
+
+
+def local_tables(ops, g, k, num_shards, *, backend, tile=1024,
+                 n_valid=None):
+    """The per-shard partial tables of the engine path's local phase
+    (``partition_stream`` and the backend's local phase; ``cuda`` runs the
+    groupagg kernel's plain version), in numpy."""
+    from repro_torch.distributed import query_exec as qx
+
+    g, k = _t(g), _t(k)
+    n = g.shape[0]
+    if n_valid is not None:
+        g = torch.where(torch.arange(n) < n_valid, g, qx.PAD_GROUP)
+    gs, ks = qx.partition_stream(g, k, num_shards)
+    nvs = None if n_valid is None else qx._shard_valid(
+        n_valid, num_shards, n // num_shards, g.device)
+    q = tq.Query(ops=ops)
+    return _table_np(qx._local_engine_tables(gs, ks, nvs, q.ops, None,
+                                             backend, tile=tile))
+
+
+def plan_sharded(ops, *, backend=None, window=None, query=None,
+                 num_shards=1, devices=None):
+    """A plan's backend, note and stages (``devices`` by name)."""
+    p = tq.plan(_query(ops, window, query), backend=backend, device="cpu",
+                num_shards=num_shards,
+                devices=None if devices is None
+                else [torch.device(d) for d in devices])
+    return p.backend, p.note, p.stages, p.num_shards
+
+
+def choose_backend_on(ops, window, devices):
+    from repro_torch.kernels.registry import choose_backend
+
+    return choose_backend(_query(ops, window, None),
+                          [torch.device(d) for d in devices])
+
+
+def sharded_stats(ops, g, k, num_shards):
+    """``execute(plan(num_shards=S), collect_stats=True)`` on the
+    reference and the same call with stats off (numpy)."""
+    p = tq.plan(tq.Query(ops=ops), backend="reference", device="cpu",
+                num_shards=num_shards)
+    on, _ = tq.execute(p, g, k, device="cpu", collect_stats=True)
+    off, _ = tq.execute(p, g, k, device="cpu")
+    return result_to_numpy(on), result_to_numpy(off)

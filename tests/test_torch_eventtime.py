@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import assert_result_same, assert_same
+from _torch_parity import oracle_jit
 from _torch_parity import port  # noqa: F401 (fixture)
 from repro_torch.interop import make_time_stream
 
@@ -92,7 +93,6 @@ def test_too_many_windows_raises_like_jax(port):
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
 def test_flip_scans_match_jax(port, dtype):
-    import jax
     import jax.numpy as jnp
 
     from repro.core import twostack as t2
@@ -109,8 +109,8 @@ def test_flip_scans_match_jax(port, dtype):
     nf, nb = rng.integers(0, wcap + 1, ne), rng.integers(0, wcap + 1, ne)
     nf[0], nb[1], nf[2] = 0, 0, wcap  # an empty front, empty back, full row
     vf, vb = lane < nf[:, None], lane < nb[:, None]
-    want = jax.jit(lambda *a: t2.flip_scans(*a, TWOSTACK_OPS,
-                                            jnp.dtype(dtype)))(
+    want = oracle_jit(lambda *a: t2.flip_scans(*a, TWOSTACK_OPS,
+                                               jnp.dtype(dtype)))(
         kf, vf, kb, vb)
     got = port.flip_scans(kf, vf, kb, vb, TWOSTACK_OPS)
     for name in TWOSTACK_OPS:
@@ -121,7 +121,6 @@ def test_flip_scans_match_jax(port, dtype):
 
 @pytest.mark.parametrize("dtype", [np.int32, np.float32])
 def test_twostack_flip_arbitrary_masks_match_jax(port, dtype):
-    import jax
 
     from repro.kernels.swag.kernel import twostack_flip_pallas
 
@@ -135,7 +134,7 @@ def test_twostack_flip_arbitrary_masks_match_jax(port, dtype):
                   for _ in range(2))
     # live lanes anywhere in the row, not a prefix as _region makes them
     vf, vb = (rng.random((ne, wcap)) < 0.5 for _ in range(2))
-    want = jax.jit(lambda *a: twostack_flip_pallas(
+    want = oracle_jit(lambda *a: twostack_flip_pallas(
         *a, TWOSTACK_OPS, interpret=True))(kf, vf, kb, vb)
     got = port.flip_scans(kf, vf, kb, vb, TWOSTACK_OPS)
     for name in TWOSTACK_OPS:
@@ -167,14 +166,12 @@ def _jax_query_case(case):
     one jit of the whole query (the timestamps, which frame the windows on
     the host, closed over as constants); eager, every primitive of the
     grouped replay compiles on its own."""
-    import jax
-
     from repro import query as jq
 
     ops, group_by, _, window, g_in, k, ts = _query_case(case)
     q = jq.Query(ops=ops, group_by=group_by, window=jq.Window(**window))
-    return jax.jit(lambda g, k: jq.execute(q, g, k, backend="reference",
-                                           timestamps=ts)[0])(g_in, k)
+    return oracle_jit(lambda g, k: jq.execute(
+        q, g, k, backend="reference", timestamps=ts)[0])(g_in, k)
 
 
 @pytest.mark.parametrize("backend", ["reference", "cuda"])
@@ -318,7 +315,9 @@ def test_execute_timestamp_guards(port):
 def test_event_time_streaming_and_sharding_raise(port):
     # event-time streaming is ported (slice 5b, held to the JAX package in
     # test_torch_eventtime_stream.py): the planner serves it and a time
-    # clause's reorder buffer is the JAX package's; sharding still raises
+    # clause's reorder buffer is the JAX package's.  Sharding (slice 7a)
+    # refuses a batch time window with the JAX package's message; a
+    # sharded event-time stream waits for slice 7b
     from repro import query as jq
 
     g, k, ts = _stream(31, 32)
@@ -333,6 +332,13 @@ def test_event_time_streaming_and_sharding_raise(port):
         want = jq.Window(**window).reorder_spec()
         assert port.reorder_spec(window) == (want.capacity,
                                              want.max_lateness)
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(ValueError, match="batch time-range windows"):
         port.execute(("sum",), g, k, backend="reference",
                      window=dict(range=64), timestamps=ts, num_shards=2)
+    with pytest.raises(ValueError, match="batch time-range windows"):
+        jq.plan(jq.Query(ops="sum", window=jq.Window(range=64)),
+                backend="reference", num_shards=2)
+    with pytest.raises(NotImplementedError, match="slice 7b "):
+        port.execute(("sum",), g, k, backend="reference",
+                     window=dict(range=64), query=stream, timestamps=ts,
+                     num_shards=2)

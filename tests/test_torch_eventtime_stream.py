@@ -22,12 +22,12 @@ its own process (``_torch_parity.port``).
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from _torch_parity import assert_same, port  # noqa: F401 (fixture)
+from _torch_parity import oracle_jit
 from repro import query as jq
 from repro.core import eventtime as jet
 from repro.core import panestore as jps
@@ -122,9 +122,9 @@ def test_watermark_tracker_matches_jax(port):
 def _jax_reorder(capacity, lateness, pushes, key_dtype=jnp.int32):
     spec = jet.ReorderSpec(capacity, lateness)
     st = jet.init_reorder(spec, key_dtype)
-    push = jax.jit(lambda st, ts, g, k, nv, dw: jet.reorder_push(
+    push = oracle_jit(lambda st, ts, g, k, nv, dw: jet.reorder_push(
         spec, st, ts, g, k, n_valid=nv, drain_wm=dw))
-    push_local = jax.jit(lambda st, ts, g, k, nv: jet.reorder_push(
+    push_local = oracle_jit(lambda st, ts, g, k, nv: jet.reorder_push(
         spec, st, ts, g, k, n_valid=nv))
     out = []
     for ts, g, k, nv, dw in pushes:
@@ -133,7 +133,7 @@ def _jax_reorder(capacity, lateness, pushes, key_dtype=jnp.int32):
         emit, st = (push_local(*args) if dw is None
                     else push(*args, jnp.asarray(dw, jnp.int32)))
         out.append((_np(tuple(emit)), _np(st._asdict())))
-    emit, st = jax.jit(lambda st: jet.reorder_flush(spec, st))(st)
+    emit, st = oracle_jit(lambda st: jet.reorder_flush(spec, st))(st)
     out.append((_np(tuple(emit)), _np(st._asdict())))
     return out
 
@@ -192,7 +192,7 @@ TIME_SPEC = dict(wa=4, capacity=8, default_ws=1, slide=10, time_range=30)
 def _jax_push_time(spec_kw, pushes, key_dtype=jnp.int32):
     spec = jps.PaneStoreSpec(**spec_kw)
     st = jps.init_store(spec, key_dtype)
-    step = jax.jit(lambda st, g, k, ts, lv, rb: jps.push_time(
+    step = oracle_jit(lambda st, g, k, ts, lv, rb: jps.push_time(
         spec, st, g, k, ts, live=lv, retire_below=rb))
     out = []
     for g, k, ts, live, rb in pushes:
@@ -303,12 +303,14 @@ def test_time_gather_and_replay_match_jax(port, float_keys):
     spec = jps.PaneStoreSpec(**TIME_SPEC)
     state_np = _np(jstate._asdict())
     owners = set(state_np["owner"].tolist()) - {2**31 - 1}
+    # the evaluation time an argument: one compile for the three times
+    gather = oracle_jit(lambda st, et: jps.gather_runs(spec, st, eval_time=et))
+    replay = oracle_jit(lambda st, et: jps.replay(spec, st, ALL_DIRECT,
+                                                  eval_time=et))
     for et in (int(pushes[-1][2].max()) + 1, int(pushes[-1][2].max()) - 17,
                int(pushes[-1][2].min()) - 25):
-        runs = jax.jit(lambda st: jps.gather_runs(spec, st, eval_time=et))(
-            jstate)
-        rep = jax.jit(lambda st: jps.replay(spec, st, ALL_DIRECT,
-                                            eval_time=et))(jstate)
+        runs = gather(jstate, jnp.int32(et))
+        rep = replay(jstate, jnp.int32(et))
         got_runs, got_rep, ring = port.time_replay(TIME_SPEC, state_np,
                                                    ALL_DIRECT, et)
         _same_tree(_np(tuple(runs)), got_runs, f"et {et} runs")
@@ -335,7 +337,7 @@ def _jax_time_stream(ops, window, batches, key_dtype=jnp.int32,
     if key not in _JAX_STEPS:
         p = jq.plan(jq.Query(ops=ops, window=jq.Window(**window),
                              streaming=True), backend="reference")
-        _JAX_STEPS[key] = (p, jax.jit(jq.stream_fn(p)))
+        _JAX_STEPS[key] = (p, oracle_jit(jq.stream_fn(p)))
     p, step = _JAX_STEPS[key]
     st = jq.init_stream_state(p, key_dtype) if state is None else state
     out = []
@@ -405,7 +407,7 @@ def _jax_aggregator(op, window, batches):
         return jps.replay(spec, pstate, (agg.combiner,),
                           eval_time=rstate.max_ts + 1)
 
-    g, values, valid, num = jax.jit(flush)(*agg.carry)
+    g, values, valid, num = oracle_jit(flush)(*agg.carry)
     rr = np.where(valid, np.arange(spec.capacity) % 4, -1).astype(np.int32)
     return out, {"groups": np.asarray(g),
                  "values": np.asarray(values[agg.combiner.name]),

@@ -5,9 +5,13 @@ with the card has no JAX), so it runs without the suite's conftest:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-Without a card every test skips; torch is imported inside the tests, and
-not at all where ``nvidia-smi`` is missing, so collecting or running this
-file elsewhere loads nothing of it into a process that holds JAX.  Tolerance: integer
+Where ``nvidia-smi`` is missing the whole module skips at collection, as
+one item: its ~770 cases would otherwise each be collected and skipped, and
+under ``pytest-xdist``'s ``--dist load`` that many pending items makes every
+batch handed to a worker larger, so more tests wait behind a long one.
+Torch is imported inside the tests, so collecting this file loads nothing
+of it into a process that holds JAX; with ``nvidia-smi`` but no card, every
+test skips in its ``cuda`` fixture.  Tolerance: integer
 keys and the order-free ops (min, max, count, distinct_count, median,
 first, last, argmin, argmax) must match exactly; float sums, means and
 variances are reduced in another order by the kernels (thread-local runs,
@@ -23,6 +27,9 @@ import pytest
 from _swag_edges import EDGE_CASES, edge_stream
 
 pytestmark = pytest.mark.gpu
+
+if shutil.which("nvidia-smi") is None:
+    pytest.skip("needs a CUDA card (no nvidia-smi)", allow_module_level=True)
 
 INEXACT = ("sum", "mean", "variance")
 PAD_GROUP = 2**31 - 1
@@ -401,6 +408,111 @@ def test_execute_on_card_matches_reference(cuda, backend, window):
     for name in want.values:
         assert_same(torch.where(want.valid, got.values[name], 0),
                     torch.where(want.valid, want.values[name], 0), what=name)
+
+
+#: sharded batch cases: (backend, window, shards, ops); the engine on
+#: ``cuda`` shards the ops whose groupagg output is their partial state
+SHARDED_CASES = [
+    ("cuda", None, 4, ("min", "max", "sum", "count", "median")),
+    ("cuda", None, 3, ("sum", "count")),
+    ("cuda", (1024, 256), 4, ("min", "max", "sum", "count", "dc",
+                              "median")),
+    ("cuda-panes", (4096, 1024), 2, ("min", "max", "sum", "count", "dc",
+                                     "median")),
+    ("cuda-panes", (256, 256), 8, ("sum", "median"))]
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.float32])
+@pytest.mark.parametrize("backend,window,shards,ops", SHARDED_CASES)
+def test_sharded_execute_on_card(cuda, backend, window, shards, ops,
+                                 dtype):
+    # execute(num_shards=S) on the card launches the backend's kernels
+    # once a shard (groupagg; swag; sort_panes + swag_panes), equals the
+    # same backend on one device (windows: element for element; the
+    # engine on the valid lanes) and the sharded plain path on the CPU
+    # (float sums within 1e-5), and a mesh of S entries of the card gives
+    # the same result
+    import torch
+
+    from repro_torch.interop import make_stream
+    from repro_torch.kernels.groupagg import kernel as gk
+    from repro_torch.kernels.swag import kernel as sk
+    from repro_torch.query import Query, Window, execute
+
+    # one device's engine median is one swag row: at most 16384 lanes
+    n = (16002 if shards == 3 else 16000) if window is None else 20000
+    g, k = make_stream(5, n, 37, 1000, dtype=dtype,
+                       sorted_by="group_key" if window is None else None)
+    q = Query(ops=ops, window=None if window is None else Window(*window))
+    wrappers = {"groupagg": gk.groupagg, "swag": sk.swag,
+                "sort_panes": sk.sort_panes, "swag_panes": sk.swag_panes}
+    for w in wrappers.values():
+        w.launches = 0
+    got, _ = execute(q, g, k, backend=backend, num_shards=shards)
+    torch.cuda.synchronize()
+    counts = {name: w.launches for name, w in wrappers.items()}
+    # a tumbling window (WS = WA) has no panes to share: swag on either
+    expect = ({"groupagg": shards} if window is None
+              else {"swag": shards} if backend == "cuda"
+              or window[0] == window[1]
+              else {"sort_panes": shards, "swag_panes": shards})
+    assert counts == {name: expect.get(name, 0) for name in wrappers}, \
+        counts
+    one, _ = execute(q, g, k, backend=backend)
+    plain, _ = execute(q, g, k, backend=backend, device="cpu",
+                       num_shards=shards)
+    mesh, _ = execute(q, g, k, backend=backend, mesh=[cuda] * shards)
+    for name, a, b in (("groups", got.groups, one.groups),
+                       ("valid", got.valid, one.valid),
+                       ("num_groups", got.num_groups, one.num_groups)):
+        assert_same(a, b, what=name)
+    for name in got.values:
+        inexact = name in INEXACT
+        a, b = got.values[name], one.values[name]
+        if window is None:
+            a, b = (torch.where(got.valid, x, 0).to(x.dtype)
+                    for x in (a, b))
+        assert_same(a, b, inexact=inexact, what=f"{name} vs one device")
+        assert_same(got.values[name], plain.values[name], inexact=inexact,
+                    what=f"{name} vs plain")
+        assert_same(got.values[name], mesh.values[name], what=f"{name} mesh")
+    for name in ("groups", "valid", "num_groups"):
+        assert_same(getattr(got, name), getattr(plain, name), what=name)
+
+
+def test_sharded_stream_on_card(cuda):
+    # a rolling stream on 4 shards of the card: one segmented-scan launch
+    # an op a shard a push, the same outputs and carries as one device's
+    # stream push by push
+    import torch
+
+    from repro_torch.interop import make_stream
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.query import Query, init_stream_state, plan, stream_fn
+
+    ops = ("min", "max", "sum", "count", "distinct_count")
+    g, k = (torch.from_numpy(x).to(cuda) for x in make_stream(
+        7, 4 * 4096, 300, 1000, sorted_by="group_key"))
+    q = Query(ops=ops, streaming=True)
+    p1, p4 = plan(q, device=cuda), plan(q, device=cuda, num_shards=4)
+    assert p4.backend == p1.backend == "cuda"
+    step1, step4 = stream_fn(p1), stream_fn(p4)
+    s1, s4 = init_stream_state(p1), init_stream_state(p4)
+    for i in range(4):
+        sl = slice(i * 4096, (i + 1) * 4096)
+        nv = 4000 if i == 3 else None
+        ssk.segscan.launches = 0
+        got, s4 = step4(g[sl], k[sl], s4, nv)
+        assert ssk.segscan.launches == 4 * len(ops)
+        want, s1 = step1(g[sl], k[sl], s1, nv)
+        torch.cuda.synchronize()
+        for a, b, what in zip(got[:1] + got[2:], want[:1] + want[2:],
+                              ("groups", "valid", "num", "rr_port")):
+            assert_same(a, b, what=f"push {i} {what}")
+        for name in ops:
+            assert_same(got[1][name], want[1][name], what=f"push {i} {name}")
+        for c4, c1 in zip(s4, s1):
+            _assert_trees(tuple(c4), tuple(c1), f"push {i} carry")
 
 
 # ------------------------------------------------------ per-group windows

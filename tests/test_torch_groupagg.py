@@ -18,6 +18,7 @@ import pytest
 from hypothesis import given, settings, strategies as st
 
 from _torch_parity import assert_same, port  # noqa: F401 (fixture)
+from _torch_parity import oracle_jit
 from repro.core import engine as jax_engine
 from repro.core.combiners import get_combiner as jax_combiner
 from repro.core.engine import PAD_GROUP
@@ -29,7 +30,7 @@ from repro_torch.interop import make_stream
 
 #: the JAX reference engine, compiled once per op (a fixed stream length
 #: with ``n_valid`` keeps the property test to one compile per op)
-_jax_group_by = jax.jit(jax_group_by, static_argnums=2)
+_jax_group_by = oracle_jit(jax_group_by, static_argnums=2)
 _LEN = 256
 FIELDS = ("groups", "values", "valid", "num_groups")
 
@@ -113,7 +114,7 @@ def _leaves(tree):
     return [np.asarray(tree)]
 
 
-@functools.partial(jax.jit, static_argnums=(2, 3))
+@functools.partial(oracle_jit, static_argnums=(2, 3))
 def _jax_two_chunks(g, k, ops, split, n_valid):
     r1, c1 = jax_engine.multi_engine_step(g[:split], k[:split], ops,
                                           open_tail=True)

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import port  # noqa: F401 (fixture)
+from _torch_parity import oracle_jit
 
 SCAN_OPS = ("sum", "min", "max", "count", "mean", "distinct_count")
 
@@ -134,7 +135,7 @@ def test_segmented_scan_matches_jax_ref(port, op, dtype):
     comb = get_combiner(op)
     for (flags, k), tile in cases:
         state = comb.lift(jnp.asarray(k))
-        want = jax.tree.leaves(jax.jit(
+        want = jax.tree.leaves(oracle_jit(
             lambda f, s: segmented_scan_ref(f, s, op))(
                 jnp.asarray(flags), state))
         leaves = tuple(np.asarray(x) for x in jax.tree.leaves(state))

@@ -1,7 +1,6 @@
 """Observability of the port (``repro_torch.obs``, ``collect_stats=True``,
 spans, the metrics registry, exporters) against the JAX package on the
-CPU.  Mirrors ``tests/test_obs.py`` case by case, but for its sharded
-case (the port's multi-device slice is still to come) and its
+CPU.  Mirrors ``tests/test_obs.py`` case by case, but for its
 ``REPRO_BACKEND`` case (the port reads no environment variable).
 
 The load-bearing guarantees:
@@ -30,12 +29,12 @@ from __future__ import annotations
 
 import functools
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from _torch_parity import assert_result_same, port  # noqa: F401 (fixture)
+from _torch_parity import oracle_jit
 from repro import query as jq
 from repro.core import StreamingAggregator as JaxAggregator
 from repro.obs import export as jax_export
@@ -97,7 +96,7 @@ def _jax_stream(case):
                  window=None if window is None else jq.Window(**window))
     p = jq.plan(q, backend="reference")
     state = jq.init_stream_state(p, collect_stats=True)
-    step = jax.jit(jq.stream_fn(p, collect_stats=True))
+    step = oracle_jit(jq.stream_fn(p, collect_stats=True))
     out = []
     for (g, k, *ts), nv in zip(_stream(case), N_VALIDS):
         nv = jnp.int32(N if nv is None else nv)
@@ -172,7 +171,7 @@ def test_pergroup_batch_counters_match_jax(port, ops):
     merge = "median" in ops
 
     def jax_run(backend):
-        return jax.jit(lambda g, k: jq.execute(
+        return oracle_jit(lambda g, k: jq.execute(
             jq.Query(ops=ops, window=jq.Window(**PERGROUP)), g, k,
             backend=backend, collect_stats=True)[0])(g, k)
 
@@ -234,8 +233,8 @@ def test_engine_stats_match_jax(port):
     g = np.sort(rng.integers(0, 8, 256)).astype(np.int32)
     k = rng.integers(-100, 100, 256).astype(np.int32)
     q = jq.Query(ops=("sum", "min", "count"))
-    want = jax.jit(lambda g, k: jq.execute(q, g, k, backend="reference",
-                                           collect_stats=True)[0])(g, k)
+    want = oracle_jit(lambda g, k: jq.execute(
+        q, g, k, backend="reference", collect_stats=True)[0])(g, k)
     for backend in ("reference", "cuda"):
         off, on = port.execute_on_off(("sum", "min", "count"), g, k,
                                       backend=backend)
@@ -243,6 +242,35 @@ def test_engine_stats_match_jax(port):
         assert off.stats is None and on.stats == {"tuples": 256,
                                                   "num_shards": 1}
         assert_result_same(want, on)
+
+
+def test_sharded_stats_report_combine_rounds(port):
+    """A 4-shard plan's stats: the combine tree's rounds, their widths
+    (each round doubles the table), live groups and bytes, equal to the
+    JAX package's; stats off gives the same result."""
+    rng = np.random.default_rng(11)
+    g = np.sort(rng.integers(0, 8, 256)).astype(np.int32)
+    k = rng.integers(-100, 100, 256).astype(np.int32)
+    p = jq.plan(jq.Query(ops=("sum", "min")), backend="reference",
+                num_shards=4)
+    want = oracle_jit(lambda g, k: jq.execute(p, g, k,
+                                              collect_stats=True)[0])(g, k)
+    on, off = port.sharded_stats(("sum", "min"), g, k, 4)
+    s = on.stats
+    assert s["num_shards"] == 4 and s["tuples"] == 256
+    widths = s["combine_round_width"]
+    assert widths.shape == (2,)          # log2(4) tree rounds
+    assert widths[1] == 2 * widths[0]    # pairwise merge doubles the table
+    assert s["combine_round_groups"].shape == (2,)
+    assert s["combine_round_bytes"].shape == (2,)
+    assert set(want.stats) == set(s)
+    for name, v in want.stats.items():
+        w = np.asarray(v)
+        np.testing.assert_array_equal(s[name], w, err_msg=name)
+        if name.startswith("combine_"):
+            assert s[name].dtype == w.dtype, (name, s[name].dtype, w.dtype)
+    assert_result_same(want, on)
+    assert_result_same(want, off)
 
 
 # ---------------------------------------------------------------------------

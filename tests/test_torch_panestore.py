@@ -23,12 +23,12 @@ jitted, one program per call.
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from _torch_parity import assert_result_same, assert_same, port  # noqa: F401
+from _torch_parity import oracle_jit
 from _torch_parity import execute_both
 from repro.core import panestore as jps
 from repro.core.swag import (per_group_chunk_scan, pergroup_write_plan,
@@ -80,7 +80,7 @@ def test_push_gather_replay_match_jax(port, spec_kw):
     g, k = _stream(21, 96)
     spec = _jspec(spec_kw)
 
-    @jax.jit
+    @oracle_jit
     def jax_side(g, k):
         st = jps.push(spec, jps.init_store(spec, k.dtype), g, k)
         return st, jps.gather_runs(spec, st), \
@@ -101,7 +101,7 @@ def test_chunk_states_match_jax(port):
     # records them, against the JAX per-chunk push
     g, k = _stream(22, 96)
     spec = _jspec(SQUEEZE)
-    final, states = jax.jit(lambda g, k: per_group_chunk_scan(
+    final, states = oracle_jit(lambda g, k: per_group_chunk_scan(
         spec, jps.init_store(spec, k.dtype), g, k, lambda st: st))(
         jnp.array(g), jnp.array(k))
     got_states, got_final = port.chunk_states(SQUEEZE, g, k)
@@ -114,7 +114,7 @@ def test_chunk_states_match_jax(port):
 def test_write_plan_matches_jax(port, spec_kw):
     g, _ = _stream(23, 96)
     spec = _jspec(spec_kw)
-    want = jax.jit(lambda g: pergroup_write_plan(spec, g))(
+    want = oracle_jit(lambda g: pergroup_write_plan(spec, g))(
         jnp.array(g))
     got = port.write_plan(spec_kw, g)
     assert len(want) == len(got) == 9
@@ -128,7 +128,7 @@ def test_write_plan_matches_jax(port, spec_kw):
 def test_fused_plain_matches_pallas(port, dtype, ops):
     g, k = _stream(24, 96, dtype)
     spec = _jspec(SQUEEZE)
-    plan = jax.jit(lambda g: pergroup_write_plan(spec, g))(
+    plan = oracle_jit(lambda g: pergroup_write_plan(spec, g))(
         jnp.array(g))
     ck = k[:len(k) // spec.wa * spec.wa].reshape(-1, spec.wa)
     inputs = (ck,) + tuple(np.asarray(x) for x in plan[:8])
@@ -145,7 +145,7 @@ def test_fused_plain_matches_pallas(port, dtype, ops):
 def test_replay_plain_matches_pallas(port, dtype):
     g, k = _stream(25, 96, dtype)
     spec = _jspec(SQUEEZE)
-    _final, runs = jax.jit(lambda g, k: per_group_chunk_scan(
+    _final, runs = oracle_jit(lambda g, k: per_group_chunk_scan(
         spec, jps.init_store(spec, k.dtype), g, k,
         lambda st: jps.gather_runs(spec, st)))(jnp.array(g), jnp.array(k))
     length = runs.run_keys.shape[-1]
@@ -210,7 +210,7 @@ def test_replay_plain_nan_keys_match_jax_where_order_free(port, yardstick):
     ops = ("count", "sum", "mean")
     if yardstick == "reference":
         spec = jps.PaneStoreSpec(wa=NAN_RUN, capacity=4, default_ws=NAN_RUN)
-        want, _cnt = jax.jit(lambda k, v: jps.replay_rows(
+        want, _cnt = oracle_jit(lambda k, v: jps.replay_rows(
             spec, k, v, ops, ops, key_dtype=jnp.float32,
             interpolate=False))(jnp.array(rk), jnp.array(rv))
     else:
@@ -231,7 +231,7 @@ def test_replay_ring_plain_matches_pallas(port, dtype):
     # retires and leaves partly filled open panes
     g, k = make_stream(32, 128, 4, 60, dtype=dtype)
     spec = _jspec(CHURN)
-    _final, runs = jax.jit(lambda g, k: per_group_chunk_scan(
+    _final, runs = oracle_jit(lambda g, k: per_group_chunk_scan(
         spec, jps.init_store(spec, k.dtype), g, k,
         lambda st: jps.gather_runs(spec, st)))(jnp.array(g), jnp.array(k))
     ne, c, length = runs.run_keys.shape
@@ -258,9 +258,9 @@ def test_jax_state_continues_in_the_port(port, ops):
     # continues in the port as it continues in JAX
     g, k = _stream(26, 128)
     spec = _jspec(SQUEEZE)
-    run = jax.jit(lambda g, k, st: swag_per_group(
+    run = oracle_jit(lambda g, k, st: swag_per_group(
         g, k, spec=spec, ops=list(ops), state=st))
-    (og, vals, valid, num), jstate = jax.jit(
+    (og, vals, valid, num), jstate = oracle_jit(
         lambda g, k: swag_per_group(g, k, spec=spec, ops=list(ops)))(
         jnp.array(g[:96]), jnp.array(k[:96]))
     # the port's own run of the first part ends in the same state

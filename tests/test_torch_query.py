@@ -84,10 +84,22 @@ def test_later_slices_raise_not_implemented(port):
                              query={"streaming": True}) == "reference"
     assert "watermark" in port.plan_note("sum", window={"range": 10},
                                          query={"streaming": True})
-    # and execute(collect_stats=True) (slice 6); sharding still raises
+    # and execute(collect_stats=True) (slice 6)
     assert port.execute_stats("sum", g, g) == {"tuples": 8, "num_shards": 1}
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        port.execute("sum", g, g, backend=None, num_shards=2)
+    # sharding of batch queries (slice 7a) returns the sharded result: the
+    # one-device values on the valid lanes; a sharded event-time stream
+    # (slice 7b) still raises
+    g = np.repeat(np.arange(4, dtype=np.int32), 2)
+    one = port.execute("sum", g, g, backend=None)
+    sharded = port.execute("sum", g, g, backend=None, num_shards=2)
+    assert sharded.num_groups == one.num_groups == 4
+    np.testing.assert_array_equal(sharded.values["sum"][:4],
+                                  one.values["sum"][:4])
+    assert port.execute_stats("sum", g, g, num_shards=2)["num_shards"] == 2
+    with pytest.raises(NotImplementedError, match="slice 7b "):
+        port.execute("sum", g, g, backend=None, num_shards=2,
+                     window={"range": 10}, query={"streaming": True},
+                     timestamps=np.arange(8, dtype=np.int32))
 
 
 def test_cuda_device_without_a_card_raises(port):

@@ -10,13 +10,13 @@ process (``_torch_parity.port``).
 """
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from _swag_edges import EDGE_CASES, edge_stream
 from _torch_parity import assert_same, port  # noqa: F401 (fixture)
+from _torch_parity import oracle_jit
 from repro.core import sorter as jax_sorter
 from repro.kernels.swag import kernel as jk
 from repro.kernels.swag.ops import \
@@ -85,7 +85,7 @@ EDGE_OPS = ("sum", "max", "count", "mean", "distinct_count", "argmax",
 EDGE_WS, EDGE_WA = 8, 4
 
 
-@jax.jit
+@oracle_jit
 def _jax_edge_tails(fg, fk, pg, pk):
     return (jk.swag_pallas(fg, fk, EDGE_OPS, interpret=True),
             jk.swag_pallas_panes(pg, pk, EDGE_OPS, p=EDGE_WS // EDGE_WA,
@@ -133,9 +133,10 @@ def test_engine_median_matches_pallas(port):
         assert_same(want[1][name], got[1][name], name=name)
 
 
-_jax_sort_pairs = jax.jit(jax_sorter.sort_pairs, static_argnames="full_width")
-_jax_sort_pairs_xla = jax.jit(jax_sorter.sort_pairs_xla,
-                              static_argnames="full_width")
+_jax_sort_pairs = oracle_jit(jax_sorter.sort_pairs,
+                             static_argnames="full_width")
+_jax_sort_pairs_xla = oracle_jit(jax_sorter.sort_pairs_xla,
+                                 static_argnames="full_width")
 
 
 @pytest.mark.parametrize("full_width", [True, False])
