@@ -138,12 +138,29 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
          swag_panes a shard);
      (r) (m)'s stream, 16 pushes of 2^20, on ``cuda``: a segmented_scan
          launch an op a shard a push, stats on and off;
-   each against one device's ``execute`` on the same backend in the same
-   call (the windows and the stream element for element, push by push
-   with the carries; the engine on the valid lanes), timed over 7 calls
-   (7 streams) with the stage spans of one call (partition, local, merge,
-   finalize; synchronized) and the merge's share; and each kernel at a
-   shard's shape against its plain version on every shard, timed;
+     (s) (o)'s event-time stream sharded 4 ways through a 7-op
+         ``StreamingAggregator(num_shards=4)`` on ``cuda-panestore``
+         (``auto``), each shard's reorder buffer 512 slots (256 tuples a
+         shard a push): a push is one reorder launch for all four buffers
+         (released against the min-merged watermark), one time-mode
+         placement of their merged emissions and one ring replay, and the
+         flush the same three; also on a mesh of four entries of the card
+         and with stats on;
+   (p)-(r) each against one device's ``execute`` on the same backend in
+   the same call (the windows and the stream element for element, push by
+   push with the carries; the engine on the valid lanes), timed over 7
+   calls (7 streams) with the stage spans of one call (partition, local,
+   merge, finalize; synchronized) and the merge's share; (s) push by push
+   (outputs with rr_port and late_dropped, which must stay 0, and the
+   stacked carry) against the plain chain on host copies (the plain
+   reorder a shard under the merged gates, ``merge_emissions``, the plain
+   placement and replay) through its first push that retires a pane, its
+   flush against the plain flush, the mesh run equal to it, stats on
+   bit-identical to off with every counter equal to the plain chain's,
+   and its push's host syncs no more than (o)'s, timed over 7 streams with
+   its device-busy share; and each kernel at a shard's shape against its
+   plain version on every shard, timed (the sharded reorder launch also
+   against four one-buffer launches of the same push);
 7. prints a ``phases`` line, a ``kernels`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
@@ -197,6 +214,12 @@ EVENT_PUSH = 1024
 #: state; the JAX package refuses it on ``pallas`` too)
 SHARDS = 4
 SHARD_OPS = ("min", "max", "sum", "count")
+#: run (s): (o)'s stream and window sharded 4 ways (256 tuples a shard a
+#: push), each shard's reorder buffer the least power of two at which the
+#: stream forces no pop and drops nothing: the last shard holds its slices
+#: of two pushes at the peak (tests/test_torch_eventtime_sharded.py holds
+#: the JAX reference to it: 512 slots, 256 force pops)
+SHARDED_EVENT_WINDOW = dict(EVENT_WINDOW, reorder_capacity=512)
 #: ns a tuple of the event-time kernels' first design at run (o)'s push
 #: (PERF.md §6, rows 11 and 12), printed beside this run's
 PARENT_NS = {"reorder": 1101.0, "pergroup_scan_time": 2597.0}
@@ -2018,8 +2041,8 @@ PTXAS_KERNELS = {
          "pergroup_scan_time_kernel", ("keys", "counters")),
         (r"pergroup_scan_kernelI([if])Lb([01])ELb([01])ELb([01])ELb([01])E",
          "pergroup_scan_kernel", ("keys", "ring", "gs", "snap", "counters"))],
-    "reorder.cu": [(r"reorder_kernelILi(\d+)ELb([01])E", "reorder_kernel",
-                    ("slots", "counters"))],
+    "reorder.cu": [(r"reorder_kernelILi(\d+)ELb([01])ELb([01])E",
+                    "reorder_kernel", ("slots", "counters", "stack"))],
     "bitonic.cu": [
         (r"bitonic_rows_kernelILi(\d)ELi(n?\d)E", "bitonic_rows_kernel",
          ("num_keys", "float_keys"))],
@@ -2078,7 +2101,8 @@ def kernel_ptxas(build) -> list:
                 sm = re.search(r"(\d+) bytes smem", line)
                 cur["static_smem"] = int(sm[1]) if sm else 0
     shown = ("op", "keys", "num_keys", "float_keys", "lanes", "slots",
-             "max_threads", "ring", "time", "flat", "gs", "snap", "counters")
+             "max_threads", "ring", "time", "flat", "gs", "snap", "counters",
+             "stack")
     for r in rows:
         args = ", ".join(f"{k} {r[k]}" for k in shown if k in r)
         print(f"ptxas {r['kernel']}<{args}>: "
@@ -2184,9 +2208,251 @@ def _shard_slices(torch, g, k, ws: int, wa: int):
             torch.where(live, k[idx], 0), wps)
 
 
+def sharded_event_time_run(torch, dev, wrappers, run_launches, identity):
+    """Run (s): (o)'s event-time stream through a 7-op
+    ``StreamingAggregator(num_shards=4)`` on ``cuda-panestore``: a push
+    one reorder launch for every shard's buffer, one time-mode placement,
+    one ring replay.  Checked push by push against the plain chain on host
+    copies through the first push that retires a pane, at the flush, on a
+    mesh, with stats on; then the sharded reorder launch at its push's
+    shape.  Returns (phase, kernel row)."""
+    from repro_torch.core import StreamingAggregator
+    from repro_torch.core import eventtime as et
+    from repro_torch.core import panestore as ps
+    from repro_torch.core.engine import PAD_GROUP
+    from repro_torch.distributed.query_exec import merge_emissions
+    from repro_torch.interop import make_time_stream
+    from repro_torch.kernels.eventtime import kernel as ek
+    from repro_torch.kernels.swag import kernel as sk
+    from repro_torch.query import Window
+
+    w = Window(**SHARDED_EVENT_WINDOW)
+    spec, rspec = w.store_spec(), w.reorder_spec()
+    c, lat = spec.capacity, w.max_lateness
+    es = EVENT_STREAM
+    n = es["n"]
+    g, k, ts = (torch.from_numpy(x).to(dev) for x in make_time_stream(
+        SEED, n, es["n_groups"], es["key_max"], es["density"],
+        es["jitter"]))
+    pushes = [(g[i:i + EVENT_PUSH], k[i:i + EVENT_PUSH],
+               ts[i:i + EVENT_PUSH]) for i in range(0, n, EVENT_PUSH)]
+    npush, length = len(pushes), EVENT_PUSH // SHARDS
+
+    def copy(carry):
+        return (et.ReorderState(*(x.clone() for x in carry[0])),
+                ps.PaneStoreState(*(x.clone() for x in carry[1])))
+
+    def aggregator(mesh=False, stats=False):
+        agg = StreamingAggregator(
+            REPLAY_OPS, window=w, collect_stats=stats,
+            **({"mesh": [dev] * SHARDS} if mesh else
+               {"num_shards": SHARDS}))
+        if agg.plan.backend != "cuda-panestore" \
+                or agg.plan.num_shards != SHARDS:
+            raise AssertionError(f"run (s) planned {agg.plan}")
+        return agg
+
+    def stream_s(keep=False, mesh=False, stats=False):
+        agg = aggregator(mesh, stats)
+        outs, carries = [], []
+        for pg, pk, pt in pushes:
+            if keep:
+                carries.append(copy(agg.carry[0] if stats else agg.carry))
+            outs.append(agg.push(pg, pk, timestamps=pt))
+        if keep:
+            carries.append(copy(agg.carry[0] if stats else agg.carry))
+        outs.append(agg.flush())
+        return outs, carries
+
+    (outs, carries), counts, peak = counted_call(
+        torch, lambda: stream_s(keep=True), wrappers)
+    want = {"reorder": npush + 1, "pergroup_scan_time": npush + 1,
+            "pergroup_replay_ring": npush + 1}
+    if any(counts[nm] != v for nm, v in want.items()) \
+            or sum(counts.values()) != sum(want.values()):
+        raise AssertionError(f"run (s) launched {counts}, not one reorder "
+                             f"for every shard's buffer, one time-mode "
+                             f"placement and one ring replay a push and "
+                             f"for the flush")
+    run_launches["s"] = counts
+    t1 = time.perf_counter()
+    lane = torch.arange(c, dtype=torch.int32)
+
+    def plain_eval(pstate, eval_time):
+        ovs, ug, num = sk.pergroup_replay_ring_plain(
+            spec, ps.PaneStoreState(*(x[None] for x in pstate)),
+            REPLAY_OPS, eval_time=eval_time.reshape(1))
+        valid = lane < num[0]
+        return (torch.where(valid, ug[0], PAD_GROUP), valid, num[0],
+                torch.where(valid, lane % 4, -1).to(torch.int32),
+                {nm: v[0] for nm, v in ovs.items()})
+
+    def check_eval(res, want, what):
+        got = (res.groups, res.valid, res.num_groups, res.rr_port)
+        if not all(torch.equal(a.cpu(), b) for a, b in zip(got, want[:4])) \
+                or not all(torch.equal(res.values[nm].cpu(), v)
+                           for nm, v in want[4].items()):
+            raise AssertionError(f"run (s) {what} differs from the plain "
+                                 f"chain")
+
+    # stats on: the same stream, every push's outputs and carry
+    # bit-identical to stats off
+    outs_on, carries_on = stream_s(keep=True, stats=True)
+    for i, (a, b) in enumerate(zip(outs, outs_on)):
+        if not _same(torch, a[:5], b[:5]) \
+                or not _same(torch, carries[i], carries_on[i]):
+            raise AssertionError(f"run (s) push {i}: stats on changed the "
+                                 f"result or the carry")
+    # push by push, the plain chain from fresh buffers on the host: each
+    # shard's plain reorder under the merged gates, the merge, the plain
+    # placement and replay, with the counters, through the first push
+    # whose placement retires a pane
+    host = torch.device("cpu")
+    rst = et.init_reorder_stacked(rspec, SHARDS, torch.int32, host)
+    pst = ps.init_store(spec, torch.int32, device=host)
+    hc = {}
+    checked = retirements = evictions = 0
+    at = None
+    for i, ((pg, pk, pt), res) in enumerate(zip(pushes, outs)):
+        tss, gs, ks = (x.cpu().reshape(SHARDS, length) for x in (pt, pg, pk))
+        before = (rst, pst)
+        prev = (rst.max_ts - lat).min()
+        new_max = torch.maximum(rst.max_ts, tss.max(dim=1).values)
+        merged = (new_max - lat).min()
+        (emit, rst, hc), r_ms = plain_once(
+            torch, lambda: et.reorder_push_sharded(
+                rspec, before[0], tss, gs, ks, release_wm=prev, late_wm=prev,
+                drain_wm=merged, counters=hc))
+        cols = merge_emissions(emit)
+        (pst, events, hwm), p_ms = plain_once(
+            torch, lambda: ps.push_time_events(
+                spec, before[1], *cols, merged - w.range, occupancy=True))
+        hc = ps.count_events(hc, events, hwm, host)
+        hc.update(late_dropped=rst.dropped.sum(dtype=torch.int32),
+                  watermark=merged,
+                  watermark_lag=(new_max - lat).max() - merged)
+        check_eval(res, plain_eval(pst, merged), f"push {i}")
+        kr, kp = carries[i + 1]
+        if _state_err(torch, kr, rst) or _state_err(torch, kp, pst):
+            raise AssertionError(f"run (s): the carry after push {i} "
+                                 f"differs from the plain chain's")
+        got_c = _counts(outs_on[i].stats)
+        got_c.pop("store_donated_buffers")
+        if got_c != _counts(hc):
+            raise AssertionError(f"run (s) push {i}: counters {got_c} != "
+                                 f"the plain chain's {_counts(hc)}")
+        checked += 1
+        evictions += int(events[0])
+        retirements += int(events[1])
+        at = (i, before[0], tss, gs, ks, prev, merged, r_ms)
+        if retirements:
+            break
+    if not retirements:
+        raise AssertionError(f"run (s): no retirement in the {checked} "
+                             f"pushes checked")
+    late = [int(r.stats["late_dropped"]) for r in outs]
+    final = _counts(outs_on[-2].stats)
+    if any(late) or final["reorder_forced_pops"] or final["late_dropped"]:
+        raise AssertionError(f"run (s): late drops {late}, counters "
+                             f"{final}: the buffers are too small")
+    # the flush against the plain flush on a host copy of the carry
+    rst, pst = (type(x)(*(y.cpu() for y in x)) for x in carries[-1])
+    emit_f, rst = et.reorder_flush_sharded(rspec, rst)
+    pst, _ = ps.push_time_events(spec, pst, *merge_emissions(emit_f), None)
+    check_eval(outs[-1], plain_eval(pst, rst.max_ts.max() + 1), "flush")
+    # the mesh of four entries of the card: the same stream
+    outs_mesh, _ = stream_s(mesh=True)
+    if not all(_same(torch, a[:5], b[:5]) and _same(torch, a.stats, b.stats)
+               for a, b in zip(outs, outs_mesh)):
+        raise AssertionError("run (s) on a mesh differs from num_shards")
+    check_s = time.perf_counter() - t1
+    del outs_on, carries_on, outs_mesh
+
+    # host syncs of a push: (s)'s and (o)'s third, stats off
+    def third_push_syncs(agg):
+        for pg, pk, pt in pushes[:2]:
+            agg.push(pg, pk, timestamps=pt)
+        pg, pk, pt = pushes[2]
+        return _syncs(torch, lambda: agg.push(pg, pk, timestamps=pt))[1]
+
+    syncs = {"s": third_push_syncs(aggregator()),
+             "o": third_push_syncs(StreamingAggregator(
+                 REPLAY_OPS, window=Window(**EVENT_WINDOW)))}
+    if syncs["s"] > syncs["o"]:
+        raise AssertionError(f"run (s): a push syncs {syncs['s']} times, "
+                             f"(o)'s {syncs['o']}")
+    print(f"run (s) checked {checked} pushes (through the first that "
+          f"retires: {retirements} retirements, {evictions} evictions), the "
+          f"counters, the flush, the mesh and stats on against the plain "
+          f"chain; counters at the last push {final}; host syncs a push "
+          f"{syncs}", flush=True)
+    phase = _stream_phase(
+        torch, "s", f"StreamingAggregator(num_shards={SHARDS}) push/flush "
+        f"(event time)", "cuda-panestore", stream_s, n, npush, counts, peak,
+        check_s, identity, ops=list(REPLAY_OPS),
+        window=dict(SHARDED_EVENT_WINDOW), num_shards=SHARDS,
+        checked_pushes=checked, retirements_checked=retirements,
+        evictions_checked=evictions, late_dropped=0, stats=final,
+        host_syncs_a_push=syncs, equal_on_mesh=True)
+    del outs, carries
+
+    # the sharded reorder launch at push j's shape, from the buffers
+    # before it: alone, against four one-buffer launches of the same push
+    # (each shard's buffer and row, the same gates), against the plain
+    # loop over the shards
+    j, r_host, tss, gs, ks, prev, merged, r_ms = at
+    r_before = et.ReorderState(*(x.to(dev) for x in r_host))
+    tss, gs, ks, prev, merged = (x.to(dev) for x in (tss, gs, ks, prev,
+                                                      merged))
+    gates = dict(release_wm=prev, late_wm=prev, drain_wm=merged)
+    got, ms = timed(torch, lambda: ek.reorder_push_sharded(
+        rspec, r_before, tss, gs, ks, **gates), 5)
+    b2b_ms = back_to_back_ms(torch, lambda: ek.reorder_push_sharded(
+        rspec, r_before, tss, gs, ks, **gates))
+    plain = ek.reorder_push_sharded_plain(rspec, r_before, tss, gs, ks,
+                                          **gates)
+    shards_of = [et.ReorderState(*(x[s].contiguous() for x in r_before))
+                 for s in range(SHARDS)]
+
+    def one_buffer_launches():
+        return [ek.reorder_push(rspec, shards_of[s], tss[s], gs[s], ks[s],
+                                **gates) for s in range(SHARDS)]
+
+    ones, ones_ms = timed(torch, one_buffer_launches, 5)
+    ones_b2b_ms = back_to_back_ms(torch, one_buffer_launches)
+    err = _state_err(torch, got[1], plain[1])
+    for s in range(SHARDS):
+        mine = et.ReorderEmit(*(x[s] for x in got[0]))
+        err = max(err, _emit_err(torch, mine,
+                                 et.ReorderEmit(*(x[s] for x in plain[0])),
+                                 length),
+                  _emit_err(torch, ones[s][0], mine, length),
+                  _state_err(torch, ones[s][1], et.shard_state(got[1], s)))
+    m = SHARDS * length
+    cap = rspec.capacity
+    nb = 12 * m + 14 * SHARDS * (length + cap) + 2 * 17 * cap * SHARDS \
+        + 32 * SHARDS
+    bnd, by = bound_ms(nb, 0.0)
+    row = {"name": "reorder", "form": "sharded", "ms": ms,
+           "ms_back_to_back": b2b_ms, "ns_a_tuple": ms * 1e6 / m,
+           "one_buffer_launches_ms": ones_ms,
+           "one_buffer_launches_back_to_back_ms": ones_b2b_ms,
+           "plain_ms": r_ms, "library_ms": None, "max_abs_err": err,
+           "bound_ms": bnd, "bound_by": by,
+           "shape": [SHARDS, length, cap], "runs": ["s"],
+           "push_checked": j}
+    print(f"reorder, sharded, at run (s)'s push {row['shape']}: "
+          f"{ms:.4f} ms ({b2b_ms:.4f} back to back; {SHARDS} one-buffer "
+          f"launches of the same push {ones_ms:.4f}, {ones_b2b_ms:.4f} "
+          f"back to back), bound {bnd:.6f} ({by}), plain {r_ms:.2f} ms, "
+          f"equal to plain and to the one-buffer launches [{identity}]",
+          flush=True)
+    return phase, row
+
+
 def sharded_phase(torch, data, dev, wrappers, run_launches, identity):
-    """Runs (p), (q) and (r), the sharded pipeline on the card with
-    ``num_shards=4``: (a)'s stream and ops less dc on ``cuda`` (a groupagg
+    """Runs (p), (q), (r) and (s), the sharded pipeline on the card with
+    ``num_shards=4`` (run (s): :func:`sharded_event_time_run`): (a)'s stream and ops less dc on ``cuda`` (a groupagg
     launch a shard, the combine tree in torch; also on a mesh of four
     entries of the card) and (a)'s full ops through ``auto``, which falls
     back to the reference for dc; (c)'s window on ``cuda`` (a swag launch
@@ -2475,7 +2741,11 @@ def sharded_phase(torch, data, dev, wrappers, run_launches, identity):
               f"plain {row['plain_ms']:.3f}, bound {row['bound_ms']:.4f} "
               f"({row['bound_by']}), equal to plain (max |err| "
               f"{row['max_abs_err']}) [{identity}]", flush=True)
-    return phases, rows
+
+    # run (s): (o)'s event-time stream on 4 shards
+    phase, row = sharded_event_time_run(torch, dev, wrappers, run_launches,
+                                        identity)
+    return phases + [phase], rows + [row]
 
 
 def main() -> int:
@@ -2806,11 +3076,16 @@ def main() -> int:
                 and r["time"] == (row.get("form") == "time"))
         if row["name"] in ("reorder", "pergroup_scan_time"):
             # the main path's instantiation (stats off), and the one that
-            # counts
+            # counts: (o)'s one buffer of 128 slots, 4 a lane, under its
+            # own watermark; (s)'s buffers of 512, 16 a lane, gated
+            sharded = row.get("form") == "sharded"
+            slots = row["shape"][2] // 32 if sharded else 4
             row["ptxas"], row["ptxas_counters"] = (next(
                 r for r in ptxas if r["kernel"] == row["name"] + "_kernel"
                 and r.get("keys", "int32") == "int32"
-                and r.get("slots", 4) == 4 and r["counters"] == cnt)
+                and r.get("slots", slots) == slots
+                and r.get("stack", int(sharded)) == int(sharded)
+                and r["counters"] == cnt)
                 for cnt in (0, 1))
         if row["name"] == "sort_panes":
             geo = sk.swag_geometry(row["shape"][1])

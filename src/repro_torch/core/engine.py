@@ -12,6 +12,7 @@ works along the last axis; leading axes are a batch (windows, panes).
 """
 from __future__ import annotations
 
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -286,6 +287,48 @@ def _group_by_aggregate(groups: torch.Tensor, keys: torch.Tensor, op="sum",
     """Single-shot ``SELECT g, f(k) FROM t GROUP BY g ORDER BY g``."""
     result, _ = engine_step(groups, keys, op, n_valid=n_valid)
     return result
+
+
+def _deprecated(old: str, hint: str) -> None:
+    """One shared deprecation funnel for every legacy entry-point shim."""
+    warnings.warn(
+        f"{old} is deprecated; build a repro_torch.query.Query ({hint}) and "
+        f"call repro_torch.query.execute instead",
+        DeprecationWarning, stacklevel=3)
+
+
+def _device_of(keys):
+    """Where a shim runs: the device of ``keys`` when it is a tensor, else
+    the card (the entry points' default)."""
+    return keys.device if isinstance(keys, torch.Tensor) else "cuda"
+
+
+def group_by_aggregate(groups, keys, op="sum", *,
+                       n_valid=None) -> GroupAggResult:
+    """Deprecated: use ``repro_torch.query.Query(ops=(op,))`` +
+    ``execute`` (the ``reference`` backend, on the device of ``keys``)."""
+    _deprecated("repro_torch.core.group_by_aggregate", "Query(ops=(op,))")
+    from repro_torch import query as _q
+    name = op.name if isinstance(op, Combiner) else _q.canonical_op(op)
+    res, _ = _q.execute(_q.Query(ops=(op,)), groups, keys, n_valid=n_valid,
+                        backend="reference", device=_device_of(keys))
+    return GroupAggResult(res.groups, res.values[name], res.valid,
+                          res.num_groups)
+
+
+def multi_aggregate(groups, keys, ops, *,
+                    n_valid=None) -> dict[str, GroupAggResult]:
+    """Deprecated: use ``repro_torch.query.Query(ops=ops)`` + ``execute``
+    (which also fuses the shared mark and compaction across ops)."""
+    _deprecated("repro_torch.core.multi_aggregate", "Query(ops=ops)")
+    from repro_torch import query as _q
+    res, _ = _q.execute(_q.Query(ops=tuple(ops)), groups, keys,
+                        n_valid=n_valid, backend="reference",
+                        device=_device_of(keys))
+    return {name: GroupAggResult(res.groups,
+                                 res.values[_q.canonical_op(name)],
+                                 res.valid, res.num_groups)
+            for name in ops}
 
 
 def rr_ports(result: GroupAggResult, emitted_before, p: int) -> torch.Tensor:

@@ -31,6 +31,14 @@ Event-time streaming rests on the other half of the module:
 a loop of the cycle on a host copy of the buffer, the result on the
 buffer's device.  On the card the same cycle runs as one CUDA kernel
 (``repro_torch.kernels.eventtime.kernel.reorder_push``).
+
+A sharded event-time stream keeps one buffer a shard, stacked: every field
+of a :class:`ReorderState` gains a leading ``[S]`` axis
+(:func:`init_reorder_stacked`, :func:`shard_state`).
+:func:`reorder_push_sharded` and :func:`reorder_flush_sharded` are their
+plain versions (the JAX package's ``vmap`` of the push over the shards: a
+loop of :func:`reorder_push` over them); on the card all S buffers run in
+one launch of the reorder kernel.
 """
 from __future__ import annotations
 
@@ -400,3 +408,74 @@ def reorder_flush(spec: ReorderSpec, state: ReorderState):
     st = _host_copy(state)
     emit = _reorder_drain(spec, st, None, rel=st.occ.clone())
     return _on(dev, emit, st)
+
+
+# --------------------------------------------- stacked buffers (shards)
+
+def init_reorder_stacked(spec: ReorderSpec, num_shards: int,
+                         key_dtype=torch.int32, device="cpu") -> ReorderState:
+    """``num_shards`` fresh buffers stacked: ``[S, C]`` slots, ``[S]``
+    scalars (the JAX package's broadcast of one fresh buffer)."""
+    one = init_reorder(spec, key_dtype, device)
+    return ReorderState(*(x.expand((num_shards,) + x.shape).contiguous()
+                          for x in one))
+
+
+def shard_state(states: ReorderState, s: int) -> ReorderState:
+    """Shard ``s``'s buffer of a stacked state (views)."""
+    return ReorderState(*(x[s] for x in states))
+
+
+def _stack(states) -> ReorderState:
+    return ReorderState(*(torch.stack(xs) for xs in zip(*states)))
+
+
+def _shard_valid(n_valid, num_shards: int, length: int) -> list:
+    """Each shard's live count, ``clip(n_valid - s L, 0, L)``, as host
+    ints (None: every lane)."""
+    if n_valid is None:
+        return [None] * num_shards
+    nv = int(n_valid)
+    return [min(max(nv - s * length, 0), length) for s in range(num_shards)]
+
+
+def reorder_push_sharded(spec: ReorderSpec, states: ReorderState, ts,
+                         groups, keys, *, n_valid=None, release_wm=None,
+                         late_wm=None, drain_wm=None, counters=None):
+    """One push through every shard's buffer: row ``s`` of the ``[S, L]``
+    columns (its live count ``clip(n_valid - s L, 0, L)``) through buffer
+    ``s`` by :func:`reorder_push`, every shard under the same gates.
+    Returns ``(ReorderEmit [S, L + C], new stacked state)``; ``states`` is
+    not modified.  With ``counters`` returns ``(emit, state, counters)``:
+    the forced pops summed over the shards, the depth mark their
+    maximum, as the JAX package reduces its per-shard counters."""
+    num_shards, length = ts.shape
+    nvs = _shard_valid(n_valid, num_shards, length)
+    emits, news, forced, depth = [], [], [], None
+    for s in range(num_shards):
+        out = reorder_push(spec, shard_state(states, s), ts[s], groups[s],
+                           keys[s], n_valid=nvs[s], release_wm=release_wm,
+                           late_wm=late_wm, drain_wm=drain_wm,
+                           counters=None if counters is None else {})
+        emits.append(out[0])
+        news.append(out[1])
+        if counters is not None:
+            forced.append(out[2]["reorder_forced_pops"])
+            d = out[2].get("reorder_depth_hwm")
+            depth = d if depth is None else torch.maximum(depth, d)
+    emit = ReorderEmit(*(torch.stack(xs) for xs in zip(*emits)))
+    if counters is None:
+        return emit, _stack(news)
+    total = torch.stack(forced).sum(dtype=torch.int32)
+    return emit, _stack(news), count_cycles(counters, total, depth,
+                                            states.ts.device)
+
+
+def reorder_flush_sharded(spec: ReorderSpec, states: ReorderState):
+    """Drain every shard's buffer (:func:`reorder_flush` each): ``(ReorderEmit
+    [S, C], the emptied stacked state)``; ``states`` is not modified."""
+    outs = [reorder_flush(spec, shard_state(states, s))
+            for s in range(states.ts.shape[0])]
+    return (ReorderEmit(*(torch.stack(xs) for xs in zip(*(o[0] for o in
+                                                          outs)))),
+            _stack([o[1] for o in outs]))

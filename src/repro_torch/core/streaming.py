@@ -27,8 +27,12 @@ evaluates past the last tuple.  ``collect_stats=True`` threads a
 without a window shards (``num_shards=`` or ``mesh=``): each push reduces
 its shards' slices to partial tables, merges them in the combine tree
 (:func:`stream_push_table` folds the carry in), and emits the same slots
-as one device.  A sharded event-time stream comes with a later slice of
-the port (slice 7b) and raises ``NotImplementedError`` naming it.
+as one device.  An event-time stream shards too: a reorder buffer a shard
+(stacked in the carry), released against the min-merged watermark, whose
+emissions merge by timestamp into one time-mode pane store; its
+``late_dropped`` is the sum over the shards, and the flush drains every
+shard's buffer (one launch on the card) and evaluates past the largest
+timestamp any shard saw.
 """
 from __future__ import annotations
 
@@ -223,8 +227,11 @@ class StreamingAggregator:
     ``num_shards`` / ``mesh`` (a sequence of devices, one shard each; the
     carry lives on the first) run every push of a stream without a window
     through the two-phase pipeline of
-    :mod:`repro_torch.distributed.query_exec`; ``push`` also takes the
-    batch pre-cut as ``[num_shards, L]`` slices.
+    :mod:`repro_torch.distributed.query_exec`, and an event-time stream
+    through a reorder buffer a shard under the min-merged watermark
+    (``stream_push_eventtime_sharded``; its buffers all live on the first
+    device); ``push`` also takes the batch pre-cut as ``[num_shards, L]``
+    slices.
 
     ``collect_stats=True`` threads a :mod:`repro_torch.obs.counters` dict
     beside the carry and surfaces it (cumulative over the stream, copies
@@ -286,7 +293,9 @@ class StreamingAggregator:
                 device=self.plan.device)
             return stats
         if self._is_time:
-            return {"late_dropped": self.carry[0].dropped.clone()}
+            # a copy (the buffers update in place), summed over the shards
+            return {"late_dropped":
+                    self.carry[0].dropped.sum(dtype=torch.int32)}
         return None
 
     def _result(self, g, values, valid, num, rr, stats=None) -> StreamResult:
@@ -329,8 +338,8 @@ class StreamingAggregator:
 
     def flush(self) -> StreamResult:
         """Close the stream: emit the open group (windowed: re-emit every
-        live group's current window; event-time: drain the reorder buffer
-        and evaluate past the last tuple), reset the carry."""
+        live group's current window; event-time: drain the reorder
+        buffer(s) and evaluate past the last tuple), reset the carry."""
         from repro_torch import query as _q
         stats = self._stats()
         carry = self._base_carry()

@@ -104,6 +104,27 @@ def _swag(groups, keys, *, ws: int, wa: int, op="sum",
     return _engine._group_by_aggregate(g, k, op)
 
 
+def swag(groups, keys, *, ws: int, wa: int, op="sum",
+         presorted: bool = False,
+         panes: bool | None = None) -> _engine.GroupAggResult:
+    """Deprecated: use ``repro_torch.query.Query(ops=(op,),
+    window=Window(ws, wa))`` + ``execute`` (the ``reference`` backend, on
+    the device of ``keys``)."""
+    _engine._deprecated("repro_torch.core.swag",
+                        "Query(ops=(op,), window=Window(ws, wa))")
+    if op == "median":
+        raise ValueError("op='median' is not a combiner — use swag_median "
+                         "(or swag_panes, which returns a MedianResult)")
+    from repro_torch import query as _q
+    name = op.name if isinstance(op, Combiner) else _q.canonical_op(op)
+    q = _q.Query(ops=(op,), window=_q.Window(ws=ws, wa=wa, panes=panes),
+                 presorted=presorted)
+    res, _ = _q.execute(q, groups, keys, backend="reference",
+                        device=_engine._device_of(keys))
+    return _engine.GroupAggResult(res.groups, res.values[name], res.valid,
+                                  res.num_groups)
+
+
 def _sort_panes(groups, keys, *, ws: int, wa: int):
     """Frame + sort each pane once by (group, key). Returns (pg, pk, nw, p)."""
     p = ws // wa
@@ -202,6 +223,24 @@ def _swag_median(groups, keys, *, ws: int, wa: int,
     g, k = sorter.sort_pairs(frame_windows(groups, ws, wa),
                              frame_windows(keys, ws, wa), full_width=True)
     return _median_sorted_window(g, k, interpolate=interpolate)
+
+
+def swag_median(groups, keys, *, ws: int, wa: int,
+                interpolate: bool = False,
+                panes: bool | None = None) -> MedianResult:
+    """Deprecated: use ``repro_torch.query.Query(ops=("median",),
+    window=Window(ws, wa), interpolate=...)`` + ``execute`` (the
+    ``reference`` backend, on the device of ``keys``)."""
+    _engine._deprecated(
+        "repro_torch.core.swag_median",
+        'Query(ops=("median",), window=Window(ws, wa))')
+    from repro_torch import query as _q
+    q = _q.Query(ops=("median",), window=_q.Window(ws=ws, wa=wa, panes=panes),
+                 interpolate=interpolate)
+    res, _ = _q.execute(q, groups, keys, backend="reference",
+                        device=_engine._device_of(keys))
+    return MedianResult(res.groups, res.values["median"], res.valid,
+                        res.num_groups)
 
 
 def window_tails(g, k, pairs, *, interpolate: bool = False):

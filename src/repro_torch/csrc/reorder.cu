@@ -29,9 +29,25 @@
 // launch with no tuple and every held slot drained.  With stats on (a
 // template flag), each cycle also counts a pop that a full buffer forced
 // past the release gate and raises the depth high-water mark to the held
-// entries after it, as the JAX package's counters do.  Bound: the latency
-// of one warp, a few shuffles, one warp sum and a ballot a tuple; bytes
-// (about 30 a tuple) leave the card's memory idle.
+// entries after it, as the JAX package's counters do.
+//
+// A sharded event-time stream (JAX: a vmap of the scan over the shards,
+// src/repro/distributed/query_exec.py, stream_push_eventtime_sharded)
+// stacks S buffers, [S, C] slots and [S] scalars, and runs them in one
+// launch of S one-warp blocks: block s reads buffer s, row s of the [S, L]
+// tuples with its own live count, clip(nvalid - s L, 0, L), and writes row
+// s of the [S, L + C] emissions.  Its release and late gates are the
+// previous push's merged watermark and its drain gate this push's, 0-d
+// values on the card.  A template flag (STACK) selects this form: without
+// it the launch is the one-buffer kernel, one block under its local
+// watermark, with no shard offset or external gate to compute.  The
+// counters take every block's pops by an atomic add (wrapping, as
+// add_wrap) and its depth by an atomic max, the JAX package's sum and max
+// over the shards.  Bound: the latency of one
+// warp, a few shuffles, one warp sum and a ballot a tuple; bytes (about 30
+// a tuple) leave the card's memory idle.
+#include <type_traits>
+
 #include "tile.cuh"
 
 namespace rt {
@@ -41,29 +57,31 @@ constexpr int RO_TS_MIN = -(1 << 30);
 constexpr int RO_I32_MAX = 0x7fffffff;
 constexpr int MAX_REORDER = 1024;
 
-// A reorder buffer: its [C] slots and its scalars.
+// Reorder buffers: [S, C] slots and [S] scalars (S = 1: one buffer).
 struct ReorderBuf {
-  int *ts, *grp, *val, *seq;  // [C] (val: keys as 32-bit words)
-  bool* occ;                  // [C]
-  int *max_ts, *last_emit, *seq_clock, *dropped;  // []
+  int *ts, *grp, *val, *seq;  // [S, C] (val: keys as 32-bit words)
+  bool* occ;                  // [S, C]
+  int *max_ts, *last_emit, *seq_clock, *dropped;  // [S]
 };
 
 struct ReorderArgs {
-  const int* ts;          // [n] (null when n == 0)
-  const int* g;           // [n]
-  const int* k;           // [n] keys as 32-bit words
-  int n;
-  int nvalid;             // live lanes when nvalid_dev is null
+  const int* ts;          // [S, n] (null when n == 0)
+  const int* g;           // [S, n]
+  const int* k;           // [S, n] keys as 32-bit words
+  int n;                  // tuples a shard
+  int nvalid;             // live lanes of the [S n] when nvalid_dev is null
   const int* nvalid_dev;  // [] or null
   const int* drain;       // [] drain gate, or null: the watermark
+  const int* release;     // [] release gate, or null: the watermark
+  const int* late;        // [] lateness floor, or null: the watermark
   int drain_all;          // 1: drain every held slot (a flush)
-  ReorderBuf in, out;  // the buffer read, and written (the same: in place)
+  ReorderBuf in, out;  // the buffers read, and written (the same: in place)
   int c, lateness;
-  int *o_ts, *o_g, *o_k;  // [n + C] emissions
-  bool *o_live, *o_late;  // [n + C]
+  int *o_ts, *o_g, *o_k;  // [S, n + C] emissions
+  bool *o_live, *o_late;  // [S, n + C]
   int* c_forced;          // [] stats on: forced pops added (wrapping)
   int* c_depth;           // [] stats on: raised to the held entries after
-                          // any cycle
+                          // any cycle of any buffer
 };
 
 // An entry of the buffer's order: (ts, arrival seq, slot).  Each lane holds
@@ -172,10 +190,17 @@ __device__ __forceinline__ int first_free(unsigned occw, unsigned wmask,
   return fb ? fl * 32 + __ffs(fw) - 1 : C;
 }
 
-template <int S, bool CNT>
+template <int S, bool CNT, bool STACK>
 __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
   extern __shared__ __align__(16) int sm[];
   const int C = a.c, lane = threadIdx.x, n = a.n, nw = (C + 31) / 32;
+  // this block's buffer, tuples and emissions: shard b of the stack (one
+  // buffer: offsets 0, and int indexing as ever)
+  using Off = typename std::conditional<STACK, size_t, int>::type;
+  const int b = STACK ? blockIdx.x : 0;
+  const Off bs = static_cast<Off>(b) * C;
+  const Off bi = static_cast<Off>(b) * n;
+  const Off be = static_cast<Off>(b) * (n + C);
   int* sts = sm;  // [C] the buffer by slot
   int* sseq = sts + C;
   int* grp = sseq + C;
@@ -184,11 +209,11 @@ __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
   int* at_rank = occ + C;  // [C] the slot at each rank (the launch's build)
 
   for (int s = lane; s < C; s += 32) {
-    sts[s] = a.in.ts[s];
-    sseq[s] = a.in.seq[s];
-    grp[s] = a.in.grp[s];
-    val[s] = a.in.val[s];
-    occ[s] = a.in.occ[s] ? 1 : 0;
+    sts[s] = a.in.ts[bs + s];
+    sseq[s] = a.in.seq[bs + s];
+    grp[s] = a.in.grp[bs + s];
+    val[s] = a.in.val[bs + s];
+    occ[s] = a.in.occ[bs + s] ? 1 : 0;
   }
   __syncwarp();
   // occupancy: lane w holds the bits of slots [32w, 32w + 32)
@@ -222,24 +247,33 @@ __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
   }
   Entry m0 = shfl_entry(e[0], 0);  // the least
   int ffree = first_free(occw, wmask, C);
-  int max_ts = *a.in.max_ts, last_emit = *a.in.last_emit;
-  int seq_clock = *a.in.seq_clock, dropped = *a.in.dropped;
-  const int nv = a.nvalid_dev ? *a.nvalid_dev : a.nvalid;
+  int max_ts = a.in.max_ts[b], last_emit = a.in.last_emit[b];
+  int seq_clock = a.in.seq_clock[b], dropped = a.in.dropped[b];
+  // the live tuples: the first nvalid, for shard b of a stack
+  // clip(nvalid - b n, 0, n)
+  const int nv_all = a.nvalid_dev ? *a.nvalid_dev : a.nvalid;
+  const int nv = STACK ? static_cast<int>(min(
+      max(static_cast<long long>(nv_all) - static_cast<long long>(b) * n,
+          0LL), static_cast<long long>(n))) : nv_all;
+  // STACK: the external release gate and lateness floor (each null: the
+  // watermark)
+  const int rel_g = STACK && a.release ? *a.release : 0;
+  const int late_g = STACK && a.late ? *a.late : 0;
   int forced = 0, depth = -1;  // CNT
 
   int nt = 0, ng = 0, nk = 0;  // the next 32 tuples, one a lane
   if (lane < n) {
-    nt = a.ts[lane];
-    ng = a.g[lane];
-    nk = a.k[lane];
+    nt = a.ts[bi + lane];
+    ng = a.g[bi + lane];
+    nk = a.k[bi + lane];
   }
   for (int i0 = 0; i0 < n; i0 += 32) {
     const int nb = n - i0 < 32 ? n - i0 : 32;
     const int my_t = nt, my_g = ng, my_k = nk;
     if (i0 + 32 + lane < n) {
-      nt = a.ts[i0 + 32 + lane];
-      ng = a.g[i0 + 32 + lane];
-      nk = a.k[i0 + 32 + lane];
+      nt = a.ts[bi + i0 + 32 + lane];
+      ng = a.g[bi + i0 + 32 + lane];
+      nk = a.k[bi + i0 + 32 + lane];
     }
     int ot = 0, og = my_g, ok = my_k;  // this lane's cycle's emission
     bool olive = false, olate = false;
@@ -247,17 +281,19 @@ __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
       const int t = __shfl_sync(FULL_MASK, my_t, j);
       const bool lv = i0 + j < nv;
       const int mx = max(max_ts, lv ? t : RO_TS_MIN);
-      const int wm = sub_wrap(mx, a.lateness);  // the release gate
-      const bool late = lv && (t < wm || t < last_emit);
+      const int wm = sub_wrap(mx, a.lateness);  // the watermark
+      const int rel = STACK && a.release ? rel_g : wm;  // the release gate
+      const int floor_t = STACK && a.late ? late_g : wm;
+      const bool late = lv && (t < floor_t || t < last_emit);
       const bool insert = lv && !late;
       const bool any_occ = held > 0, full = held == C;
 
       // the incoming tuple never wins a tie (its seq is the largest)
       const bool inc_min = insert && (t < m0.t || !any_occ);
-      const bool pop_inc = inc_min && (t <= wm || full);
+      const bool pop_inc = inc_min && (t <= rel || full);
       const bool pop_buf =
-          !pop_inc && any_occ && (m0.t <= wm || (full && insert));
-      if (CNT) forced += (pop_inc && t > wm) || (pop_buf && m0.t > wm);
+          !pop_inc && any_occ && (m0.t <= rel || (full && insert));
+      if (CNT) forced += (pop_inc && t > rel) || (pop_buf && m0.t > rel);
       int et = t, d = -1;  // d: the rank released from the buffer
       Entry gone = m0;
       if (pop_buf) {
@@ -320,11 +356,11 @@ __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
       if (CNT) depth = max(depth, held);
     }
     if (lane < nb) {
-      a.o_ts[i0 + lane] = ot;
-      a.o_g[i0 + lane] = og;
-      a.o_k[i0 + lane] = ok;
-      a.o_live[i0 + lane] = olive;
-      a.o_late[i0 + lane] = olate;
+      a.o_ts[be + i0 + lane] = ot;
+      a.o_g[be + i0 + lane] = og;
+      a.o_k[be + i0 + lane] = ok;
+      a.o_live[be + i0 + lane] = olive;
+      a.o_late[be + i0 + lane] = olate;
     }
   }
 
@@ -347,11 +383,11 @@ __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
     const int r = lane * S + q;
     if (r < C) {
       const bool rel = r < num;
-      a.o_ts[n + r] = rel ? e[q].t : 0;
-      a.o_g[n + r] = rel ? grp[e[q].s] : 0;
-      a.o_k[n + r] = rel ? val[e[q].s] : 0;
-      a.o_live[n + r] = rel;
-      a.o_late[n + r] = false;
+      a.o_ts[be + n + r] = rel ? e[q].t : 0;
+      a.o_g[be + n + r] = rel ? grp[e[q].s] : 0;
+      a.o_k[be + n + r] = rel ? val[e[q].s] : 0;
+      a.o_live[be + n + r] = rel;
+      a.o_late[be + n + r] = false;
       if (rel) occ[e[q].s] = 0;
       if (r == num - 1) last = e[q].t;
     }
@@ -361,60 +397,76 @@ __global__ void __launch_bounds__(32, 1) reorder_kernel(ReorderArgs a) {
     last_emit = max(last_emit,
                     __shfl_sync(FULL_MASK, last, (num - 1) / S));
   for (int s = lane; s < C; s += 32) {
-    a.out.ts[s] = sts[s];
-    a.out.seq[s] = sseq[s];
-    a.out.grp[s] = grp[s];
-    a.out.val[s] = val[s];
-    a.out.occ[s] = occ[s] != 0;
+    a.out.ts[bs + s] = sts[s];
+    a.out.seq[bs + s] = sseq[s];
+    a.out.grp[bs + s] = grp[s];
+    a.out.val[bs + s] = val[s];
+    a.out.occ[bs + s] = occ[s] != 0;
   }
   if (lane == 0) {
-    *a.out.max_ts = max_ts;
-    *a.out.last_emit = last_emit;
-    *a.out.seq_clock = seq_clock;
-    *a.out.dropped = dropped;
-    if (CNT) {
+    a.out.max_ts[b] = max_ts;
+    a.out.last_emit[b] = last_emit;
+    a.out.seq_clock[b] = seq_clock;
+    a.out.dropped[b] = dropped;
+    if (CNT && STACK) {  // every block's: the sum (two's complement
+      atomicAdd(a.c_forced, forced);  // wraps, as add_wrap) and the max
+      atomicMax(a.c_depth, depth);
+    } else if (CNT) {
       *a.c_forced = add_wrap(*a.c_forced, forced);
       *a.c_depth = max(*a.c_depth, depth);
     }
   }
 }
 
-template <int S>
-cudaError_t launch_reorder(const ReorderArgs& a, cudaStream_t st) {
+template <int S, bool CNT>
+cudaError_t launch_reorder(const ReorderArgs& a, int shards,
+                           cudaStream_t st) {
   const size_t smem = 6 * sizeof(int) * static_cast<size_t>(a.c);
-  if (a.c_forced)
-    reorder_kernel<S, true><<<1, 32, smem, st>>>(a);
+  if (shards > 1 || a.release || a.late)
+    reorder_kernel<S, CNT, true><<<shards, 32, smem, st>>>(a);
   else
-    reorder_kernel<S, false><<<1, 32, smem, st>>>(a);
+    reorder_kernel<S, CNT, false><<<1, 32, smem, st>>>(a);
   return cudaGetLastError();
+}
+
+template <int S>
+cudaError_t launch_reorder(const ReorderArgs& a, int shards,
+                           cudaStream_t st) {
+  return a.c_forced ? launch_reorder<S, true>(a, shards, st)
+                    : launch_reorder<S, false>(a, shards, st);
 }
 
 }  // namespace
 }  // namespace rt
 
-// One push of n tuples (ts, g, k; the first nvalid live, or *nvalid_dev
-// when given) through a reorder buffer of c slots (a power of two, at most
-// 1024) with lateness contract `lateness`: a cycle a tuple, then the drain
-// of every slot at or below the gate (drain, else the watermark after the
-// push; every held slot when drain_all).  The buffer is read from the i_*
-// pointers (slots ts, grp, val, seq, occ; scalars max_ts, last_emit,
-// seq_clock, dropped) and written to the o_* ones (the same pointers: in
-// place); e_* [n + c] get the emissions.  c_forced and c_depth (both null:
-// stats off) are int32 counters the cycles add their forced pops to and
-// raise to the held entries after any cycle.  One warp.
+// One push through `shards` stacked reorder buffers of c slots each (a
+// power of two, at most 1024) with lateness contract `lateness`, one
+// one-warp block a buffer: buffer s takes n tuples, row s of the [shards,
+// n] ts, g, k (live: the first clip(nvalid - s n, 0, n), nvalid the host's
+// or *nvalid_dev when given), a cycle a tuple, then the drain of every
+// slot at or below the gate (drain, else its watermark after the push;
+// every held slot when drain_all).  release and late (each null: the
+// buffer's watermark) are the release gate and the lateness floor of every
+// cycle.  The buffers are read from the i_* pointers (slots ts, grp, val,
+// seq, occ [shards, c]; scalars max_ts, last_emit, seq_clock, dropped
+// [shards]) and written to the o_* ones (the same pointers: in place);
+// e_* [shards, n + c] get the emissions.  c_forced and c_depth (both null:
+// stats off) are int32 counters the cycles of every buffer add their
+// forced pops to and raise to the held entries after any cycle.
 extern "C" int rt_reorder(const int* ts, const int* g, const void* k, int n,
                           int nvalid, const int* nvalid_dev,
-                          const int* drain, int drain_all, int* i_ts,
-                          int* i_grp, void* i_val, int* i_seq, bool* i_occ,
-                          int* i_max_ts, int* i_last_emit, int* i_seq_clock,
-                          int* i_dropped, int* o_ts, int* o_grp, void* o_val,
-                          int* o_seq, bool* o_occ, int* o_max_ts,
-                          int* o_last_emit, int* o_seq_clock, int* o_dropped,
-                          int c, int lateness, int* e_ts, int* e_g,
-                          void* e_k, bool* e_live, bool* e_late,
+                          const int* drain, const int* release,
+                          const int* late, int drain_all, int shards,
+                          int* i_ts, int* i_grp, void* i_val, int* i_seq,
+                          bool* i_occ, int* i_max_ts, int* i_last_emit,
+                          int* i_seq_clock, int* i_dropped, int* o_ts,
+                          int* o_grp, void* o_val, int* o_seq, bool* o_occ,
+                          int* o_max_ts, int* o_last_emit, int* o_seq_clock,
+                          int* o_dropped, int c, int lateness, int* e_ts,
+                          int* e_g, void* e_k, bool* e_live, bool* e_late,
                           int* c_forced, int* c_depth, void* stream) {
   using namespace rt;
-  if (n < 0 || c < 1 || c > MAX_REORDER || (c & (c - 1)) != 0 ||
+  if (n < 0 || shards < 1 || c < 1 || c > MAX_REORDER || (c & (c - 1)) != 0 ||
       lateness < 0 ||
       (n > 0 && (ts == nullptr || g == nullptr || k == nullptr)) ||
       (c_forced == nullptr) != (c_depth == nullptr))
@@ -424,15 +476,16 @@ extern "C" int rt_reorder(const int* ts, const int* g, const void* k, int n,
   const ReorderBuf out{o_ts, o_grp, static_cast<int*>(o_val), o_seq, o_occ,
                        o_max_ts, o_last_emit, o_seq_clock, o_dropped};
   ReorderArgs a{ts, g, static_cast<const int*>(k), n, nvalid, nvalid_dev,
-                drain, drain_all, in, out, c, lateness, e_ts, e_g,
-                static_cast<int*>(e_k), e_live, e_late, c_forced, c_depth};
+                drain, release, late, drain_all, in, out, c, lateness, e_ts,
+                e_g, static_cast<int*>(e_k), e_live, e_late, c_forced,
+                c_depth};
   auto st = static_cast<cudaStream_t>(stream);
   switch (c <= 32 ? 1 : c / 32) {  // slots a lane
-    case 1: return launch_reorder<1>(a, st);
-    case 2: return launch_reorder<2>(a, st);
-    case 4: return launch_reorder<4>(a, st);
-    case 8: return launch_reorder<8>(a, st);
-    case 16: return launch_reorder<16>(a, st);
-    default: return launch_reorder<32>(a, st);
+    case 1: return launch_reorder<1>(a, shards, st);
+    case 2: return launch_reorder<2>(a, shards, st);
+    case 4: return launch_reorder<4>(a, shards, st);
+    case 8: return launch_reorder<8>(a, shards, st);
+    case 16: return launch_reorder<16>(a, shards, st);
+    default: return launch_reorder<32>(a, shards, st);
   }
 }

@@ -37,6 +37,14 @@ with the segmented-scan kernel as its scan, and windows run ``swag`` (or
 of whole windows.  The combine tree, the run merge and the per-window
 trees are plain torch, as the JAX package computes them outside any
 Pallas kernel.
+
+A sharded event-time stream (:func:`stream_push_eventtime_sharded`)
+merges emissions, not states: a reorder buffer a shard, released against
+the min-merged watermark, then one shared time-mode pane store.  On
+``cuda-panestore`` a push is one reorder launch for every shard's buffer,
+one time-mode placement of the merged emissions and one replay; the merge
+(:func:`merge_emissions`) is a stable sort by timestamp in torch, as the
+JAX package sorts outside any kernel.
 """
 from __future__ import annotations
 
@@ -45,6 +53,7 @@ import functools
 import torch
 
 from repro_torch.core import engine as _engine
+from repro_torch.core import eventtime as _eventtime
 from repro_torch.core import sorter
 from repro_torch.core import streaming as _streaming
 from repro_torch.core import swag as _swag
@@ -514,6 +523,113 @@ def _window_partitioned(q, groups, keys, *, num_shards, mesh, backend):
 # --------------------------------------------------------------------------
 # streaming path
 # --------------------------------------------------------------------------
+
+def stream_push_eventtime_sharded(q, groups, keys, timestamps, state, *,
+                                  num_shards, mesh=None, n_valid=None,
+                                  p_ports: int = 4, counters=None,
+                                  backend: str = "reference",
+                                  inplace: bool = False):
+    """One sharded event-time push: per-shard bounded-lateness reorder
+    buffers (stacked, each tracking its own watermark), released against
+    the **min-merged** global watermark, then one shared time-mode pane
+    store, as the JAX package's push.
+
+    The release gate and the lateness floor of every shard's cycles are
+    the previous push's merged watermark (a shard fed the tail slice of
+    every batch sees an inflated local maximum; a tuple is unrecoverable
+    only once an emitted evaluation has passed it); the drain gate is this
+    push's merged watermark, computed up front.  The shards' emissions are
+    merged into one timestamp-ordered batch (:func:`merge_emissions`),
+    placed with the panes wholly behind ``watermark - range`` retired, and
+    every group's window ``[wm - range, wm)`` is replayed at the merged
+    watermark.  On ``cuda-panestore``: one reorder launch for every
+    buffer, one time-mode placement, one ring replay; nothing read back
+    (``inplace``: the state's buffers updated where they lie).  ``mesh``
+    is not used: the buffers run where the state lies, as the JAX package
+    runs its shards on one device.
+
+    Returns ``((groups, values, valid, num, rr), state)``; with
+    ``counters`` (updated where they lie) also the counters: the reorder
+    depth mark (the largest shard's) and forced pops (summed over the
+    shards), the store's evictions and occupancy, ``late_dropped`` summed
+    over the shards, ``watermark`` the merged one and ``watermark_lag``
+    how far the fastest shard runs ahead of it."""
+    from repro_torch import query as _q
+    from repro_torch.kernels.eventtime import kernel as _et_kernel
+
+    w = q.window
+    rspec = w.reorder_spec()
+    rstates, pstate = state
+    dev = pstate.keys.device
+    n = groups.shape[-1]
+    groups = groups.to(dev, torch.int32)
+    keys = keys.to(dev, pstate.keys.dtype)
+    ts = timestamps.to(dev, torch.int32)
+    gs, ks = partition_stream(groups, keys, num_shards)
+    length = n // num_shards
+    tss = ts.reshape(num_shards, length)
+    tss_live = tss
+    if n_valid is not None:
+        nvs = _shard_valid(n_valid, num_shards, length, dev)
+        tss_live = torch.where(torch.arange(length, device=dev)[None, :]
+                               < nvs[:, None], tss, _eventtime.TS_MIN)
+
+    # the gates: the previous push's merged watermark, and this push's
+    # (every shard's largest timestamp after the push, min-merged)
+    lateness = w.max_lateness
+    prev_wm = _eventtime.merge_watermarks(rstates.max_ts - lateness)
+    new_max = rstates.max_ts
+    if length:
+        new_max = torch.maximum(new_max, tss_live.max(dim=-1).values)
+    global_wm = _eventtime.merge_watermarks(new_max - lateness)
+
+    gates = dict(n_valid=n_valid, release_wm=prev_wm, late_wm=prev_wm,
+                 drain_wm=global_wm)
+    if backend == "cuda-panestore":
+        emit, rstates = _et_kernel.reorder_push_sharded(
+            rspec, rstates, tss, gs, ks, inplace=inplace, counters=counters,
+            **gates)
+    elif counters is None:
+        emit, rstates = _eventtime.reorder_push_sharded(rspec, rstates, tss,
+                                                        gs, ks, **gates)
+    else:
+        emit, rstates, new = _eventtime.reorder_push_sharded(
+            rspec, rstates, tss, gs, ks, counters=dict(counters), **gates)
+        _c.store_into(counters, new)
+
+    p = _q.Plan(query=q, backend=backend, path="stream", device=str(dev),
+                num_shards=num_shards)
+    pstate = _q._time_place(p, pstate, *merge_emissions(emit),
+                            global_wm - w.range, inplace, counters)
+    if counters is not None:
+        _c.store_into(counters, {
+            "late_dropped": rstates.dropped.sum(dtype=torch.int32),
+            "watermark": global_wm,
+            # how far the fastest shard runs ahead of the merged gate: the
+            # skew the min-merge rule absorbs
+            "watermark_lag": (new_max - lateness).max() - global_wm})
+    g, values, valid, num = _q._store_eval(p, pstate, eval_time=global_wm)
+    c = valid.shape[-1]
+    rr = torch.where(valid, torch.arange(c, dtype=torch.int32, device=dev)
+                     % p_ports, -1).to(torch.int32)
+    if counters is None:
+        return (g, values, valid, num, rr), (rstates, pstate)
+    return (g, values, valid, num, rr), (rstates, pstate), counters
+
+
+def merge_emissions(emits):
+    """Flatten stacked per-shard reorder emissions (``[S, L + C]``) into one
+    timestamp-ordered stream: a stable sort on the timestamp with dead
+    lanes at INT32_MAX, so they sort to the tail and the flat lane index
+    breaks ties (the JAX package's ``lax.sort`` on (ts, lane)).  Returns
+    ``(groups, keys, ts, live)``, a dead lane's ts 0."""
+    e_live = emits.live.reshape(-1)
+    ts_key = torch.where(e_live, emits.ts.reshape(-1), _eventtime.INT32_MAX)
+    sts, order = torch.sort(ts_key, stable=True)
+    slive = e_live[order]
+    return (emits.groups.reshape(-1)[order], emits.keys.reshape(-1)[order],
+            torch.where(slive, sts, 0), slive)
+
 
 def _local_stream_tables(gs, ks, combiners, mesh, backend, *,
                          tile) -> PartialTable:

@@ -4,7 +4,8 @@ states in the field order of ``repro.core.panestore.PaneStoreState``,
 reorder buffers in that of ``repro.core.eventtime.ReorderState``, partial
 tables in that of ``repro.core.engine.PartialTable``, and streaming
 carries (one ``repro.core.segscan.Carry`` an op, or an event-time
-stream's (reorder buffer, pane store) pair) in the field order of the JAX
+stream's (reorder buffer, pane store) pair, a sharded stream's buffers
+stacked with a leading shard axis) in the field order of the JAX
 package's — so the same inputs can go through both
 packages, their full outputs (padded tails included) be compared, and a
 stream begun in one continue in the other.  :func:`make_stream` needs only numpy (torch is
@@ -147,7 +148,9 @@ def _fields(arrays, names, what):
 def reorder_state_from_numpy(arrays, device="cuda") -> ReorderState:
     """A reorder buffer from numpy arrays — a mapping of
     :data:`REORDER_FIELDS` or a sequence in that order (a JAX
-    ``ReorderState`` converted field by field) — on ``device``."""
+    ``ReorderState`` converted field by field) — on ``device``.  A sharded
+    stream's stacked buffers (``[S, C]`` slots, ``[S]`` scalars) keep
+    their shard axis."""
     import torch
 
     from repro_torch.core.eventtime import ReorderState
@@ -181,7 +184,8 @@ def carries_from_numpy(carries, device="cuda") -> tuple:
     ``state`` one array or a tuple of arrays.  Returns the tuple of
     :class:`repro_torch.core.segscan.Carry` on ``device`` that
     ``execute(..., state=...)`` continues.  An event-time stream's pair
-    ``(reorder buffer, pane store)`` gives the pair of port states."""
+    ``(reorder buffer, pane store)`` gives the pair of port states (a
+    sharded stream's buffers stacked, as the JAX package stacks them)."""
     import torch
 
     from repro_torch.core.segscan import Carry

@@ -61,12 +61,13 @@ _SIGNATURES = {
     # g, k, ts, live, n, retire_below, key_type, wa, c, slide, owner, count,
     # base, stamp, clock, ring_k, ring_s, events, aux, c_evict, c_hwm, stream
     "rt_pergroup_scan_time": [_P] * 4 + [_I, _P, _I, _I, _I, _I] + [_P] * 12,
-    # ts, g, k, n, nvalid, nvalid_dev, drain, drain_all, the buffer read
-    # (ts, grp, val, seq, occ, max_ts, last_emit, seq_clock, dropped) and
-    # the buffer written (the same nine), capacity, max_lateness, out ts,
-    # groups, keys, live, late, c_forced, c_depth, stream
-    "rt_reorder": [_P, _P, _P, _I, _I, _P, _P, _I] + [_P] * 18 + [_I, _I]
-    + [_P] * 8,
+    # ts, g, k, n, nvalid, nvalid_dev, drain, release, late, drain_all,
+    # shards, the buffers read (ts, grp, val, seq, occ, max_ts, last_emit,
+    # seq_clock, dropped) and written (the same nine), capacity,
+    # max_lateness, out ts, groups, keys, live, late, c_forced, c_depth,
+    # stream
+    "rt_reorder": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I] + [_P] * 18
+    + [_I, _I] + [_P] * 8,
     # keys, okeys, nk, float_keys, pays, opays, psize, np, R, T, stream
     "rt_bitonic_sort": [ctypes.POINTER(_P), ctypes.POINTER(_P), _I, _I,
                         ctypes.POINTER(_P), ctypes.POINTER(_P),

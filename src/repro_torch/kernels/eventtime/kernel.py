@@ -17,9 +17,15 @@ prefix of the order.  Nothing is read back to the host.
   everything the gate has passed; emissions ``[N + capacity]``.
 * :func:`reorder_flush` — the same launch with no input, every held tuple
   drained.
+* :func:`reorder_push_sharded` / :func:`reorder_flush_sharded` — a
+  sharded event-time stream's ``S`` stacked buffers (``[S, C]`` slots),
+  all in one launch of ``S`` one-warp blocks, each on its row of the
+  ``[S, L]`` tuples, under the merged watermark's gates; the counters
+  summed (forced pops) and maxed (depth mark) over the blocks.
 
 On CPU tensors each runs its plain version
-(:func:`repro_torch.core.eventtime.reorder_push` / ``reorder_flush``).
+(:func:`repro_torch.core.eventtime.reorder_push`, ``reorder_flush``,
+``reorder_push_sharded``, ``reorder_flush_sharded``).
 """
 from __future__ import annotations
 
@@ -37,17 +43,15 @@ MAX_REORDER_CAPACITY = 1024
 REORDER_COUNTERS = ("reorder_forced_pops", "reorder_depth_hwm")
 
 
-def reorder_push_plain(spec, state, ts, groups, keys, *, n_valid=None,
-                       drain_wm=None, inplace=False, counters=None):
-    """Plain torch version of :func:`reorder_push`."""
+def _plain(fn, spec, state, *args, inplace=False, counters=None, **kw):
+    """A plain version: ``fn`` (a push or a flush of
+    :mod:`repro_torch.core.eventtime`) on ``state``, ``counters`` updated
+    where they lie, ``state`` itself updated when ``inplace``."""
     if counters is None:
-        emit, new = _eventtime.reorder_push(
-            spec, state, ts, groups, keys, n_valid=n_valid,
-            drain_wm=drain_wm)
+        emit, new = fn(spec, state, *args, **kw)
     else:
-        emit, new, counted = _eventtime.reorder_push(
-            spec, state, ts, groups, keys, n_valid=n_valid,
-            drain_wm=drain_wm, counters=dict(counters))
+        emit, new, counted = fn(spec, state, *args, counters=dict(counters),
+                                **kw)
         _counters.store_into(counters, counted)
     if inplace:
         _store_into(state, new)
@@ -55,20 +59,51 @@ def reorder_push_plain(spec, state, ts, groups, keys, *, n_valid=None,
     return emit, new
 
 
-def reorder_flush_plain(spec, state, *, inplace=False, counters=None):
-    """Plain torch version of :func:`reorder_flush` (a flush has no cycle
-    to count: ``counters`` only gains its missing keys)."""
+def reorder_push_plain(spec, state, ts, groups, keys, *, n_valid=None,
+                       release_wm=None, late_wm=None, drain_wm=None,
+                       inplace=False, counters=None):
+    """Plain torch version of :func:`reorder_push`."""
+    return _plain(_eventtime.reorder_push, spec, state, ts, groups, keys,
+                  n_valid=n_valid, release_wm=release_wm, late_wm=late_wm,
+                  drain_wm=drain_wm, inplace=inplace, counters=counters)
+
+
+def reorder_push_sharded_plain(spec, states, ts, groups, keys, *,
+                               n_valid=None, release_wm=None, late_wm=None,
+                               drain_wm=None, inplace=False, counters=None):
+    """Plain torch version of :func:`reorder_push_sharded`: the plain push
+    looped over the shards on a host copy."""
+    return _plain(_eventtime.reorder_push_sharded, spec, states, ts, groups,
+                  keys, n_valid=n_valid, release_wm=release_wm,
+                  late_wm=late_wm, drain_wm=drain_wm, inplace=inplace,
+                  counters=counters)
+
+
+def _flush_plain(fn, spec, state, inplace, counters):
+    """A plain flush: no cycle to count, so ``counters`` only gains its
+    missing keys."""
     if counters is not None:
         common.counter_slots(counters, REORDER_COUNTERS, state.ts.device)
-    emit, new = _eventtime.reorder_flush(spec, state)
-    if inplace:
-        _store_into(state, new)
-        new = state
-    return emit, new
+    return _plain(fn, spec, state, inplace=inplace)
 
 
-def _check_state(spec, state) -> None:
+def reorder_flush_plain(spec, state, *, inplace=False, counters=None):
+    """Plain torch version of :func:`reorder_flush`."""
+    return _flush_plain(_eventtime.reorder_flush, spec, state, inplace,
+                        counters)
+
+
+def reorder_flush_sharded_plain(spec, states, *, inplace=False,
+                                counters=None):
+    """Plain torch version of :func:`reorder_flush_sharded`."""
+    return _flush_plain(_eventtime.reorder_flush_sharded, spec, states,
+                        inplace, counters)
+
+
+def _check_state(spec, state, shards=None) -> None:
+    """``state``: one buffer (``shards`` None) or ``shards`` stacked."""
     c = spec.capacity
+    lead = () if shards is None else (shards,)
     if c > MAX_REORDER_CAPACITY:
         raise ValueError(f"reorder kernel: capacity {c} exceeds the "
                          f"{MAX_REORDER_CAPACITY} slots one warp holds")
@@ -82,45 +117,62 @@ def _check_state(spec, state) -> None:
                              f"{t.dtype} on {t.device}")
     if state.val.dtype not in common.KEY_TYPES \
             or state.occ.dtype != torch.bool \
-            or any(t.shape != (c,) for t in state[:5]) \
+            or any(t.shape != lead + (c,) for t in state[:5]) \
+            or any(t.shape != lead for t in state[5:]) \
             or not (state.val.is_contiguous() and state.occ.is_contiguous()):
-        raise ValueError(f"reorder kernel: [capacity] slots of int32 or "
-                         f"float32 keys and a bool occupancy, got "
-                         f"{state.val.dtype} / {state.occ.dtype} "
+        raise ValueError(f"reorder kernel: {list(lead)} x [capacity] slots "
+                         f"of int32 or float32 keys and a bool occupancy, "
+                         f"got {state.val.dtype} / {state.occ.dtype} "
                          f"{tuple(state.val.shape)}")
 
 
 def _empty_state(state, c: int):
-    """A new buffer shaped as ``state``, from two allocations (the kernel
-    writes every field)."""
+    """New buffers shaped as ``state`` (one, or stacked), from two
+    allocations (the kernel writes every field)."""
     dev = state.ts.device
-    words = torch.empty((4 * c + 4,), dtype=torch.int32, device=dev)
-    ts, grp, val, seq, *scalars = words.split([c] * 4 + [1] * 4)
+    lead = tuple(state.ts.shape[:-1])
+    m = 1 if not lead else lead[0]
+    words = torch.empty((m * (4 * c + 4),), dtype=torch.int32, device=dev)
+    ts, grp, val, seq, *scalars = words.split([m * c] * 4 + [m] * 4)
     return _eventtime.ReorderState(
-        ts=ts, grp=grp, val=val.view(state.val.dtype), seq=seq,
-        occ=torch.empty((c,), dtype=torch.bool, device=dev),
-        **{name: x.view(()) for name, x in zip(
+        ts=ts.view(lead + (c,)), grp=grp.view(lead + (c,)),
+        val=val.view(state.val.dtype).view(lead + (c,)),
+        seq=seq.view(lead + (c,)),
+        occ=torch.empty(lead + (c,), dtype=torch.bool, device=dev),
+        **{name: x.view(lead) for name, x in zip(
             ("max_ts", "last_emit", "seq_clock", "dropped"), scalars)})
 
 
-def _launch(spec, state, ts, groups, keys, nvalid, drain_wm,
-            drain_all: bool, inplace: bool, counters=None):
+def _gate(x, dev):
+    """A gate as a 0-d int32 tensor on ``dev`` (None stays None)."""
+    return None if x is None else torch.as_tensor(
+        x, dtype=torch.int32).to(dev).reshape(())
+
+
+def _launch(spec, state, ts, groups, keys, nvalid, gates, drain_all: bool,
+            inplace: bool, counters=None, shards=None):
+    """One launch over one buffer (``shards`` None; [N] columns) or
+    ``shards`` stacked ones ([S, L] columns, [S, L + C] emissions).
+    ``gates``: (drain, release, late), each None or a value."""
     c = spec.capacity
     dev = state.ts.device
-    n = 0 if ts is None else ts.shape[0]
+    m = 1 if shards is None else shards
+    n = 0 if ts is None else ts.shape[-1]
     new = state if inplace else _empty_state(state, c)
-    words = torch.empty((3 * (n + c),), dtype=torch.int32, device=dev)
-    flags = torch.empty((2 * (n + c),), dtype=torch.bool, device=dev)
-    o_ts, o_g, o_k = words.split(n + c)
-    out = _eventtime.ReorderEmit(o_ts, o_g, o_k.view(state.val.dtype),
-                                 *flags.split(n + c))
-    nv_host, nv_dev = n, None
+    lead = () if shards is None else (shards,)
+    width = m * (n + c)
+    words = torch.empty((3 * width,), dtype=torch.int32, device=dev)
+    flags = torch.empty((2 * width,), dtype=torch.bool, device=dev)
+    o_ts, o_g, o_k = (x.view(lead + (n + c,)) for x in words.split(width))
+    out = _eventtime.ReorderEmit(
+        o_ts, o_g, o_k.view(state.val.dtype),
+        *(x.view(lead + (n + c,)) for x in flags.split(width)))
+    nv_host, nv_dev = m * n, None
     if isinstance(nvalid, torch.Tensor):
         nv_dev = nvalid.to(dev, torch.int32).reshape(())
     elif nvalid is not None:
-        nv_host = min(max(int(nvalid), 0), n)
-    drain = None if drain_wm is None else torch.as_tensor(
-        drain_wm, dtype=torch.int32).to(dev).reshape(())
+        nv_host = min(max(int(nvalid), 0), m * n)
+    drain, release, late = (_gate(x, dev) for x in gates)
     c_forced = c_depth = None
     if counters is not None:
         c_forced, c_depth = common.counter_slots(counters, REORDER_COUNTERS,
@@ -133,25 +185,43 @@ def _launch(spec, state, ts, groups, keys, nvalid, drain_wm,
     with torch.cuda.device(dev):
         err = lib.rt_reorder(
             ptr(ts), ptr(groups), ptr(keys), n, nv_host, ptr(nv_dev),
-            ptr(drain), int(drain_all), *(t.data_ptr() for t in state),
-            *(t.data_ptr() for t in new), c, spec.max_lateness,
-            *(t.data_ptr() for t in out), ptr(c_forced), ptr(c_depth),
-            _build.stream_handle(dev))
+            ptr(drain), ptr(release), ptr(late), int(drain_all), m,
+            *(t.data_ptr() for t in state), *(t.data_ptr() for t in new), c,
+            spec.max_lateness, *(t.data_ptr() for t in out), ptr(c_forced),
+            ptr(c_depth), _build.stream_handle(dev))
     _build.check(err, "reorder")
     reorder_push.launches += 1
     return out, new
 
 
+def _columns(state, ts, groups, keys, shape, what):
+    """The push's three columns, int32 (keys in the buffer's dtype),
+    contiguous on the buffer's card, of ``shape``."""
+    dev = state.ts.device
+    ts, groups = (torch.as_tensor(x).to(dev, torch.int32).contiguous()
+                  for x in (ts, groups))
+    keys = torch.as_tensor(keys).to(dev, state.val.dtype).contiguous()
+    if ts.shape != shape or groups.shape != shape or keys.shape != shape:
+        raise ValueError(f"{what} takes three {list(shape)} columns on the "
+                         f"buffer's card, got {tuple(ts.shape)}, "
+                         f"{tuple(groups.shape)}, {tuple(keys.shape)}")
+    return ts, groups, keys
+
+
 def reorder_push(spec, state, ts, groups, keys, *, n_valid=None,
-                 drain_wm=None, inplace=False, counters=None):
+                 release_wm=None, late_wm=None, drain_wm=None, inplace=False,
+                 counters=None):
     """One push of ``N`` tuples (``ts``, ``groups``, ``keys``; the first
     ``n_valid`` live) through the reorder buffer ``state`` (a
     :class:`repro_torch.core.eventtime.ReorderState`): a cycle a tuple,
     then the drain of every slot the gate has passed (``drain_wm``, else
-    the watermark after the push).  Returns ``(ReorderEmit [N +
-    capacity], state)``: ``state`` itself, updated where it lies, when
-    ``inplace``, else an updated copy.  One launch; ``n_valid`` and
-    ``drain_wm`` may be 0-d tensors on the card.
+    ``release_wm``, else the watermark after the push).  ``release_wm``
+    and ``late_wm`` replace the cycles' release gate and lateness floor
+    (each None: the buffer's watermark), as
+    :func:`repro_torch.core.eventtime.reorder_push` takes them.  Returns
+    ``(ReorderEmit [N + capacity], state)``: ``state`` itself, updated
+    where it lies, when ``inplace``, else an updated copy.  One launch;
+    ``n_valid`` and the gates may be 0-d tensors on the card.
 
     ``counters`` (a :mod:`repro_torch.obs.counters` dict of 0-d int32
     tensors on the card): the kernel adds the pops a full buffer forced
@@ -161,20 +231,18 @@ def reorder_push(spec, state, ts, groups, keys, *, n_valid=None,
     off, the launch counts nothing."""
     if ts.device.type == "cpu":
         return reorder_push_plain(spec, state, ts, groups, keys,
-                                  n_valid=n_valid, drain_wm=drain_wm,
+                                  n_valid=n_valid, release_wm=release_wm,
+                                  late_wm=late_wm, drain_wm=drain_wm,
                                   inplace=inplace, counters=counters)
     _check_state(spec, state)
-    n = ts.shape[-1]
-    ts, groups = (torch.as_tensor(x).to(ts.device, torch.int32).contiguous()
-                  for x in (ts, groups))
-    keys = keys.to(state.val.dtype).contiguous()
-    if ts.dim() != 1 or groups.shape != (n,) or keys.shape != (n,) \
-            or keys.device != ts.device or ts.device != state.ts.device:
-        raise ValueError(f"reorder_push takes three [N] columns on the "
-                         f"buffer's card, got {tuple(ts.shape)}, "
-                         f"{tuple(groups.shape)}, {tuple(keys.shape)}")
-    return _launch(spec, state, ts, groups, keys, n_valid, drain_wm, False,
-                   inplace, counters)
+    if ts.dim() != 1:
+        raise ValueError(f"reorder_push takes [N] columns, got "
+                         f"{tuple(ts.shape)}")
+    ts, groups, keys = _columns(state, ts, groups, keys, tuple(ts.shape),
+                                "reorder_push")
+    drain = drain_wm if drain_wm is not None else release_wm
+    return _launch(spec, state, ts, groups, keys, n_valid,
+                   (drain, release_wm, late_wm), False, inplace, counters)
 
 
 def reorder_flush(spec, state, *, inplace=False, counters=None):
@@ -186,8 +254,51 @@ def reorder_flush(spec, state, *, inplace=False, counters=None):
         return reorder_flush_plain(spec, state, inplace=inplace,
                                    counters=counters)
     _check_state(spec, state)
-    return _launch(spec, state, None, None, None, None, None, True, inplace,
-                   counters)
+    return _launch(spec, state, None, None, None, None, (None,) * 3, True,
+                   inplace, counters)
+
+
+def reorder_push_sharded(spec, states, ts, groups, keys, *, n_valid=None,
+                         release_wm=None, late_wm=None, drain_wm=None,
+                         inplace=False, counters=None):
+    """One push of a sharded event-time stream through its ``S`` stacked
+    buffers (``states``: every field with a leading ``[S]`` axis): row
+    ``s`` of the ``[S, L]`` columns through buffer ``s``, live its first
+    ``clip(n_valid - s L, 0, L)`` tuples (``n_valid`` counts the whole
+    ``[S L]`` batch; the JAX package's split), every buffer under the
+    same gates (:func:`reorder_push`'s).  Returns ``(ReorderEmit [S, L +
+    capacity], states)``.  One launch of S one-warp blocks; the
+    ``counters`` gain every shard's forced pops and the largest depth
+    mark; nothing is read back."""
+    if ts.device.type == "cpu":
+        return reorder_push_sharded_plain(
+            spec, states, ts, groups, keys, n_valid=n_valid,
+            release_wm=release_wm, late_wm=late_wm, drain_wm=drain_wm,
+            inplace=inplace, counters=counters)
+    if ts.dim() != 2:
+        raise ValueError(f"reorder_push_sharded takes [S, L] columns, got "
+                         f"{tuple(ts.shape)}")
+    shards = ts.shape[0]
+    _check_state(spec, states, shards)
+    ts, groups, keys = _columns(states, ts, groups, keys, tuple(ts.shape),
+                                "reorder_push_sharded")
+    drain = drain_wm if drain_wm is not None else release_wm
+    return _launch(spec, states, ts, groups, keys, n_valid,
+                   (drain, release_wm, late_wm), False, inplace, counters,
+                   shards=shards)
+
+
+def reorder_flush_sharded(spec, states, *, inplace=False, counters=None):
+    """Drain every shard's buffer in one launch: ``(ReorderEmit [S,
+    capacity], states)``, the buffers left empty (``counters`` only gains
+    its missing keys)."""
+    if states.ts.device.type == "cpu":
+        return reorder_flush_sharded_plain(spec, states, inplace=inplace,
+                                           counters=counters)
+    shards = states.ts.shape[0]
+    _check_state(spec, states, shards)
+    return _launch(spec, states, None, None, None, None, (None,) * 3, True,
+                   inplace, counters, shards=shards)
 
 
 #: kernel launches since the count was last set to 0 (pushes and flushes)

@@ -133,7 +133,9 @@ def _cuda_panes_supports(q) -> str | None:
 
 def _event_time_limits(w) -> str | None:
     """What the event-time stream's kernels cannot hold: the reorder
-    buffer's warp, the replay's row, the placement's shared memory."""
+    buffer's warp, the replay's row, the placement's shared memory.  The
+    limits hold per shard: a sharded stream runs a warp a shard's buffer
+    and places the merged emissions into one store of the same shape."""
     spec = w.store_spec()
     if w.reorder_capacity > MAX_REORDER_CAPACITY:
         return (f"the reorder kernel holds its buffer in one warp, at most "
@@ -243,7 +245,8 @@ def choose_backend(query, devices=None, num_shards: int = 1) -> str:
 
     ``devices`` (one device, or a sequence such as a mesh's) makes the
     probe answer for the devices the query runs on: CPU devices get
-    ``reference``, CUDA devices the kernel backends."""
+    ``reference``, CUDA devices the kernel backends (a sharded event-time
+    stream within :func:`_event_time_limits`: ``cuda-panestore``)."""
     from repro_torch.obs.registry import METRICS, query_fingerprint
     candidates = [name for name in ("cuda-panestore", "cuda-panes", "cuda",
                                     "reference")

@@ -11,19 +11,32 @@ windows: each framed window row through the swag kernel.
 :func:`_swag_pergroup_kernel_exec` runs per-group windows on the pane
 store: the placement scan kernel, then either the fused push + partials
 kernel or the replay kernel over the scan's ring snapshots.
+
+:func:`swag_cuda` is the deprecated single-op entry point, the
+counterpart of the JAX package's ``swag_tpu``.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.core import panestore as _ps
 from repro_torch.core.combiners import out_dtype
-from repro_torch.core.engine import PAD_GROUP, _prefix_mask
+from repro_torch.core.engine import (PAD_GROUP, _deprecated, _device_of,
+                                     _prefix_mask)
 from repro_torch.core.sorter import next_pow2
 from repro_torch.core.swag import (_empty_pergroup, frame_panes,
                                    frame_windows, num_windows, resolve_panes,
                                    write_plan)
 from repro_torch.kernels.swag import kernel as _k
+
+
+class SwagResult(NamedTuple):
+    groups: torch.Tensor      # [NW, WS]
+    values: torch.Tensor      # [NW, WS]
+    valid: torch.Tensor       # [NW, WS]
+    num_groups: torch.Tensor  # [NW]
 
 
 def _names(ops) -> tuple:
@@ -168,3 +181,24 @@ def _swag_pergroup_kernel_exec(groups: torch.Tensor, keys: torch.Tensor, *,
     values = {nm: torch.where(valid, v, 0).to(v.dtype)
               for nm, v in ovs.items()}
     return torch.where(valid, ugroups, PAD_GROUP), values, valid, num
+
+
+def swag_cuda(groups, keys, *, ws: int, wa: int, op="sum",
+              panes: bool | None = None) -> SwagResult:
+    """Deprecated: use ``repro_torch.query.Query(ops=(op,),
+    window=Window(ws, wa))`` + ``execute`` (``backend="cuda"``,
+    ``"cuda-panes"`` or ``"auto"``).  The pane kernels where the window
+    allows them (as ``panes`` resolves), else the swag kernel; on CPU
+    tensors their plain versions."""
+    _deprecated("repro_torch.kernels.swag.ops.swag_cuda",
+                "Query(ops=(op,), window=Window(ws, wa))")
+    from repro_torch import query as _q
+    name = _q.canonical_op(op)
+    n = groups.shape[-1]
+    backend = ("cuda-panes" if resolve_panes(ws, wa, n, panes) and wa < ws
+               else "cuda")
+    q = _q.Query(ops=(op,), window=_q.Window(ws=ws, wa=wa, panes=panes))
+    res, _ = _q.execute(q, groups, keys, backend=backend,
+                        device=_device_of(keys))
+    return SwagResult(res.groups, res.values[name], res.valid,
+                      res.num_groups)

@@ -59,8 +59,10 @@ Sharded execution (``execute(..., num_shards=S)`` or ``mesh=[device,
 combine tree, one finalize, for batch queries with and without a count
 window and for rolling streams without one.  On the card the shards'
 local phases launch the same kernels as one device, once a shard.  A
-sharded event-time stream belongs to a later slice of the port and raises
-``NotImplementedError`` naming the ROADMAP slice that brings it.
+sharded event-time stream keeps a reorder buffer a shard, released
+against the min-merged watermark, and one shared time-mode pane store: on
+the card a push is one reorder launch for every shard's buffer, one
+time-mode placement of their merged emissions and one replay.
 """
 from __future__ import annotations
 
@@ -107,12 +109,6 @@ OP_ALIASES = {
 def canonical_op(name: str) -> str:
     """Resolve an op-name alias (``"dc"`` -> ``"distinct_count"``, ...)."""
     return OP_ALIASES.get(name, name)
-
-
-def _later_slice(feature: str, slice_no, title: str):
-    return NotImplementedError(
-        f"{feature} is not ported yet; it comes with ROADMAP queue 1, "
-        f"slice {slice_no} ({title}) — use repro.query meanwhile")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -380,8 +376,10 @@ def _validate_sharded(query: Query, backend: str) -> None:
         raise ValueError("presorted conflicts with sharded execution — the "
                          "local phase sorts per shard/pane")
     if w is not None and w.is_time:
-        raise _later_slice("a sharded event-time stream (num_shards=, "
-                           "mesh=)", "7b", "multi-device event time")
+        # sharded event-time streaming merges *emissions* (per-shard reorder
+        # buffers feed one shared time-pane store), so any replay op works:
+        # the mergeable-combiner constraint does not apply
+        return
     for op, nm in zip(query.ops, query.op_names):
         if nm == "median":
             if query.streaming:
@@ -530,9 +528,12 @@ def _init_stream_counters(p: Plan) -> dict:
     dev = torch.device(p.device)
     w = p.query.window
     if w is not None and w.is_time:
-        return _c.init(dev, reorder_depth_hwm=0, reorder_forced_pops=0,
-                       pane_evictions=0, pane_occupancy_hwm=0,
-                       late_dropped=0, watermark=_eventtime.TS_MIN)
+        counters = _c.init(dev, reorder_depth_hwm=0, reorder_forced_pops=0,
+                           pane_evictions=0, pane_occupancy_hwm=0,
+                           late_dropped=0, watermark=_eventtime.TS_MIN)
+        if p.num_shards > 1:
+            counters.update(_c.init(dev, watermark_lag=0))
+        return counters
     if p.num_shards > 1:
         # the combine tree's telemetry: seeded with the plan's round count
         # (log2 of the next power of two), so every push keeps its keys
@@ -554,7 +555,8 @@ def init_stream_state(p: Plan, key_dtype=torch.int32,
     """Fresh state for a streaming plan, on its device: one
     :class:`repro_torch.core.segscan.Carry` an op, a pane store when the
     query is windowed, or the pair ``(reorder buffer, time-mode pane
-    store)`` for an event-time window.
+    store)`` for an event-time window (a sharded plan stacks one reorder
+    buffer a shard: each shard tracks its own watermark).
 
     ``collect_stats=True`` wraps the state as ``(state, counters)``, the
     shape ``stream_fn(..., collect_stats=True)`` threads; pass the same
@@ -564,9 +566,12 @@ def init_stream_state(p: Plan, key_dtype=torch.int32,
     dev = torch.device(p.device)
     w = p.query.window
     if w is not None and w.is_time:
-        state = (_eventtime.init_reorder(w.reorder_spec(), key_dtype, dev),
-                 _panestore.init_store(w.store_spec(), key_dtype,
-                                       device=dev))
+        rspec = w.reorder_spec()
+        rstate = (_eventtime.init_reorder(rspec, key_dtype, dev)
+                  if p.num_shards == 1 else _eventtime.init_reorder_stacked(
+                      rspec, p.num_shards, key_dtype, dev))
+        state = (rstate, _panestore.init_store(w.store_spec(), key_dtype,
+                                               device=dev))
     elif w is not None:
         state = _panestore.init_store(w.store_spec(), key_dtype, device=dev)
     else:
@@ -611,26 +616,25 @@ def _store_push(p: Plan, state, groups, keys, n_valid, inplace: bool,
         push=True, inplace=inplace, counters=counters).final
 
 
-def _time_place(p: Plan, pstate, emit, retire_below, inplace: bool,
-                counters=None):
-    """Place a reorder buffer's emission into the time-mode pane store: on
-    ``cuda-panestore`` one time-mode placement launch, else the plain
-    per-tuple loop on a host copy.  ``counters`` (or None) is updated
-    where it lies."""
+def _time_place(p: Plan, pstate, groups, keys, ts, live, retire_below,
+                inplace: bool, counters=None):
+    """Place a reorder buffer's emission (its ``live`` lanes) into the
+    time-mode pane store: on ``cuda-panestore`` one time-mode placement
+    launch, else the plain per-tuple loop on a host copy.  ``counters``
+    (or None) is updated where it lies."""
     spec = p.query.window.store_spec()
     if p.backend != "cuda-panestore":
         if counters is None:
-            return _panestore.push_time(spec, pstate, emit.groups, emit.keys,
-                                        emit.ts, live=emit.live,
-                                        retire_below=retire_below)
+            return _panestore.push_time(spec, pstate, groups, keys, ts,
+                                        live=live, retire_below=retire_below)
         pstate, new = _panestore.push_time(
-            spec, pstate, emit.groups, emit.keys, emit.ts, live=emit.live,
+            spec, pstate, groups, keys, ts, live=live,
             retire_below=retire_below, counters=dict(counters))
         _c.store_into(counters, new)
         return pstate
     return _swag_kernel.pergroup_scan_time(
-        spec, pstate, emit.groups, emit.keys, emit.ts, emit.live,
-        retire_below, inplace=inplace, counters=counters)[0]
+        spec, pstate, groups, keys, ts, live, retire_below, inplace=inplace,
+        counters=counters)[0]
 
 
 def _time_push(p: Plan, state, groups, keys, timestamps, n_valid,
@@ -657,7 +661,8 @@ def _time_push(p: Plan, state, groups, keys, timestamps, n_valid,
             counters=dict(counters))
         _c.store_into(counters, new)
     wm = rstate.max_ts - w.max_lateness
-    pstate = _time_place(p, pstate, emit, wm - w.range, inplace, counters)
+    pstate = _time_place(p, pstate, emit.groups, emit.keys, emit.ts,
+                         emit.live, wm - w.range, inplace, counters)
     if counters is not None:
         _c.store_into(counters, {"late_dropped": rstate.dropped,
                                  "watermark": wm})
@@ -665,18 +670,31 @@ def _time_push(p: Plan, state, groups, keys, timestamps, n_valid,
 
 
 def _time_flush(p: Plan, state, inplace: bool):
-    """The end of an event-time stream: drain the reorder buffer, place
-    every drained tuple (no retirement).  Returns ``(state, eval_time)``,
-    the evaluation time one past the largest timestamp seen."""
+    """The end of an event-time stream: drain the reorder buffer (a
+    sharded stream's every buffer, in one launch on ``cuda-panestore``,
+    their emissions merged by timestamp), place every drained tuple (no
+    retirement).  Returns ``(state, eval_time)``, the evaluation time one
+    past the largest timestamp seen."""
     rstate, pstate = state
     rspec = p.query.window.reorder_spec()
+    sharded = p.num_shards > 1
     if p.backend == "cuda-panestore":
-        emit, rstate = _et_kernel.reorder_flush(rspec, rstate,
-                                                inplace=inplace)
+        flush = (_et_kernel.reorder_flush_sharded if sharded
+                 else _et_kernel.reorder_flush)
+        emit, rstate = flush(rspec, rstate, inplace=inplace)
     else:
-        emit, rstate = _eventtime.reorder_flush(rspec, rstate)
-    pstate = _time_place(p, pstate, emit, None, inplace)
-    return (rstate, pstate), rstate.max_ts + 1
+        flush = (_eventtime.reorder_flush_sharded if sharded
+                 else _eventtime.reorder_flush)
+        emit, rstate = flush(rspec, rstate)
+    if sharded:
+        from repro_torch.distributed.query_exec import merge_emissions
+        cols = merge_emissions(emit)
+        end = rstate.max_ts.max()
+    else:
+        cols = (emit.groups, emit.keys, emit.ts, emit.live)
+        end = rstate.max_ts
+    pstate = _time_place(p, pstate, *cols, None, inplace)
+    return (rstate, pstate), end + 1
 
 
 def _store_eval(p: Plan, state, eval_time=None):
@@ -724,7 +742,13 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
     devices, when given; on ``cuda`` with the segmented-scan kernel, one
     launch an op a shard), merge them in the combine tree (which reads
     the tables' group counts back, once a push) and fold the carry in at
-    emit time: the same slots as one device.
+    emit time: the same slots as one device.  A sharded event-time plan
+    keeps a reorder buffer a shard (stacked), releases against the
+    min-merged watermark, merges the shards' emissions by timestamp into
+    the one time-mode store and evaluates at that watermark
+    (:func:`repro_torch.distributed.query_exec.stream_push_eventtime_sharded`;
+    ``mesh`` is not used: every buffer runs on the state's device, as the
+    JAX package's push runs its shards on one).
 
     ``collect_stats=True`` expects (and returns) the wrapped state
     ``(engine state, counters dict)`` of ``init_stream_state(...,
@@ -751,6 +775,23 @@ def stream_fn(p: Plan, *, p_ports: int = 4, mesh=None,
 
     if q.window is not None and q.window.is_time:
         c = q.window.store_spec().capacity
+        if p.num_shards > 1:
+            from repro_torch.distributed import query_exec as _qx
+
+            def sharded_time_step(groups, keys, state, n_valid=None,
+                                  timestamps=None):
+                if timestamps is None:
+                    raise ValueError("event-time streaming pushes need "
+                                     "timestamps=")
+                state, counters = unwrap(state)
+                ts = _as_tensor(timestamps, groups.device)
+                out = _qx.stream_push_eventtime_sharded(
+                    q, groups, keys, ts, state, num_shards=p.num_shards,
+                    mesh=mesh, n_valid=n_valid, p_ports=p_ports,
+                    counters=counters, backend=p.backend, inplace=inplace)
+                return out[0], wrap(out[1], counters)
+
+            return sharded_time_step
 
         def time_step(groups, keys, state, n_valid=None, timestamps=None):
             if timestamps is None:

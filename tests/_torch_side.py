@@ -476,8 +476,9 @@ def aggregator_later_slice(what):
         agg = StreamingAggregator("sum", mesh=["cpu", "cpu"])
         return _np(agg.push(g.reshape(2, 4), g.reshape(2, 4)).values)
     elif what == "time window shards":
-        StreamingAggregator("sum", window=tq.Window(range=10), num_shards=2,
-                            device="cpu")
+        agg = StreamingAggregator("sum", window=tq.Window(range=10),
+                                  num_shards=2, device="cpu")
+        return agg.plan.backend, list(agg.carry[0].ts.shape)
     elif what == "stats":
         return StreamingAggregator("sum", collect_stats=True,
                                    device="cpu").collect_stats
@@ -1010,3 +1011,124 @@ def sharded_stats(ops, g, k, num_shards):
     on, _ = tq.execute(p, g, k, device="cpu", collect_stats=True)
     off, _ = tq.execute(p, g, k, device="cpu")
     return result_to_numpy(on), result_to_numpy(off)
+
+
+# ----------------------------------- sharded event-time streams (7b)
+
+def reorder_sharded(capacity, lateness, pushes, float_keys=False,
+                    state=None):
+    """Pushes ``[(ts, groups, keys [S, L], n_valid, release, late,
+    drain)]`` through stacked reorder buffers
+    (``kernels.eventtime.kernel.reorder_push_sharded``, its plain version
+    on CPU tensors; counters from zero each push), from ``state`` (numpy)
+    or fresh buffers, then ``reorder_flush_sharded``: per push and for the
+    flush the emission, the stacked buffers and the counters, in numpy."""
+    from repro_torch.core import eventtime as et
+    from repro_torch.interop import (reorder_state_from_numpy,
+                                     reorder_state_to_numpy)
+    from repro_torch.kernels.eventtime import kernel as ek
+
+    spec = _rspec(capacity, lateness)
+    shards = pushes[0][0].shape[0]
+    st = (et.init_reorder_stacked(spec, shards, torch.float32 if float_keys
+                                  else torch.int32) if state is None
+          else reorder_state_from_numpy(state, "cpu"))
+    out = []
+    for ts, g, k, nv, rel, late, drain in pushes:
+        counters = {}
+        emit, st = ek.reorder_push_sharded(
+            spec, st, _t(ts), _t(g), _t(k), n_valid=nv, release_wm=rel,
+            late_wm=late, drain_wm=drain, counters=counters)
+        out.append((_np(tuple(emit)), reorder_state_to_numpy(st),
+                    _np(counters)))
+    emit, st = ek.reorder_flush_sharded(spec, st)
+    out.append((_np(tuple(emit)), reorder_state_to_numpy(st), {}))
+    return out
+
+
+def merge_emissions(emit):
+    """``query_exec.merge_emissions`` of a stacked emission (numpy)."""
+    from repro_torch.core.eventtime import ReorderEmit
+    from repro_torch.distributed import query_exec as qx
+
+    return _np(qx.merge_emissions(ReorderEmit(*(_t(x) for x in emit))))
+
+
+def time_aggregator(op, batches, *, window, num_shards=None, mesh=None,
+                    backend=None):
+    """A sharded event-time ``StreamingAggregator`` on the CPU (``mesh`` by
+    device name): per push its groups, values, valid and late-drop count,
+    then the flush's, in numpy."""
+    from repro_torch.core import StreamingAggregator
+
+    agg = StreamingAggregator(op, window=tq.Window(**window),
+                              num_shards=num_shards, mesh=mesh,
+                              device="cpu", backend=backend)
+    out = []
+    for g, k, ts in batches:
+        r = agg.push(g, k, timestamps=ts)
+        out.append(_np((r.groups, r.values, r.valid,
+                        r.stats["late_dropped"])))
+    r = agg.flush()
+    out.append(_np((r.groups, r.values, r.valid, r.stats["late_dropped"])))
+    return out
+
+
+# ------------------------------------------- slice 8: shims and helpers
+
+#: the port's deprecated shims, by the name of their JAX counterpart
+_SHIMS = {
+    "group_by_aggregate": ("repro_torch.core", "group_by_aggregate"),
+    "multi_aggregate": ("repro_torch.core", "multi_aggregate"),
+    "swag": ("repro_torch.core.swag", "swag"),
+    "swag_median": ("repro_torch.core.swag", "swag_median"),
+    "group_by_aggregate_tpu": ("repro_torch.kernels.groupagg.ops",
+                               "group_by_aggregate_cuda"),
+    "swag_tpu": ("repro_torch.kernels.swag.ops", "swag_cuda"),
+}
+
+
+def shim(name, g, k, *args, **kwargs):
+    """The port's counterpart of the JAX shim ``name`` on CPU tensors:
+    the DeprecationWarnings naming ``repro_torch.query`` it emitted, the
+    type name of its result, and the result in numpy."""
+    import importlib
+    import warnings
+
+    module, attr = _SHIMS[name]
+    fn = getattr(importlib.import_module(module), attr)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out = fn(_t(g), _t(k), *args, **kwargs)
+    dep = [str(w.message) for w in caught
+           if issubclass(w.category, DeprecationWarning)
+           and "repro_torch.query" in str(w.message)]
+    kind = type(out).__name__
+    if isinstance(out, dict):
+        return dep, kind, {n: _np(tuple(r)) for n, r in out.items()}
+    return dep, kind, _np(tuple(out))
+
+
+def complexity_table(ps):
+    """The port's entity counts and ratio at each P of ``ps``."""
+    from repro_torch.core import complexity as cx
+
+    return [(cx.prra_entities(p), cx.engine_entities(p),
+             cx.modular_entities(p), cx.reduction_ratio(p)) for p in ps]
+
+
+def complexity_raises(p):
+    from repro_torch.core import complexity as cx
+
+    try:
+        cx.engine_entities(p)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def domain_stats(domains, values, ops):
+    """``repro_torch.data.domain_stats`` on the CPU (numpy)."""
+    from repro_torch.data import domain_stats as run
+
+    return _np(run(domains, values, ops, device="cpu"))

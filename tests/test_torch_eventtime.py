@@ -317,7 +317,9 @@ def test_event_time_streaming_and_sharding_raise(port):
     # test_torch_eventtime_stream.py): the planner serves it and a time
     # clause's reorder buffer is the JAX package's.  Sharding (slice 7a)
     # refuses a batch time window with the JAX package's message; a
-    # sharded event-time stream waits for slice 7b
+    # sharded event-time stream is ported (slice 7b, held to the JAX
+    # package in test_torch_eventtime_sharded.py) and plans on both
+    # backends
     from repro import query as jq
 
     g, k, ts = _stream(31, 32)
@@ -338,7 +340,11 @@ def test_event_time_streaming_and_sharding_raise(port):
     with pytest.raises(ValueError, match="batch time-range windows"):
         jq.plan(jq.Query(ops="sum", window=jq.Window(range=64)),
                 backend="reference", num_shards=2)
-    with pytest.raises(NotImplementedError, match="slice 7b "):
-        port.execute(("sum",), g, k, backend="reference",
-                     window=dict(range=64), query=stream, timestamps=ts,
-                     num_shards=2)
+    for backend in ("reference", "cuda-panestore"):
+        assert port.plan_sharded(("sum",), backend=backend,
+                                 window=dict(range=64), query=stream,
+                                 num_shards=2)[0] == backend
+    res = port.execute(("sum",), g, k, backend="reference",
+                       window=dict(range=64), query=stream, timestamps=ts,
+                       num_shards=2)
+    assert res.groups.shape == res.valid.shape == res.values["sum"].shape

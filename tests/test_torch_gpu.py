@@ -1842,3 +1842,159 @@ def test_reorder_counters_vs_plain(cuda, case, dtype):
         assert int(want_c["reorder_depth_hwm"]) == capacity, case
     if case.startswith("full"):  # wrapped past INT32_MAX
         assert int(want_c["reorder_forced_pops"]) < 0, case
+
+
+# ------------------------------------- sharded event-time streams (7b)
+
+def _sharded_gates(st, ts, nv, lateness):
+    """The gates a sharded push sets, on the card: the previous push's
+    merged watermark (release and lateness floor) and this push's
+    (drain)."""
+    import torch
+
+    shards, length = ts.shape
+    live = torch.arange(shards * length, device=ts.device).reshape(
+        shards, length) < (shards * length if nv is None else nv)
+    prev = (st.max_ts - lateness).min()
+    top = torch.where(live, ts, -(2**30)).max(dim=1).values
+    merged = (torch.maximum(st.max_ts, top) - lateness).min()
+    return prev, merged
+
+
+@pytest.mark.parametrize("capacity", [32, 128, 1024])
+@pytest.mark.parametrize("shards", [1, 2, 4, 8])
+def test_sharded_reorder_kernel_vs_plain(cuda, shards, capacity):
+    # S stacked buffers in one launch of S one-warp blocks, gated on the
+    # merged watermarks as a sharded stream gates them, against the plain
+    # push looped over the shards: emissions, every buffer, and the
+    # counters (forced pops summed over the blocks from near INT32_MAX, so
+    # the sum wraps; the depth mark their maximum); a push whose n_valid
+    # leaves the last shard empty (a tensor on the card); late stragglers;
+    # the flush of every buffer in one launch
+    import torch
+
+    from repro_torch.core import eventtime as et
+    from repro_torch.kernels.eventtime import kernel as ek
+
+    lateness, length = 24, 200
+    spec = et.ReorderSpec(capacity, lateness)
+    st = et.init_reorder_stacked(spec, shards, torch.int32, cuda)
+    ref = et.init_reorder_stacked(spec, shards, torch.int32, cuda)
+    n = shards * length
+    start = {"reorder_forced_pops": 2**31 - 3, "reorder_depth_hwm": 0}
+    got_c = {k: torch.tensor(v, dtype=torch.int32, device=cuda)
+             for k, v in start.items()}
+    want_c = {k: v.clone() for k, v in got_c.items()}
+    for i, nv in enumerate((None, "tensor", n - 7)):
+        ts, g, k = (x.reshape(shards, length) for x in _time_tuples(
+            300 + i, n, np.int32, cuda, offset=n * i // 2,
+            jitter=(-40, 40)))
+        if nv == "tensor":
+            nv = torch.tensor(max(n - length - 17, 3), dtype=torch.int32,
+                              device=cuda)
+        if i:  # stragglers behind the previous push's merged watermark
+            ts[0, 11] = ts[-1, 5] = (ref.max_ts - lateness).min() - 100
+        prev, merged = _sharded_gates(ref, ts, nv, lateness)
+        gates = dict(n_valid=nv, release_wm=prev, late_wm=prev,
+                     drain_wm=merged)
+        alone = et.ReorderState(*(x[0].clone() for x in ref))
+        ek.reorder_push.launches = 0
+        got, st = ek.reorder_push_sharded(spec, st, ts, g, k, inplace=True,
+                                          counters=got_c, **gates)
+        assert ek.reorder_push.launches == 1
+        want, ref = ek.reorder_push_sharded_plain(spec, ref, ts, g, k,
+                                                  counters=want_c, **gates)
+        torch.cuda.synchronize()
+        for s in range(shards):
+            _assert_emit_same(et.ReorderEmit(*(x[s] for x in got)),
+                              et.ReorderEmit(*(x[s] for x in want)), length,
+                              f"S={shards} C={capacity} push {i} shard {s}")
+        _assert_trees(tuple(st), tuple(ref), f"push {i} buffers")
+        assert _counters_np(got_c) == _counters_np(want_c), i
+        if shards == 1:  # the one-buffer launch with the same gates
+            one, alone = ek.reorder_push(spec, alone, ts[0], g[0], k[0],
+                                         **gates)
+            _assert_emit_same(one, et.ReorderEmit(*(x[0] for x in want)),
+                              length, f"one-buffer launch {i}")
+            _assert_trees(tuple(alone), tuple(et.shard_state(ref, 0)),
+                          f"one buffer {i}")
+    if capacity == 32:  # the lagging merged gate overflows the buffers
+        assert int(want_c["reorder_forced_pops"]) < 0
+        assert int(want_c["reorder_depth_hwm"]) == capacity
+    assert int(ref.dropped.sum()) >= 1
+    ek.reorder_push.launches = 0
+    got, st = ek.reorder_flush_sharded(spec, st, inplace=True)
+    assert ek.reorder_push.launches == 1
+    want, ref = ek.reorder_flush_sharded_plain(spec, ref)
+    torch.cuda.synchronize()
+    for s in range(shards):
+        _assert_emit_same(et.ReorderEmit(*(x[s] for x in got)),
+                          et.ReorderEmit(*(x[s] for x in want)), 0,
+                          f"flush shard {s}")
+    _assert_trees(tuple(st), tuple(ref), "flushed buffers")
+    assert not bool(ref.occ.any())
+
+
+def test_sharded_event_time_stream_on_card(cuda):
+    # a 4-way sharded event-time stream on the card: auto plans
+    # cuda-panestore; each push is one reorder launch for every buffer,
+    # one time-mode placement and one ring replay, equal push by push to
+    # the reference backend (outputs, stacked buffers, store, counters);
+    # the aggregator on a mesh of four entries of the card equals the one
+    # with num_shards=4, its flush one launch of each kernel
+    import torch
+
+    from repro_torch.core import StreamingAggregator
+    from repro_torch.kernels.eventtime import kernel as ek
+    from repro_torch.kernels.swag import kernel as sk
+    from repro_torch.query import (Query, Window, init_stream_state, plan,
+                                   stream_fn)
+
+    w = Window(range=512, slide=128, wa=8, capacity=256, max_lateness=32,
+               reorder_capacity=256)
+    ops = tuple(sorted(DIRECT_OPS))
+    q = Query(ops=ops, window=w, streaming=True)
+    p = plan(q, device=cuda, num_shards=4)
+    assert p.backend == "cuda-panestore" and p.num_shards == 4, p
+    pr = plan(q, backend="reference", device=cuda, num_shards=4)
+    step = stream_fn(p, collect_stats=True)
+    ref = stream_fn(pr, collect_stats=True)
+    st = init_stream_state(p, collect_stats=True)
+    rst = init_stream_state(pr, collect_stats=True)
+    assert tuple(st[0][0].ts.shape) == (4, 256)
+    agg = StreamingAggregator(ops, window=w, device=cuda, num_shards=4)
+    amesh = StreamingAggregator(ops, window=w, mesh=[cuda] * 4)
+    wrappers = (ek.reorder_push, sk.pergroup_scan_time,
+                sk.pergroup_replay_ring)
+    for i in range(6):
+        ts, g, k = _time_tuples(400 + i, 800, np.int32, cuda,
+                                offset=800 * i, jitter=(-20, 20),
+                                n_groups=20)
+        if i:  # a straggler behind the previous push's merged watermark
+            ts[9] -= 2000
+        nv = 700 if i == 2 else None
+        for wr in wrappers:
+            wr.launches = 0
+        got, st = step(g, k, st, nv, ts)
+        assert tuple(wr.launches for wr in wrappers) == (1, 1, 1)
+        want, rst = ref(g, k, rst, nv, ts)
+        torch.cuda.synchronize()
+        tag = f"push {i}"
+        for a, b, what in zip(got[:1] + got[2:], want[:1] + want[2:],
+                              ("groups", "valid", "num", "rr_port")):
+            assert_same(a, b, what=f"{tag} {what}")
+        for name in ops:
+            assert_same(got[1][name], want[1][name],
+                        inexact=name in INEXACT, what=f"{tag} {name}")
+        for a, b in zip(st[0], rst[0]):
+            _assert_trees(tuple(a), tuple(b), f"{tag} state")
+        assert _counters_np(st[1]) == _counters_np(rst[1]), tag
+        _same_stream_result(amesh.push(g, k, nv, ts), agg.push(g, k, nv, ts),
+                            f"aggregator {tag}")
+    assert int(rst[1]["late_dropped"]) == 5
+    for wr in wrappers:
+        wr.launches = 0
+    fin = agg.flush()
+    assert tuple(wr.launches for wr in wrappers) == (1, 1, 1)
+    _same_stream_result(amesh.flush(), fin, "flush")
+    torch.cuda.synchronize()

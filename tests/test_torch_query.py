@@ -87,8 +87,8 @@ def test_later_slices_raise_not_implemented(port):
     # and execute(collect_stats=True) (slice 6)
     assert port.execute_stats("sum", g, g) == {"tuples": 8, "num_shards": 1}
     # sharding of batch queries (slice 7a) returns the sharded result: the
-    # one-device values on the valid lanes; a sharded event-time stream
-    # (slice 7b) still raises
+    # one-device values on the valid lanes; so does a sharded event-time
+    # stream (slice 7b) plan, on auto's reference here
     g = np.repeat(np.arange(4, dtype=np.int32), 2)
     one = port.execute("sum", g, g, backend=None)
     sharded = port.execute("sum", g, g, backend=None, num_shards=2)
@@ -96,10 +96,13 @@ def test_later_slices_raise_not_implemented(port):
     np.testing.assert_array_equal(sharded.values["sum"][:4],
                                   one.values["sum"][:4])
     assert port.execute_stats("sum", g, g, num_shards=2)["num_shards"] == 2
-    with pytest.raises(NotImplementedError, match="slice 7b "):
-        port.execute("sum", g, g, backend=None, num_shards=2,
-                     window={"range": 10}, query={"streaming": True},
-                     timestamps=np.arange(8, dtype=np.int32))
+    assert port.plan_sharded("sum", window={"range": 10},
+                             query={"streaming": True},
+                             num_shards=2)[0] == "reference"
+    res = port.execute("sum", g, g, backend=None, num_shards=2,
+                       window={"range": 10}, query={"streaming": True},
+                       timestamps=np.arange(8, dtype=np.int32))
+    assert res.valid.shape == res.values["sum"].shape
 
 
 def test_cuda_device_without_a_card_raises(port):

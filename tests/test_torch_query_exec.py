@@ -234,15 +234,23 @@ def test_argminmax_not_mergeable(port, op):
     (("dc",), "cuda", None, {}, ValueError, "cannot shard"),
     (("sum",), "reference", {"range": 16}, {}, ValueError,
      "batch time-range windows"),
+    # a sharded event-time stream plans (slice 7b): no refusal
     (("sum",), "reference", {"range": 16}, {"streaming": True},
-     NotImplementedError, "slice 7b "),
+     None, None),
 ], ids=["per_group", "panestore", "stream_window", "presorted", "mean_cuda",
         "dc_cuda", "batch_time", "time_stream-7b"])
 def test_sharded_plan_validation(port, ops, backend, window, query, err,
                                  msg):
     """The JAX package's refusals and messages (``cuda`` in place of
-    ``pallas``); a sharded event-time stream names the slice that brings
-    it."""
+    ``pallas``); a sharded event-time stream plans on the backend asked
+    for, as the JAX package's does."""
+    if err is None:
+        assert port.plan_sharded(ops, backend=backend, window=window,
+                                 query=query, num_shards=2)[0] == backend
+        jp = jq.plan(jq.Query(ops=ops, window=jq.Window(**window), **query),
+                     backend=backend, num_shards=2)
+        assert jp.backend == backend and jp.num_shards == 2
+        return
     with pytest.raises(err, match=msg):
         port.plan_sharded(ops, backend=backend, window=window, query=query,
                           num_shards=2)

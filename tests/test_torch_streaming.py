@@ -398,7 +398,7 @@ def test_streaming_median_without_a_window_is_refused(port):
     # window are the JAX package's ValueError
     pytest.param("timestamps", None, id="timestamps-5b"),
     pytest.param("time window stats", "6", id="time window-5b"),
-    # a sharded event-time stream waits for slice 7b
+    # a sharded event-time stream is ported (slice 7b)
     pytest.param("time window shards", "7b", id="time window shards-7b")])
 def test_later_slices_raise_naming_theirs(port, what, slice_no):
     if slice_no is None:
@@ -428,5 +428,6 @@ def test_later_slices_raise_naming_theirs(port, what, slice_no):
             "store_donated_buffers", "watermark"]
         assert port.aggregator_later_slice(what) == want
         return
-    with pytest.raises(NotImplementedError, match=f"slice {slice_no} "):
-        port.aggregator_later_slice(what)
+    # slice 7b: the sharded event-time aggregator plans and stacks a
+    # reorder buffer a shard
+    assert port.aggregator_later_slice(what) == ("reference", [2, 64])
