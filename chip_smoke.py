@@ -161,7 +161,23 @@ What it does, in order (any failure exits non-zero, no phase swallows one):
    its device-busy share; and each kernel at a shard's shape against its
    plain version on every shard, timed (the sharded reorder launch also
    against four one-buffer launches of the same push);
-7. prints a ``phases`` line, a ``kernels`` line, the card's name and power
+7. the ``serve`` phase (``serve_phase``): the engine's serving step,
+   ``repro_torch.distributed.steps.make_query_step``, for (a)'s batch
+   query (one groupagg launch) and (m)'s first 4 pushes as a stream (one
+   segmented_scan an op a push), each equal to ``execute``; mixtral-8x7b
+   at its published widths (d_model 4096, 32 heads, 8 KV heads, d_ff
+   14336, 8 experts top-2, vocab 32000, sliding window 4096, bf16) with
+   its depth cut from 32 to 8 layers (11.87e9 parameters drawn on the
+   card from SEED), serving 4 requests of a 16-token prompt and 32 greedy
+   tokens through ``repro_torch.launch.serve.generate`` (the MoE ranks one
+   segmented_scan launch a MoE layer a step, counted), its tokens and
+   logits equal to the same run with the plain scan, its decode step's
+   median, min and max ms against the least time a step could take, its
+   tokens/s, peak memory and a profiled run's device time; the ranks'
+   kernel at a decode step's shape against its plain version, timed; and
+   every registered architecture, reduced, in float32 on the card against
+   the CPU (3 prompt and 3 teacher-forced steps, rtol = atol = 1e-4);
+8. prints a ``phases`` line, a ``kernels`` line, the card's name and power
    limit, and last ``{"ok": true, "device": {...}}``.
 
 Needs the repository beside it (``src/repro_torch``) and a CUDA card; it
@@ -2748,6 +2764,283 @@ def sharded_phase(torch, data, dev, wrappers, run_launches, identity):
     return phases + [phase], rows + [row]
 
 
+#: the serve phase: mixtral-8x7b at its published widths, its depth cut
+#: from 32 to 8 layers (random weights from SEED), 4 requests of a 16-token
+#: prompt and 32 generated tokens, greedy
+SERVE_ARCH = "mixtral-8x7b"
+SERVE_LAYERS = 8
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 4, 16, 32
+#: prompt and generated steps of each registered architecture, reduced, in
+#: float32 on the card against the CPU (rtol = atol = 1e-4)
+SMOKE_PROMPT, SMOKE_GEN = 3, 3
+#: the H100's dense bf16 tensor-core peak (FLOP/s)
+BF16_OPS_PER_S = 989e12
+#: (m)'s pushes the streaming query step takes
+STEP_PUSHES = 4
+
+
+def query_step_runs(torch, data, wrappers) -> dict:
+    """``make_query_step`` on the card: (a)'s batch query on ``cuda``
+    (one groupagg launch) and (m)'s stream's first pushes through the
+    streaming step (one segmented_scan launch an op a push), each result
+    equal to ``execute``'s on the same backend."""
+    from repro_torch.distributed.steps import make_query_step
+    from repro_torch.query import Query, execute, init_stream_state
+
+    g, k = data["sorted"]
+    q = Query(ops=OPS)
+    step, p = make_query_step(q, backend="cuda")
+    res, counts, _ = counted_call(torch, lambda: step(g, k), wrappers)
+    if counts["groupagg"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"the batch query step launched {counts}")
+    if not _same_result(torch, res, execute(q, g, k, backend="cuda")[0]):
+        raise AssertionError("the batch query step differs from execute")
+    _, ms = timed(torch, lambda: step(g, k), 7)
+
+    qs = Query(ops=OPS, streaming=True)
+    sstep, sp = make_query_step(qs, backend="cuda")
+    b = N // STREAM_BATCHES
+    pushes = [(g[i * b:(i + 1) * b], k[i * b:(i + 1) * b])
+              for i in range(STEP_PUSHES)]
+
+    def stream():
+        state, outs = init_stream_state(sp), []
+        for bg, bk in pushes:
+            out, state = sstep(bg, bk, state)
+            outs.append(out)
+        return outs
+
+    outs, scounts, _ = counted_call(torch, stream, wrappers)
+    want = len(qs.op_names) * STEP_PUSHES
+    if scounts["segmented_scan"] != want or sum(scounts.values()) != want:
+        raise AssertionError(f"the streaming query step launched {scounts}")
+    state = None
+    for i, ((bg, bk), out) in enumerate(zip(pushes, outs)):
+        ref, state = execute(qs, bg, bk, state=state, backend="cuda")
+        if not _same_result(torch, out, ref):
+            raise AssertionError(f"the streaming query step's push {i} "
+                                 f"differs from execute(state=)")
+    print(f"serve: make_query_step on the card: (a)'s batch query on "
+          f"{p.backend} {ms:.3f} ms (median of 7), launches {counts}; "
+          f"(m)'s first {STEP_PUSHES} pushes through the streaming step on "
+          f"{sp.backend}, launches {scounts}; both equal to execute",
+          flush=True)
+    return {"batch": {"backend": p.backend, "ms": ms, "launches": counts},
+            "stream": {"backend": sp.backend, "pushes": STEP_PUSHES,
+                       "launches": scounts}}
+
+
+def _decode_step_work(cfg, params, batch: int, plen: int, gen: int):
+    """(bytes, operations) the average generated step of a MoE decoder
+    needs: every weight read once but the embedding table (only the batch's
+    rows), the KV cache's occupied slots read and one slot written a
+    layer, the logits written; the products of the attention, the router,
+    the dense [E, C, D] expert buffers (every expert, C rows each) and the
+    LM head."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import param_bytes
+
+    d, hd = cfg.d_model, cfg.resolved_head_dim
+    h, hkv, f = cfg.num_heads, cfg.num_kv_heads, cfg.d_ff
+    emb = params.embed
+    item = emb.element_size()
+    weights = param_bytes(params) - emb.numel() * item + batch * d * item
+    kv = 2 * batch * hkv * hd * item * cfg.num_layers   # one slot, k and v
+    held = sum(min(t + 1, cfg.sliding_window or t + 1)
+               for t in range(plen, plen + gen)) / gen
+    nbytes = weights + kv * (held + 1) + batch * cfg.padded_vocab * item
+    cap = MOE._capacity(batch, cfg.num_experts, cfg.num_experts_per_tok, 2.0)
+    per_layer = (batch * 2 * d * (2 * h * hd + 2 * hkv * hd)
+                 + batch * 2 * d * cfg.num_experts
+                 + cfg.num_experts * cap * 2 * 3 * d * f
+                 + batch * 2 * 2 * h * hd * held)
+    nops = cfg.num_layers * per_layer + batch * 2 * d * cfg.padded_vocab
+    return nbytes, nops
+
+
+def reduced_archs_on_card(torch, dev) -> dict:
+    """Every registered architecture, reduced, in float32: the same weights
+    (drawn on the CPU) serve SMOKE_PROMPT + SMOKE_GEN steps on the CPU and
+    on the card (teacher-forced with the CPU's tokens); every step's
+    logits within rtol = atol = 1e-4 (another order of sums), the MoE
+    layers' ranks from the segmented-scan kernel on the card."""
+    import copy
+
+    import numpy as np
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as MDL
+
+    # full float32 products on the card, as on the CPU
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for arch in list_archs():
+        cfg = get_config(arch).reduced(dtype="float32")
+        cpu = MDL.init_model(cfg, seed=SEED, device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        rng = np.random.default_rng(SEED)
+        prompts = rng.integers(0, cfg.vocab_size, (2, SMOKE_PROMPT))
+        mem = {"cpu": None, "card": None}
+        if cfg.is_encoder_decoder:
+            e = torch.from_numpy(rng.standard_normal(
+                (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32))
+            mem = {"cpu": MDL.encode(cpu, cfg, e),
+                   "card": MDL.encode(card, cfg, e.to(dev))}
+        elif cfg.cross_attn_every:
+            m = torch.from_numpy(rng.standard_normal(
+                (2, cfg.num_image_tokens, cfg.d_model)).astype(np.float32))
+            mem = {"cpu": m, "card": m.to(dev)}
+        ref = generate(cfg, cpu, prompts, SMOKE_GEN, memory=mem["cpu"])
+        ssk.segscan.launches = 0
+        got = generate(cfg, card, prompts, SMOKE_GEN, memory=mem["card"],
+                       forced=ref.tokens)
+        torch.cuda.synchronize()
+        launches = ssk.segscan.launches
+        moe_layers = cfg.num_layers if cfg.num_experts else 0
+        if launches != moe_layers * (SMOKE_PROMPT + SMOKE_GEN):
+            raise AssertionError(f"{arch} (reduced) on the card launched "
+                                 f"segmented_scan {launches} times")
+        err = (got.logits.cpu() - ref.logits).abs().max().item()
+        torch.testing.assert_close(got.logits.cpu(), ref.logits, rtol=1e-4,
+                                   atol=1e-4, msg=f"{arch} card vs CPU")
+        out[arch] = {"max_abs_err": err, "segmented_scan": launches,
+                     "same_tokens": bool(torch.equal(got.tokens.cpu(),
+                                                     ref.tokens))}
+        del cpu, card
+    print(f"serve: every architecture reduced, float32, card against CPU "
+          f"over {SMOKE_PROMPT} + {SMOKE_GEN} steps: "
+          + ", ".join(f"{a} {r['max_abs_err']:.2e}" for a, r in out.items()),
+          flush=True)
+    return out
+
+
+def serve_phase(torch, data, dev, wrappers, run_launches, identity):
+    """The serve phase: the engine's serving step (:func:`query_step_runs`),
+    mixtral-8x7b at full width and 8 layers served through
+    ``repro_torch.launch.serve.generate`` (launches counted: one
+    segmented_scan a MoE layer a step; held token for token and bit for
+    bit to the same run with the plain scan), and every architecture
+    reduced (:func:`reduced_archs_on_card`).  Returns (phase row, kernel
+    row of the MoE ranks)."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.segscan import segment_starts
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as MDL
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.params import count_params, param_bytes
+
+    row = {"phase": "serve", "card": identity,
+           "query_step": query_step_runs(torch, data, wrappers)}
+
+    full = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(full, num_layers=SERVE_LAYERS)
+    t0 = time.perf_counter()
+    params = MDL.init_model(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params, n_bytes = count_params(params), param_bytes(params)
+    prompts = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT)).astype(np.int32)
+    steps = SERVE_PROMPT + SERVE_GEN
+
+    res, counts, peak = counted_call(
+        torch, lambda: generate(cfg, params, prompts, SERVE_GEN), wrappers)
+    want = SERVE_LAYERS * steps
+    if counts["segmented_scan"] != want or sum(counts.values()) != want:
+        raise AssertionError(f"serve launched {counts}, not one "
+                             f"segmented_scan a MoE layer a step ({want})")
+    run_launches["serve"] = counts
+    if res.logits.shape != (SERVE_BATCH, steps, cfg.padded_vocab) \
+            or not torch.isfinite(res.logits.float()).all() \
+            or not bool(((res.tokens >= 0)
+                         & (res.tokens < cfg.vocab_size)).all()):
+        raise AssertionError("serve: logits not finite or tokens out of "
+                             "the vocabulary")
+    plain = generate(cfg, params, prompts, SERVE_GEN,
+                     rank_scan=MOE.rank_in_expert_plain)
+    if not torch.equal(plain.tokens, res.tokens):
+        raise AssertionError("serve: the kernel's run and the plain scan's "
+                             "generate other tokens")
+    if not torch.equal(plain.logits, res.logits):
+        raise AssertionError("serve: the kernel's run and the plain scan's "
+                             "differ in their logits")
+    dec = sorted(res.step_ms[SERVE_PROMPT:])
+    med = dec[len(dec) // 2]
+    tok_s = SERVE_BATCH * SERVE_GEN / res.gen_s
+    busy = device_busy(torch, lambda: generate(cfg, params, prompts,
+                                               SERVE_GEN))
+    nbytes, nops = _decode_step_work(cfg, params, SERVE_BATCH, SERVE_PROMPT,
+                                     SERVE_GEN)
+    b_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    b_ops = nops / BF16_OPS_PER_S * 1e3
+    bound, by = (b_bytes, "bytes") if b_bytes >= b_ops else (b_ops,
+                                                             "operations")
+    row["mixtral"] = {
+        "arch": SERVE_ARCH, "layers": SERVE_LAYERS,
+        "reduced": f"num_layers {full.num_layers} -> {SERVE_LAYERS}",
+        "params": n_params, "param_bytes": n_bytes, "init_s": init_s,
+        "batch": SERVE_BATCH, "prompt": SERVE_PROMPT, "gen": SERVE_GEN,
+        "step_ms": med, "step_ms_min": dec[0], "step_ms_max": dec[-1],
+        "prompt_step_ms": sorted(res.step_ms[:SERVE_PROMPT])[
+            SERVE_PROMPT // 2],
+        "tokens_per_s": tok_s, "prefill_s": res.prefill_s,
+        "gen_s": res.gen_s, "peak_bytes": peak, "launches": counts,
+        "segmented_scan_a_step": counts["segmented_scan"] / steps,
+        "step_bytes": nbytes, "step_ops": nops, "bound_ms": bound,
+        "bound_by": by, "same_as_plain_scan": True, "profiled": busy,
+        "sample": res.tokens[0, :8].tolist()}
+    print(f"serve: {SERVE_ARCH} at full width, {SERVE_LAYERS} of "
+          f"{full.num_layers} layers ({n_params / 1e9:.2f}e9 parameters, "
+          f"{n_bytes / 1e9:.2f} GB bf16, drawn on the card in {init_s:.1f} "
+          f"s): {SERVE_BATCH} requests, {SERVE_PROMPT}-token prompts, "
+          f"{SERVE_GEN} generated: decode step {med:.3f} ms (median; "
+          f"{dec[0]:.3f}-{dec[-1]:.3f}) against a bound of {bound:.3f} ms "
+          f"({by}: {nbytes / 1e9:.2f} GB a step at 3.35 TB/s, "
+          f"{nops / 1e9:.1f} GFLOP at 989 TFLOP/s); {tok_s:.1f} tokens/s; "
+          f"peak {peak / 2**30:.2f} GiB; segmented_scan "
+          f"{counts['segmented_scan'] / steps:.0f} launches a step; tokens "
+          f"and logits equal to the plain scan's run [{identity}]",
+          flush=True)
+    shown = ", ".join(f"{k} {t:.3f}" for k, t in busy["top_device_ms"])
+    print(f"serve: profiled generate ({steps} steps): {busy['wall_ms']:.3f} "
+          f"ms wall, " + ("no device time recorded" if busy["device_ms"] is
+                          None else f"{busy['device_ms']:.3f} ms on the "
+                          f"device ({busy['busy_share']:.1%} busy); "
+                          f"largest: {shown}"), flush=True)
+
+    # the segmented scan as a MoE layer launches it: a decode step's
+    # B * k sorted assignments
+    x = torch.randn((SERVE_BATCH, cfg.d_model), dtype=torch.bfloat16,
+                    device=dev)
+    experts, _, _ = MOE.route(params.layers[0].p["moe"], x,
+                              cfg.num_experts_per_tok)
+    se = torch.sort(experts.reshape(-1), stable=True).values
+    starts = segment_starts(se)
+    got, ms = timed(torch, lambda: MOE.rank_in_expert(starts), 20)
+    b2b_ms = back_to_back_ms(torch, lambda: MOE.rank_in_expert(starts))
+    ref, plain_ms = timed(torch, lambda: MOE.rank_in_expert_plain(starts), 5)
+    err = max_abs_err(torch, [got], [ref])
+    n = starts.numel()
+    bnd, bby = bound_ms(n * (1 + 4 + 4), n * 2.0)
+    kernel_row = {"name": "segmented_scan", "op": "count",
+                  "layout": "moe ranks", "ms": ms, "ms_back_to_back": b2b_ms,
+                  "plain_ms": plain_ms, "library_ms": None,
+                  "max_abs_err": err, "bound_ms": bnd, "bound_by": bby,
+                  "shape": [1, n], "runs": ["serve"]}
+    del params, res, plain, x
+    torch.cuda.empty_cache()
+
+    row["reduced_archs"] = reduced_archs_on_card(torch, dev)
+    return row, kernel_row
+
+
 def main() -> int:
     t_main = time.perf_counter()
     try:
@@ -2935,6 +3228,12 @@ def main() -> int:
     phases += shard_phases
     kernels += rows
     print(f"sharded phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    serve_row, row = serve_phase(torch, data, dev, wrappers, run_launches,
+                                 identity)
+    phases.append(serve_row)
+    kernels.append(row)
+    print(f"serve phase: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # groupagg as run (a) launches it: the flat layout, every op of (a) in
     # one launch over the unpadded stream

@@ -1,0 +1,12 @@
+"""qwen1.5-4b — dense GQA with QKV bias [hf:Qwen/Qwen1.5]."""
+from repro_torch.configs.base import ModelConfig, register
+
+
+@register("qwen1.5-4b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="qwen1.5-4b", family="dense",
+        num_layers=40, d_model=2560,
+        num_heads=20, num_kv_heads=20, d_ff=6912, vocab_size=151936,
+        qkv_bias=True,
+    )

@@ -284,6 +284,12 @@ _REGISTRY: dict[str, Callable[[], Combiner]] = {
     "argmax": lambda: _argminmax("argmax"),
 }
 
+#: operators supported by the paper's base engine configuration
+PAPER_BASE_OPS = ("min", "max", "sum", "count")
+#: + the "dc" configuration
+PAPER_DC_OPS = PAPER_BASE_OPS + ("distinct_count",)
+#: the built-in operators (those the kernels compute; a combiner registered
+#: later runs on the reference backend)
 ALL_OPS = tuple(_REGISTRY)
 
 
@@ -293,6 +299,13 @@ def get_combiner(name: str) -> Combiner:
     except KeyError:
         raise ValueError(f"unknown aggregate op {name!r}; have "
                          f"{sorted(_REGISTRY)}") from None
+
+
+def register_combiner(name: str, factory: Callable[[], Combiner]) -> None:
+    """Extension point — the paper's 'adaptable' knob for custom engines:
+    ``get_combiner(name)`` then returns ``factory()``, and queries may name
+    it (the kernel backends refuse it; ``reference`` runs it)."""
+    _REGISTRY[name] = factory
 
 
 def out_dtype(name: str, key_dtype: torch.dtype) -> torch.dtype:

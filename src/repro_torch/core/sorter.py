@@ -3,6 +3,7 @@
   * :func:`bitonic_sort`     — the network (power-of-two length,
                                multi-operand, lexicographic by the leading
                                ``num_keys`` operands), along the last axis
+  * :func:`bitonic_merge`    — merge the two sorted halves (one stage)
   * :func:`merge_presorted`  — multiway merge of n/run presorted runs
                                (log2(n/run) rounds of reverse + clean sweeps)
   * :func:`sort_pairs`       — (group, key) tuples with INT32_MAX padding
@@ -82,6 +83,17 @@ def _reverse_odd_runs(x: torch.Tensor, run: int) -> torch.Tensor:
     xr = x.reshape(lead + (n // (2 * run), 2, run))
     return torch.stack([xr[..., 0, :], torch.flip(xr[..., 1, :], dims=(-1,))],
                        dim=-2).reshape(lead + (n,))
+
+
+def bitonic_merge(operands, num_keys: int = 1) -> tuple:
+    """Merge the two ascending halves of each operand's last axis: one
+    merge stage (log2(n) sweeps) instead of the full re-sort.  The length
+    must be a power of two."""
+    operands = tuple(operands)
+    n = operands[0].shape[-1]
+    if n & (n - 1):
+        raise ValueError(f"bitonic_merge needs power-of-two length, got {n}")
+    return merge_presorted(operands, run=n // 2, num_keys=num_keys)
 
 
 def merge_presorted(operands, *, run: int, num_keys: int = 1) -> tuple:

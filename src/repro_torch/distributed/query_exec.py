@@ -56,7 +56,11 @@ from repro_torch.core import engine as _engine
 from repro_torch.core import eventtime as _eventtime
 from repro_torch.core import sorter
 from repro_torch.core import streaming as _streaming
-from repro_torch.core import swag as _swag
+from repro_torch.core.swag import (PARTIAL_OPS, _median_sorted_window,
+                                   _pane_windows, frame_panes, num_windows,
+                                   pane_compatible, pane_partials,
+                                   pane_table_channel, swag_multi,
+                                   window_tails)
 from repro_torch.core.combiners import tree_map
 from repro_torch.core.eventtime import merge_watermarks  # noqa: F401
 from repro_torch.obs import counters as _c
@@ -67,7 +71,7 @@ PartialTable = _engine.PartialTable
 
 #: ops whose group-by kernel output *is* the partial state (single-array
 #: state, identity finalize): the ``cuda`` engine path's local phase
-KERNEL_STATE_OPS = _swag.PARTIAL_OPS
+KERNEL_STATE_OPS = PARTIAL_OPS
 
 
 def mesh_num_shards(mesh) -> int:
@@ -383,7 +387,7 @@ def _engine_sharded(q, groups, keys, n_valid, *, num_shards, mesh, backend,
         # single-device rank pick reads
         with _trace.span("merge:runs") as sp:
             mg, mk = merge_sorted_runs(*_pad_pow2_shards(gs, ks))
-            t = _swag._median_sorted_window(mg[:n], mk[:n],
+            t = _median_sorted_window(mg[:n], mk[:n],
                                             interpolate=q.interpolate,
                                             n_valid=n_valid)
             sp.attach(t)
@@ -404,11 +408,11 @@ def _window_sharded(q, groups, keys, *, num_shards, mesh, backend):
     w = q.window
     ws, wa = w.ws, w.wa
     n = groups.shape[-1]
-    nw = _swag.num_windows(n, ws, wa)
+    nw = num_windows(n, ws, wa)
     names = q.op_names
 
     if backend in ("cuda", "cuda-panes") or nw == 0 \
-            or not (_swag.pane_compatible(ws, wa)
+            or not (pane_compatible(ws, wa)
                     or (ws == wa and ws & (ws - 1) == 0)) \
             or w.panes is False:
         return _window_partitioned(q, groups, keys, num_shards=num_shards,
@@ -416,8 +420,8 @@ def _window_sharded(q, groups, keys, *, num_shards, mesh, backend):
 
     p = ws // wa
     np_ = nw + p - 1
-    pg = _swag.frame_panes(groups.to(torch.int32), wa, np_)
-    pk = _swag.frame_panes(keys, wa, np_)
+    pg = frame_panes(groups.to(torch.int32), wa, np_)
+    pk = frame_panes(keys, wa, np_)
     # pad the pane axis so every shard owns the same number of panes
     npp = -(-np_ // num_shards) * num_shards
     if npp != np_:
@@ -428,14 +432,14 @@ def _window_sharded(q, groups, keys, *, num_shards, mesh, backend):
 
     # the single-device pane dispatch's predicate: both paths route every
     # op the same way, which the equality with single-device rests on
-    table_sel = _swag.pane_table_channel(q.ops, keys.dtype, p)
+    table_sel = pane_table_channel(q.ops, keys.dtype, p)
     table_ops = tuple(op for op, sel in zip(q.ops, table_sel) if sel)
     run_pairs = tuple((op, name) for (op, name), sel
                       in zip(zip(q.ops, names), table_sel) if not sel)
 
     if table_ops:
         sg, sk, tables = _map_shards(
-            functools.partial(_swag.pane_partials, ops=table_ops), mesh,
+            functools.partial(pane_partials, ops=table_ops), mesh,
             (pg, pk))
         tables = _tree(lambda x: x[:np_], tables)
     else:
@@ -459,11 +463,11 @@ def _window_sharded(q, groups, keys, *, num_shards, mesh, backend):
         values.update(tvals)
         shared = (tg, tvalid, tnum)
     if run_pairs:
-        wg = _swag._pane_windows(sg, nw, p)
-        wk = _swag._pane_windows(sk, nw, p)
+        wg = _pane_windows(sg, nw, p)
+        wk = _pane_windows(sk, nw, p)
         if p > 1:
             wg, wk = sorter.merge_presorted((wg, wk), run=wa, num_keys=2)
-        mg, mvalues, mvalid, mnum = _swag.window_tails(
+        mg, mvalues, mvalid, mnum = window_tails(
             wg, wk, run_pairs, interpolate=q.interpolate)
         values.update(mvalues)
         shared = (mg, mvalid, mnum)
@@ -480,7 +484,7 @@ def _window_partitioned(q, groups, keys, *, num_shards, mesh, backend):
     w = q.window
     ws, wa = w.ws, w.wa
     n = groups.shape[-1]
-    nw = _swag.num_windows(n, ws, wa)
+    nw = num_windows(n, ws, wa)
     names = q.op_names
     dev = groups.device
 
@@ -509,7 +513,7 @@ def _window_partitioned(q, groups, keys, *, num_shards, mesh, backend):
                 out = _swag_kernel_exec(g, k, ws=ws, wa=wa, ops=names,
                                         panes=backend == "cuda-panes")
             else:
-                out = _swag.swag_multi(g, k, ws=ws, wa=wa, ops=q.ops,
+                out = swag_multi(g, k, ws=ws, wa=wa, ops=q.ops,
                                        interpolate=q.interpolate,
                                        panes=w.panes)
             outs.append(tuple(out))

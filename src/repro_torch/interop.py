@@ -6,7 +6,8 @@ tables in that of ``repro.core.engine.PartialTable``, and streaming
 carries (one ``repro.core.segscan.Carry`` an op, or an event-time
 stream's (reorder buffer, pane store) pair, a sharded stream's buffers
 stacked with a leading shard axis) in the field order of the JAX
-package's — so the same inputs can go through both
+package's, and a model's weights and decode state from the JAX package's
+stacked runs — so the same inputs can go through both
 packages, their full outputs (padded tails included) be compared, and a
 stream begun in one continue in the other.  :func:`make_stream` needs only numpy (torch is
 imported by the functions that use it), so a process that holds JAX alone
@@ -254,3 +255,64 @@ def partial_table_to_numpy(table: PartialTable) -> dict:
                        for name, st in table.states.items()},
             "valid": _np_copy(table.valid),
             "num_groups": _np_copy(table.num_groups)}
+
+
+# ------------------------------------------------------------ LLM weights
+
+def _tensor(a, device):
+    """A numpy array (bfloat16 ones too, as ``ml_dtypes`` holds them) as a
+    tensor of the same type on ``device``."""
+    import torch
+
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def _tree(tree, fn):
+    """``fn`` over the leaves of nested dicts and lists."""
+    if isinstance(tree, dict):
+        return {k: _tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _unstack(runs, counts) -> list:
+    """Stacked runs (leaves ``[count, ...]``) as one tree a layer, in the
+    stack's order."""
+    return [_tree(run, lambda a, i=i: a[i])
+            for run, count in zip(runs, counts) for i in range(count)]
+
+
+def model_params_from_numpy(cfg, tree, device="cuda"):
+    """A :class:`repro_torch.models.model.Model` holding the JAX package's
+    parameters of ``cfg`` (``repro.models.model.init_model``'s tree with
+    its leaves as numpy arrays): each stacked run split along axis 0 into
+    its layers, the padded ``embed`` and ``lm_head`` kept, zamba2's shared
+    block one block, whisper's encoder runs its layers."""
+    from repro_torch.models import model as MDL
+
+    counts = [count for _, count in MDL.layer_runs(cfg)]
+    out = {k: tree[k] for k in ("embed", "final_norm", "lm_head",
+                                "shared_attn") if k in tree}
+    out["layers"] = _unstack(tree["runs"], counts)
+    if "encoder" in tree:
+        out["encoder"] = {"layers": _unstack(tree["encoder"]["runs"],
+                                             [cfg.encoder_layers]),
+                          "final_norm": tree["encoder"]["final_norm"]}
+    return MDL.Model(cfg, _tree(out, lambda a: _tensor(a, device)))
+
+
+def decode_state_from_numpy(cfg, state, device="cuda") -> dict:
+    """A decode state of the port from the JAX package's
+    (``init_decode_state`` / ``decode_step``'s, leaves as numpy): each
+    run's stacked caches and states split into one a layer."""
+    from repro_torch.models import model as MDL
+
+    counts = [count for _, count in MDL.layer_runs(cfg)]
+    return {"layers": [_tree(st, lambda a: _tensor(a, device))
+                       for st in _unstack(state["layers"], counts)],
+            "pos": _tensor(state["pos"], device)}

@@ -30,21 +30,34 @@ package's registry).
 
 On CPU tensors the kernel backends run each kernel's plain torch version,
 which is how the tests reach them without a card.  Capability probes and
-their messages follow the JAX package's (``repro/kernels/registry.py``).
+their messages follow the JAX package's (``repro/kernels/registry.py``);
+every kernel backend refuses a combiner registered with
+:func:`repro_torch.core.combiners.register_combiner`.
+
+Selection precedence: the explicit ``backend=`` argument, then the
+``REPRO_TORCH_BACKEND`` environment variable, then ``auto``
+(:func:`resolve_backend`).  The variable is the port's own: the JAX
+package reads ``REPRO_BACKEND``, whose names (``pallas*``) are not the
+port's.  New backends register with :func:`register_backend`.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Callable
 
 import torch
 
+from repro_torch.core.combiners import ALL_OPS
 from repro_torch.core.panestore import DIRECT_OPS, partial_path_names
 from repro_torch.core.swag import pane_compatible
 from repro_torch.kernels.eventtime.kernel import MAX_REORDER_CAPACITY
 from repro_torch.kernels.segscan.kernel import SEGSCAN_OPS
 from repro_torch.kernels.swag.kernel import (MAX_ROW, SMEM_BUDGET,
                                              time_scan_smem)
+
+#: environment variable consulted when no explicit backend is passed
+BACKEND_ENV = "REPRO_TORCH_BACKEND"
 
 #: the reason every global-window kernel backend gives a streaming window
 STREAM_WINDOW = ("streaming windows thread a pane store as their carry — "
@@ -61,6 +74,22 @@ class Backend:
 
 def _ref_supports(q) -> str | None:
     return None  # the reference path is total — it is the oracle
+
+
+def _registered_ops(q) -> str | None:
+    """The kernel backends compute the built-in ops only."""
+    custom = sorted(set(q.op_names) - set(ALL_OPS) - {"median"})
+    if custom:
+        return (f"{custom} are registered combiners, which the kernels do "
+                f"not compute — use the reference backend")
+    return None
+
+
+def _kernel_probe(fn):
+    """A kernel backend's probe: registered combiners refused first."""
+    def supports(q) -> str | None:
+        return _registered_ops(q) or fn(q)
+    return supports
 
 
 def _cuda_window_common(q) -> str | None:
@@ -190,10 +219,15 @@ def pergroup_kernel_path(query, key_dtype: torch.dtype | None = None) -> str:
 
 BACKENDS: dict[str, Backend] = {b.name: b for b in (
     Backend("reference", _ref_supports),
-    Backend("cuda", _cuda_supports),
-    Backend("cuda-panes", _cuda_panes_supports),
-    Backend("cuda-panestore", _cuda_panestore_supports),
+    Backend("cuda", _kernel_probe(_cuda_supports)),
+    Backend("cuda-panes", _kernel_probe(_cuda_panes_supports)),
+    Backend("cuda-panestore", _kernel_probe(_cuda_panestore_supports)),
 )}
+
+
+def register_backend(backend: Backend) -> None:
+    """Extension point: plug a new engine under the fixed Query spec."""
+    BACKENDS[backend.name] = backend
 
 
 def available_backends() -> tuple[str, ...]:
@@ -215,6 +249,26 @@ def unsupported_error(name: str, reason: str) -> ValueError:
     return ValueError(
         f"backend {name!r} cannot run this query: {reason} "
         f"[available backends: {', '.join(sorted(available_backends()))}]")
+
+
+def resolve_backend(explicit: str | None = None) -> str:
+    """The selection precedence: ``explicit``, else :data:`BACKEND_ENV`,
+    else ``"auto"`` (which :func:`choose_backend` resolves a query).  Both
+    sources are validated here, at plan time: an unknown explicit name and
+    an unknown value of the variable each raise with the available
+    backends, the latter naming the variable (it is set far from the
+    call)."""
+    if explicit is not None:
+        if explicit != "auto":
+            get_backend(explicit)  # validate early
+        return explicit
+    name = os.environ.get(BACKEND_ENV) or "auto"
+    if name != "auto" and name not in BACKENDS:
+        raise ValueError(
+            f"{BACKEND_ENV}={name!r} names no registered backend "
+            f"[available backends: "
+            f"{', '.join(sorted(available_backends()))}]")
+    return name
 
 
 def _on_cpu(devices) -> bool:

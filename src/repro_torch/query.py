@@ -407,8 +407,10 @@ def _validate_sharded(query: Query, backend: str) -> None:
 
 def plan(query: Query, *, backend: str | None = None, device="cuda",
          num_shards: int = 1, devices=None) -> Plan:
-    """Validate ``query``, choose a backend (``None`` means ``auto``) and
-    lay out the stage pipeline.  Raises ``ValueError`` when an explicitly
+    """Validate ``query``, choose a backend and lay out the stage pipeline.
+    Precedence: ``backend``, else the ``REPRO_TORCH_BACKEND`` environment
+    variable, else ``auto`` (``kernels.registry.resolve_backend``: an
+    unknown name raises here).  Raises ``ValueError`` when an explicitly
     requested backend cannot run the query (never a silent fallback).
 
     ``num_shards > 1`` plans the two-phase pipeline (``partition -> local
@@ -461,7 +463,7 @@ def plan(query: Query, *, backend: str | None = None, device="cuda",
         # stream fails on the missing carry
         raise ValueError("streaming median has no mergeable carry")
 
-    name = "auto" if backend is None else backend
+    name = _registry.resolve_backend(backend)
     note = ""
     if name == "auto":
         name = _registry.choose_backend(

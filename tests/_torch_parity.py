@@ -209,3 +209,73 @@ def assert_result_same(want, got, *, float_keys=False):
     for name in want.values:
         assert_same(want.values[name], got.values[name], name=name,
                     float_keys=float_keys)
+
+
+# ------------------------------------------------ the LLM serving path (9a)
+
+#: the float32 tolerance of the model tests: the port multiplies and sums
+#: in another order than XLA (matrix products, einsums, scans)
+LLM_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def llm_config(arch, **overrides):
+    """The JAX package's reduced ``arch`` in float32 (overrides first)."""
+    from repro.configs import get_config
+
+    return get_config(arch).reduced(**{"dtype": "float32", **overrides})
+
+
+def _leaf(name: str, shape, rng) -> np.ndarray:
+    """A parameter drawn with numpy: matrices N(0, 1/fan_in), scales about
+    one, the rest small and nonzero (biases, gates, bonuses), so that every
+    path of a block carries signal (the JAX init zeroes several)."""
+    n = rng.standard_normal(shape).astype(np.float32)
+    if name in ("scale", "gn_scale", "d_skip"):
+        return 1.0 + 0.1 * n
+    if name == "w_base":
+        return -6.0 + 0.5 * n
+    if name == "a_log":
+        return np.log(np.linspace(1.0, 16.0, shape[0],
+                                  dtype=np.float32)) + 0.1 * n
+    if name in ("gate_attn", "gate_mlp", "mix_k", "mix_r"):
+        return 0.5 + 0.1 * n
+    if len(shape) >= 2 and name != "u":
+        return n / np.sqrt(shape[-2])
+    return 0.1 * n
+
+
+def jax_params(cfg, seed: int = 0):
+    """The parameter tree of ``repro.models.model.init_model(key, cfg)``
+    (its shapes and dtypes traced, not run: no compile), every leaf drawn
+    with numpy from ``seed`` (:func:`_leaf`)."""
+    import jax
+
+    from repro.models import model as MDL
+
+    rng = np.random.default_rng(seed)
+    shapes = jax.eval_shape(lambda key: MDL.init_model(key, cfg),
+                            jax.random.PRNGKey(0))
+    return jax.tree_util.tree_map_with_path(
+        lambda path, s: _leaf(path[-1].key, s.shape, rng).astype(s.dtype),
+        shapes)
+
+
+def llm_memory(cfg, batch: int, rng):
+    """The memory inputs of a float32 ``cfg``: ``(memory,
+    encoder_embeds)``, numpy (``None`` where the family has none)."""
+    if cfg.is_encoder_decoder:
+        e = 0.5 * rng.standard_normal((batch, cfg.encoder_seq, cfg.d_model))
+        return None, e.astype(np.float32)
+    if cfg.cross_attn_every:
+        m = 0.5 * rng.standard_normal((batch, cfg.num_image_tokens,
+                                       cfg.d_model))
+        return m.astype(np.float32), None
+    return None, None
+
+
+def assert_close(got, want, *, name="", **tol):
+    """Float arrays within ``tol`` (default :data:`LLM_TOL`), compared in
+    float32."""
+    np.testing.assert_allclose(np.asarray(got, np.float32),
+                               np.asarray(want, np.float32),
+                               err_msg=name, **(tol or LLM_TOL))

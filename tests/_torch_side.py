@@ -1132,3 +1132,358 @@ def domain_stats(domains, values, ops):
     from repro_torch.data import domain_stats as run
 
     return _np(run(domains, values, ops, device="cpu"))
+
+
+# ------------------------------------------- slice 9a: the LLM serving path
+
+def _port_in(x):
+    """numpy arrays (in dicts, tuples and lists too) as CPU tensors."""
+    if isinstance(x, np.ndarray):
+        from repro_torch.interop import _tensor
+        return _tensor(x, "cpu")
+    if isinstance(x, dict):
+        return {k: _port_in(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_port_in(v) for v in x)
+    return x
+
+
+def _port_out(x):
+    """Tensors (bfloat16 as float32) as numpy; named tuples as dicts, so
+    nothing of the port's types crosses back."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    if isinstance(x, tuple) and hasattr(x, "_asdict"):
+        return {k: _port_out(v) for k, v in x._asdict().items()}
+    if isinstance(x, dict):
+        return {k: _port_out(v) for k, v in x.items()}
+    if isinstance(x, (tuple, list)):
+        return type(x)(_port_out(v) for v in x)
+    return x
+
+
+def call(module, name, *args, **kwargs):
+    """``module.name(*args, **kwargs)`` of the port on CPU tensors, in and
+    out as numpy."""
+    import importlib
+
+    fn = getattr(importlib.import_module(module), name)
+    return _port_out(fn(*_port_in(args), **_port_in(kwargs)))
+
+
+def _llm(arch, overrides, tree):
+    from repro_torch.configs import get_config
+    from repro_torch.interop import model_params_from_numpy
+
+    cfg = get_config(arch).reduced(**overrides)
+    return cfg, model_params_from_numpy(cfg, tree, "cpu")
+
+
+def _memory(cfg, model, memory, encoder_embeds):
+    from repro_torch.models import model as MDL
+
+    if encoder_embeds is not None:
+        return MDL.encode(model, cfg, _port_in(encoder_embeds))
+    return None if memory is None else _port_in(memory)
+
+
+def llm_forward(arch, overrides, tree, tokens, *, memory=None,
+                encoder_embeds=None):
+    """The port's forward, loss and prefill step of a reduced ``arch``
+    holding the JAX parameters ``tree``."""
+    from repro_torch.distributed.steps import make_prefill_step
+    from repro_torch.models import model as MDL
+
+    cfg, m = _llm(arch, overrides, tree)
+    mem = _memory(cfg, m, memory, encoder_embeds)
+    toks = _port_in(tokens)
+    logits, aux = MDL.forward(m, cfg, toks, memory=mem)
+    batch = {"tokens": toks, "labels": toks}
+    if encoder_embeds is not None:
+        batch["encoder_embeds"] = _port_in(encoder_embeds)
+    elif memory is not None:
+        batch["memory"] = mem
+    loss, parts = MDL.loss_fn(m, cfg, batch, ce_chunk=4)
+    prefill, _ = make_prefill_step(cfg)
+    return _port_out({"logits": logits, "aux": aux, "loss": loss,
+                      "parts": parts, "prefill": prefill(m, batch)})
+
+
+def llm_decode(arch, overrides, tree, tokens, *, max_len, memory=None,
+               encoder_embeds=None, state=None):
+    """Each step's logits [B, S, V] of the port's decode steps over
+    ``tokens`` [B, S], from a fresh state or from the JAX decode state
+    ``state``; and the step count the state ends at."""
+    from repro_torch.interop import decode_state_from_numpy
+    from repro_torch.models import model as MDL
+
+    cfg, m = _llm(arch, overrides, tree)
+    if state is not None:
+        st = decode_state_from_numpy(cfg, state, "cpu")
+    else:
+        mem = _memory(cfg, m, memory, encoder_embeds)
+        st = MDL.init_decode_state(m, cfg, tokens.shape[0], max_len,
+                                   memory=mem)
+        if mem is not None:
+            st = MDL.precompute_cross_kv(m, cfg, st, mem)
+    out = []
+    for t in range(tokens.shape[1]):
+        lg, st = MDL.decode_step(m, cfg, _port_in(tokens[:, t]), st)
+        out.append(lg)
+    return _port_out(torch.stack(out, dim=1)), int(st["pos"])
+
+
+def llm_serve(arch, overrides, tree, prompts, gen, forced=None):
+    """The port's ``generate`` (greedy) of a reduced ``arch`` holding the
+    JAX parameters: its tokens and every step's logits."""
+    from repro_torch.launch.serve import generate
+
+    cfg, m = _llm(arch, overrides, tree)
+    res = generate(cfg, m, prompts, gen, forced=forced)
+    return _port_out(res.tokens), _port_out(res.logits)
+
+
+def llm_init_tree(arch):
+    """The port's own initialisation of reduced ``arch``: {parameter name:
+    shape} and the parameter count."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as MDL
+    from repro_torch.models.params import count_params, param_bytes
+
+    cfg = get_config(arch).reduced()
+    m = MDL.init_model(cfg, seed=0, device="cpu")
+    return ({k: tuple(v.shape) for k, v in m.named_parameters()},
+            count_params(m), param_bytes(m))
+
+
+def rwkv_steps(p, x, chunk):
+    """RWKV time mix over the sequence and token by token."""
+    from repro_torch.models import rwkv as R
+
+    p, x = _port_in(p), _port_in(x)
+    seq, _ = R.rwkv_time_mix(p, x, chunk=chunk)
+    st = R.init_rwkv_state(x.shape[0], x.shape[2], x.dtype, "cpu")
+    st = {"shift_t": st["shift_t"], "S": st["S"]}
+    outs = []
+    for t in range(x.shape[1]):
+        y, st = R.rwkv_time_mix_step(p, x[:, t], st)
+        outs.append(y)
+    return _port_out((seq, torch.stack(outs, dim=1)))
+
+
+def mamba_steps(p, x, ssm_state, chunk):
+    """Mamba2 mixing over the sequence and token by token."""
+    from repro_torch.models import mamba as M
+
+    p, x = _port_in(p), _port_in(x)
+    seq, _ = M.mamba_mix(p, x, ssm_state=ssm_state, chunk=chunk)
+    st = M.init_mamba_state(x.shape[0], x.shape[2], ssm_state, x.dtype, "cpu")
+    outs = []
+    for t in range(x.shape[1]):
+        y, st = M.mamba_mix_step(p, x[:, t], st, ssm_state=ssm_state)
+        outs.append(y)
+    return _port_out((seq, torch.stack(outs, dim=1)))
+
+
+def cache_decode(q, k, v, ring, size, first=0):
+    """decode_attend over a cache appended one step at a time, after a
+    prefill of the ``first`` steps."""
+    from repro_torch.models import attention as A
+
+    q, k, v = _port_in((q, k, v))
+    cache = A.init_cache(q.shape[0], size, k.shape[2], k.shape[3],
+                         k.dtype, "cpu")
+    if first:
+        cache = A.cache_prefill(cache, k[:, :first], v[:, :first])
+    outs = []
+    for i in range(first, q.shape[1]):
+        cache = A.cache_append(cache, k[:, i:i + 1], v[:, i:i + 1],
+                               ring=ring)
+        outs.append(A.decode_attend(q[:, i:i + 1], cache))
+    return _port_out(torch.cat(outs, dim=1))
+
+
+def moe_parts(p, x, num_experts, k, capacity_factor, mlp_kind):
+    """``moe_sorted`` and ``moe_onehot`` of the port, and the sorted
+    dispatch's integers: experts, sorted ids, ranks, kept, slots."""
+    from repro_torch.models import moe as MOE
+
+    p, x = _port_in(p), _port_in(x)
+    kw = dict(num_experts=num_experts, num_experts_per_tok=k,
+              capacity_factor=capacity_factor, mlp_kind=mlp_kind)
+    experts, _, _ = MOE.route(p, x, k)
+    cap = MOE._capacity(x.shape[0], num_experts, k, capacity_factor)
+    return _port_out({"sorted": MOE.moe_sorted(p, x, **kw),
+                      "onehot": MOE.moe_onehot(p, x, **kw),
+                      "experts": experts,
+                      "dispatch": MOE.dispatch(experts, num_experts, cap)})
+
+
+def query_steps(ops, batches, *, backend, window=None, streaming=False,
+                mesh=None, shard=False):
+    """``make_query_step`` on the CPU: each batch's result (numpy) through
+    the step, the state threaded, and the plan's backend."""
+    from repro_torch.distributed.steps import make_query_step
+
+    q = tq.Query(ops=ops, streaming=streaming,
+                 window=None if window is None else tq.Window(**window))
+    step, p = make_query_step(q, backend=backend, device="cpu", mesh=mesh,
+                              shard=shard)
+    state = tq.init_stream_state(p) if streaming else None
+    out = []
+    for g, k in batches:
+        if streaming:
+            res, state = step(g, k, state)
+        else:
+            res = step(g, k)
+        r = result_to_numpy(res)
+        out.append(SimpleNamespace(groups=r.groups, values=r.values,
+                                   valid=r.valid, num_groups=r.num_groups))
+    return p.backend, out
+
+
+def serve_main(argv):
+    """``python -m repro_torch.launch.serve`` in the child: its exit code
+    and what it printed."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.serve import main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def configs_table():
+    """Every registered config of the port, full and reduced, as dicts;
+    the shape grid; the applicability matrix; the engine configs."""
+    import dataclasses
+
+    from repro_torch import configs as C
+    from repro_torch.configs import paper_engine
+
+    archs = C.list_archs()
+    return {
+        "archs": archs,
+        "full": {a: dataclasses.asdict(C.get_config(a)) for a in archs},
+        "reduced": {a: dataclasses.asdict(C.get_config(a).reduced())
+                    for a in archs},
+        "shapes": {n: dataclasses.asdict(s) for n, s in C.SHAPES.items()},
+        "applicable": {(a, n): C.base.shape_applicable(C.get_config(a), s)[0]
+                       for a in archs for n, s in C.SHAPES.items()},
+        "engine": [dataclasses.asdict(paper_engine.config()),
+                   dataclasses.asdict(paper_engine.config_dc()),
+                   paper_engine.config_dc().op_list],
+    }
+
+
+# ------------------------------------------ public names and the backend
+
+def _sumsq():
+    """A user's monoid: the sum of squared keys (int32 wraps as JAX's)."""
+    from repro_torch.core.combiners import Combiner
+
+    return Combiner(
+        name="sumsq", lift=lambda k: k * k, op=lambda a, b: a + b,
+        finalize=lambda s: s,
+        identity=lambda shape, dtype, device="cpu": torch.zeros(
+            tuple(shape), dtype=dtype, device=device))
+
+
+def registered_combiner(g, k, window):
+    """``register_combiner("sumsq", ...)`` in the port: the reference's
+    engine and window results of a query naming it (numpy), and each
+    kernel backend's refusal."""
+    from repro_torch.core import register_combiner
+    from repro_torch.kernels import registry
+
+    register_combiner("sumsq", _sumsq)
+    ops = ("sumsq", "sum")
+    out = {"engine": execute(ops, g, k, backend="reference"),
+           "window": execute(ops, g, k, backend="reference",
+                             window=window)}
+    for name in ("cuda", "cuda-panes", "cuda-panestore"):
+        for w in (None, window, dict(window, ws_per_group=window["ws"])):
+            q = _query(ops, w, None)
+            out[name, w is None, bool(w and "ws_per_group" in w)] = \
+                registry.BACKENDS[name].supports(q)
+    return out
+
+
+def _outcome(fn):
+    """``fn()``'s value, or the type and message of what it raised."""
+    try:
+        return fn()
+    except ValueError as e:
+        return ("ValueError", str(e))
+
+
+def backend_env_cases():
+    """The port's backend precedence under ``REPRO_TORCH_BACKEND`` (the
+    cases of ``tests/test_obs.py::test_env_backend_validated_eagerly``),
+    with the JAX package's ``REPRO_BACKEND`` set beside it; the process's
+    environment is restored afterwards."""
+    import os
+
+    from repro_torch.kernels import registry
+
+    q = tq.Query(ops=("sum",))
+    saved = {v: os.environ.get(v) for v in (registry.BACKEND_ENV,
+                                            "REPRO_BACKEND")}
+
+    def plan():
+        return tq.plan(q, device="cpu").backend
+
+    out = {"name": registry.BACKEND_ENV}
+    try:
+        os.environ["REPRO_BACKEND"] = "pallas"  # the JAX package's: unread
+        os.environ[registry.BACKEND_ENV] = "no-such-engine"
+        out["bad"] = (_outcome(registry.resolve_backend), _outcome(plan))
+        os.environ[registry.BACKEND_ENV] = "cuda"
+        out["cuda"] = (registry.resolve_backend(), plan(),
+                       registry.resolve_backend("reference"),
+                       tq.plan(q, backend="reference", device="cpu").backend)
+        del os.environ[registry.BACKEND_ENV]
+        out["unset"] = (registry.resolve_backend(), plan())
+        out["bogus"] = _outcome(lambda: registry.resolve_backend("bogus"))
+        probe = registry.Backend("probe-only", lambda query: None)
+        registry.register_backend(probe)
+        try:
+            out["registered"] = (registry.resolve_backend("probe-only"),
+                                 "probe-only" in
+                                 registry.available_backends())
+        finally:
+            del registry.BACKENDS["probe-only"]
+    finally:
+        for var, value in saved.items():
+            if value is None:
+                os.environ.pop(var, None)
+            else:
+                os.environ[var] = value
+    return out
+
+
+def core_names(names):
+    """Each name of ``repro_torch.core``: the module that defines it and
+    its kind (function, class, module or value)."""
+    import inspect
+
+    import repro_torch.core as core
+
+    out = {}
+    for name in names:
+        obj = getattr(core, name, None)
+        if obj is None:
+            out[name] = None
+        elif inspect.ismodule(obj):
+            out[name] = (obj.__name__, "module")
+        elif inspect.isclass(obj) or inspect.isfunction(obj):
+            out[name] = (obj.__module__, type(obj).__name__)
+        else:
+            out[name] = ("", repr(obj))
+    from repro_torch.core.swag import frame_panes  # the module's names
+    out["_swag_module"] = frame_panes.__module__
+    return out

@@ -1998,3 +1998,71 @@ def test_sharded_event_time_stream_on_card(cuda):
     assert tuple(wr.launches for wr in wrappers) == (1, 1, 1)
     _same_stream_result(amesh.flush(), fin, "flush")
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------ the LLM serving path (9a)
+
+def _sorted_experts(case, device):
+    import torch
+
+    rng = np.random.default_rng(9)
+    experts = {
+        "ragged": lambda: rng.integers(0, 8, 37 * 2),     # N*k = 74
+        "one_expert": lambda: np.full(4096 * 2 + 6, 3),   # crosses tiles
+        "empty_experts": lambda: rng.choice([0, 5, 7], 1000),
+        "many_experts": lambda: rng.integers(0, 128, 5000),
+        "one_assignment": lambda: np.array([6]),
+    }[case]()
+    t = torch.from_numpy(experts.astype(np.int32)).to(device)
+    return torch.sort(t, stable=True).values
+
+
+@pytest.mark.parametrize("case", ["ragged", "one_expert", "empty_experts",
+                                  "many_experts", "one_assignment"])
+def test_moe_ranks_kernel_vs_plain(cuda, case):
+    """The MoE layers' ranks within each expert: one launch of the
+    segmented-scan kernel, equal to the plain scan's; the whole dispatch
+    (ranks, kept flags, slots) equal to the CPU's."""
+    import torch
+
+    from repro_torch.core.segscan import segment_starts
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.models import moe as MOE
+
+    se = _sorted_experts(case, cuda)
+    starts = segment_starts(se)
+    ssk.segscan.launches = 0
+    got = MOE.rank_in_expert(starts)
+    assert ssk.segscan.launches == 1
+    assert_same(got, MOE.rank_in_expert_plain(starts), what=case)
+    card = MOE.dispatch(se, 128, 8)
+    cpu = MOE.dispatch(se.cpu(), 128, 8)
+    for name in ("experts", "rank", "keep", "slot"):
+        assert_same(getattr(card, name), getattr(cpu, name), what=name)
+    torch.cuda.synchronize()
+
+
+def test_reduced_serve_kernel_vs_plain_scan(cuda):
+    """A reduced mixtral (bf16) served on the card with the kernel's ranks
+    equals the same run with the plain scan's, token for token and logit
+    for logit; one kernel launch a MoE layer a step."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.segscan import kernel as ssk
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import model as MDL
+    from repro_torch.models import moe as MOE
+
+    cfg = get_config("mixtral-8x7b").reduced()
+    params = MDL.init_model(cfg, seed=3, device=cuda)
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (4, 8))
+    ssk.segscan.launches = 0
+    got = generate(cfg, params, prompts, 12)
+    torch.cuda.synchronize()
+    assert ssk.segscan.launches == cfg.num_layers * (8 + 12)
+    want = generate(cfg, params, prompts, 12,
+                    rank_scan=MOE.rank_in_expert_plain)
+    assert torch.equal(got.tokens, want.tokens)
+    assert torch.equal(got.logits, want.logits)
+    assert torch.isfinite(got.logits.float()).all()
